@@ -1,0 +1,380 @@
+#!/usr/bin/env python3
+"""The PyTorch port's main path on one CUDA card (an H100), end to end.
+
+    python3 chip_smoke.py                # as a check runs it
+    python3 chip_smoke.py --profile      # also trace each training round
+
+Builds the port's CUDA kernels from ``src/repro_torch/csrc`` with nvcc for
+sm_90a, holds each kernel against its plain PyTorch version on the card,
+times both (and the one PyTorch call that computes the same function, where
+there is one), then runs two federated rounds of qwen2-7b at its published
+widths (one layer, random weights from a seed) through ``SDFLMQTrainer``
+and shows, by the kernels' launch counters, that the rounds went through
+both kernels.  Each phase prints one JSON line; then one line lists every
+kernel, one line gives the card's name and power limit as nvidia-smi
+reports them, and the last line is ``{"ok": true, "device": ...}``.
+Any failure raises and exits non-zero; nothing runs on the CPU.
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import math
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent
+OUT = ROOT / "chiprun_out"
+PEAK_BYTES_S = 3.35e12        # H100 SXM HBM3
+PEAK_BF16_FLOP_S = 989e12     # H100 SXM dense bf16 tensor cores
+
+
+def emit(obj):
+    print(json.dumps(obj), flush=True)
+
+
+def smi_line() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60)
+    return out.stdout.strip().splitlines()[0]
+
+
+def time_ms(torch, fn, iters: int, warmup: int = 1) -> float:
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+# --------------------------------------------------------------------------
+# phases
+# --------------------------------------------------------------------------
+
+def phase_device(torch, dev, smi):
+    from repro_torch.kernels import _build
+    t0 = time.perf_counter()
+    _build.load()
+    build_s = time.perf_counter() - t0
+    OUT.mkdir(exist_ok=True)
+    (OUT / "chip_smoke_build.log").write_text(_build.build_log)
+    ptxas = [ln.strip() for ln in _build.build_log.splitlines()
+             if "registers" in ln or "spill" in ln]
+    emit({"phase": "device", "nvidia_smi": smi,
+          "kind": torch.cuda.get_device_name(dev),
+          "capability": list(torch.cuda.get_device_capability(dev)),
+          "torch": torch.__version__, "cuda": torch.version.cuda,
+          "python": sys.version.split()[0], "build_s": build_s,
+          "ptxas": ptxas})
+
+
+def phase_fedavg(torch, dev):
+    from repro_torch.kernels.fedavg import ops
+    from repro_torch.kernels.fedavg.ref import fedavg_ref
+    gen = torch.Generator(device=dev).manual_seed(0)
+    w = torch.tensor([3.0, 1.0, 2.0, 4.0], device=dev)
+    cases = [("path_largest_leaf", 4, 152064 * 3584, torch.bfloat16),
+             ("norm_leaf", 4, 3584, torch.float32),
+             ("ragged", 4, 1_000_003, torch.float32)]
+    rows = []
+    for name, K, N, dtype in cases:
+        x = torch.randn((K, N), generator=gen, device=dev, dtype=dtype)
+        got = ops.fedavg(x, w)
+        want = fedavg_ref(x, w)
+        torch.cuda.synchronize()
+        err = (got.float() - want.float()).abs()
+        if dtype == torch.bfloat16:     # at most one bf16 ulp
+            ulp = torch.exp2(torch.floor(torch.log2(
+                want.float().abs().clamp_min(2.0 ** -126))) - 7)
+            ok = bool((err <= ulp).all())
+        else:
+            ok = bool((err <= 1e-6 + 1e-6 * want.float().abs()).all())
+        esize = x.element_size()
+        nbytes = (K * N + N) * esize
+        ms = time_ms(torch, lambda: ops.fedavg(x, w), 10 if N > 1e8 else 50)
+        plain_ms = time_ms(torch, lambda: fedavg_ref(x, w),
+                           3 if N > 1e8 else 20)
+        row = {"case": name, "K": K, "N": N, "dtype": str(dtype),
+               "max_abs_err": float(err.max()),
+               "bit_exact": bool(torch.equal(got, want)),
+               "kernel_ms": ms, "plain_ms": plain_ms,
+               "bound_ms": nbytes / PEAK_BYTES_S * 1e3,
+               "gb_s": nbytes / (ms * 1e-3) / 1e9}
+        emit({"phase": "fedavg", **row})
+        if not ok:
+            raise AssertionError(f"fedavg kernel disagrees: {row}")
+        rows.append(row)
+        del x, got, want, err
+        torch.cuda.empty_cache()
+    return rows[0]
+
+
+def _flash_flops(B, Sq, Sk, H, hd, causal, window, q_offset=0, kv_offset=0):
+    """4*hd flops per unmasked (q, k) pair (QK^T and PV)."""
+    import numpy as np
+    qp = q_offset + np.arange(Sq)[:, None]
+    kp = kv_offset + np.arange(Sk)[None, :]
+    ok = np.ones((Sq, Sk), bool)
+    if causal:
+        ok &= qp >= kp
+    if window is not None:
+        ok &= qp - kp < window
+    return 4.0 * B * H * hd * float(ok.sum())
+
+
+def phase_flash(torch, dev):
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attn import ops
+    from repro_torch.kernels.flash_attn.ref import attention_ref
+    from repro_torch.models.attention import flash_attention, full_attention
+    gen = torch.Generator(device=dev).manual_seed(1)
+
+    def qkv(B, Sq, Sk, H, Kv, hd, dtype):
+        mk = lambda *s: torch.randn(s, generator=gen, device=dev, dtype=dtype)
+        return mk(B, Sq, H, hd), mk(B, Sk, Kv, hd), mk(B, Sk, Kv, hd)
+
+    cases = [  # name, B, Sq, Sk, H, Kv, hd, dtype, causal, window, q_offset
+        ("path", 1, 2048, 2048, 28, 4, 128, torch.bfloat16, True, None, 0),
+        ("window", 2, 300, 300, 4, 2, 64, torch.float32, True, 64, 0),
+        ("q_offset", 1, 64, 192, 4, 2, 64, torch.float32, True, None, 128),
+    ]
+    path_row = None
+    for name, B, Sq, Sk, H, Kv, hd, dtype, causal, window, qo in cases:
+        q, k, v = qkv(B, Sq, Sk, H, Kv, hd, dtype)
+        o, lse = ops.flash_fwd(q, k, v, causal, window, qo)
+        o_ref, lse_ref = attention_ref(q, k, v, causal, window, qo)
+        torch.cuda.synchronize()
+        o_err = float((o.float() - o_ref.float()).abs().max())
+        lse_err = float((lse - lse_ref).abs().max())
+        # bf16 o: one bf16 ulp of values below 2; f32: summation order
+        o_tol, lse_tol = (2e-2, 1e-3) if dtype == torch.bfloat16 \
+            else (2e-5, 2e-5)
+        row = {"case": name, "shape_q": [B, Sq, H, hd],
+               "shape_kv": [B, Sk, Kv, hd], "dtype": str(dtype),
+               "causal": causal, "window": window, "q_offset": qo,
+               "o_max_abs_err": o_err, "lse_max_abs_err": lse_err,
+               "o_tol": o_tol, "lse_tol": lse_tol}
+        if name == "path":
+            flops = _flash_flops(B, Sq, Sk, H, hd, causal, window)
+            nbytes = (q.numel() + k.numel() + v.numel() + o.numel()) \
+                * q.element_size() + lse.numel() * 4
+            ms = time_ms(torch, lambda: ops.flash_fwd(q, k, v, causal), 10)
+            plain_ms = time_ms(
+                torch, lambda: attention_ref(q, k, v, causal), 3)
+            qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+            lib_ms = time_ms(torch, lambda: F.scaled_dot_product_attention(
+                qt, kt, vt, is_causal=True, enable_gqa=True), 10)
+            row.update({
+                "kernel_ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
+                "flops": flops, "bytes": nbytes,
+                "bound_ms": max(flops / PEAK_BF16_FLOP_S,
+                                nbytes / PEAK_BYTES_S) * 1e3,
+                "bound_by": "operations" if flops / PEAK_BF16_FLOP_S
+                > nbytes / PEAK_BYTES_S else "bytes",
+                "tflop_s": flops / (ms * 1e-3) / 1e12})
+            path_row = row
+        emit({"phase": "flash_fwd", **row})
+        if o_err > o_tol or lse_err > lse_tol:
+            raise AssertionError(f"flash kernel disagrees: {row}")
+        del q, k, v, o, lse, o_ref, lse_ref
+
+    # gradient: kernel forward + plain backward vs the fully plain path
+    q, k, v = (t.requires_grad_() for t in qkv(1, 256, 256, 4, 2, 64,
+                                               torch.float32))
+    pos = torch.arange(256, device=dev)
+    cot = torch.randn((1, 256, 4, 64), generator=gen, device=dev)
+    grads = []
+    for fn in (lambda: flash_attention(q, k, v, True, None, 64),
+               lambda: full_attention(q, k, v, pos, pos, causal=True)):
+        q.grad = k.grad = v.grad = None
+        (fn() * cot).sum().backward()
+        grads.append([t.grad.clone() for t in (q, k, v)])
+    g_err = max(float((a - b).abs().max()) for a, b in zip(*grads))
+    emit({"phase": "flash_grad", "shape_q": [1, 256, 4, 64],
+          "max_abs_err": g_err, "tol": 1e-4})
+    if g_err > 1e-4:
+        raise AssertionError(f"flash gradient disagrees: {g_err}")
+    return path_row
+
+
+def _dev_us(e) -> float:
+    for name in ("self_device_time_total", "self_cuda_time_total"):
+        if hasattr(e, name):
+            return float(getattr(e, name))
+    return 0.0
+
+
+def summarize_profile(torch, prof, r: int) -> dict:
+    """Device busy time and the top kernels / host ops of one profiled
+    round; the full tables go to chiprun_out/profile_round<r>.txt."""
+    from torch.autograd import DeviceType
+    ka = prof.key_averages()
+    spans_of = ("fl/", "train/")      # record_function ranges, not kernels
+    kernels = [e for e in ka if e.device_type == DeviceType.CUDA
+               and not e.key.startswith(spans_of)]
+    busy_us = sum(_dev_us(e) for e in kernels)
+    top_dev = sorted(kernels, key=_dev_us, reverse=True)[:12]
+    top_cpu = sorted((e for e in ka if e.device_type == DeviceType.CPU),
+                     key=lambda e: e.self_cpu_time_total, reverse=True)[:12]
+    OUT.mkdir(exist_ok=True)
+    with open(OUT / f"profile_round{r}.txt", "w") as f:
+        for key in ("self_device_time_total", "self_cpu_time_total"):
+            try:
+                f.write(ka.table(sort_by=key, row_limit=60) + "\n\n")
+            except (KeyError, AttributeError, ValueError):
+                f.write(ka.table(sort_by="self_cuda_time_total",
+                                 row_limit=60) + "\n\n")
+    spans = {e.key: [e.cpu_time_total / 1e3,
+                     float(getattr(e, "device_time_total", 0.0)) / 1e3,
+                     e.count]
+             for e in ka if e.key.startswith(spans_of)}
+    return {
+        "device_busy_s": busy_us / 1e6,
+        "spans_host_ms_device_ms_count": spans,
+        "top_kernels_ms": [[e.key[:90], _dev_us(e) / 1e3, e.count]
+                           for e in top_dev],
+        "top_host_ops_ms": [[e.key[:90], e.self_cpu_time_total / 1e3, e.count]
+                            for e in top_cpu]}
+
+
+def phase_train(torch, dev, profile: bool = False):
+    from repro_torch import tree as T
+    from repro_torch.configs.base import get_arch
+    from repro_torch.kernels.fedavg import ops as fedavg_ops
+    from repro_torch.kernels.flash_attn import ops as flash_ops
+    from repro_torch.launch.train import SDFLMQTrainer
+
+    cfg = get_arch("qwen2-7b").replace(n_layers=1)   # published widths
+    K, rounds, bpc, seq = 4, 2, 1, 2048
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    tr = SDFLMQTrainer(cfg, K, rounds, bpc, seq, seed=0, device=dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_leaves = len(T.leaves(tr.state["params"]))
+    n_params = sum(t[0].numel() for t in T.leaves(tr.state["params"]))
+    identical = []
+
+    def check_slots(r, state):
+        same = all(torch.equal(t[k], t[0]) for t in T.leaves(state["params"])
+                   for k in range(1, K))
+        identical.append(same)
+
+    profiles = []
+    if profile:
+        from torch.profiler import ProfilerActivity
+        acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+        live = [torch.profiler.profile(activities=acts)]
+
+        def on_round_end(r, state):
+            torch.cuda.synchronize()
+            live[0].stop()
+            profiles.append(summarize_profile(torch, live[0], r))
+            check_slots(r, state)
+            if r + 1 < rounds:
+                live[0] = torch.profiler.profile(activities=acts)
+                live[0].start()
+        tr.on_round_end = on_round_end
+        live[0].start()
+    else:
+        tr.on_round_end = check_slots
+    fedavg_ops.launches = 0
+    flash_ops.launches = 0
+    metrics = tr.run()
+    torch.cuda.synchronize()
+    launches = {"fedavg": fedavg_ops.launches, "flash_fwd": flash_ops.launches}
+    for m in metrics:
+        emit({"phase": "train_round", "round": m["round"], "loss": m["loss"],
+              "time_s": m["time_s"], "tokens_per_s": m["tokens_per_s"],
+              "max_memory_allocated": m["max_memory_allocated"],
+              "schedule": m["schedule"]})
+    row = {"phase": "train", "arch": cfg.name, "n_layers": cfg.n_layers,
+           "d_model": cfg.d_model, "n_heads": cfg.n_heads,
+           "n_kv_heads": cfg.n_kv_heads, "head_dim": cfg.head_dim,
+           "d_ff": cfg.d_ff, "vocab": cfg.vocab, "remat": cfg.remat,
+           "clients": K, "batch_per_client": bpc, "seq": seq,
+           "rounds": rounds, "params_per_client": n_params,
+           "leaves": n_leaves, "init_s": init_s, "launches": launches,
+           "slots_identical_each_round": identical,
+           "peak_memory_allocated": torch.cuda.max_memory_allocated(dev)}
+    emit(row)
+    for prof, m in zip(profiles, metrics):
+        emit({"phase": "train_profile", "round": m["round"],
+              "round_s_profiled": m["time_s"],
+              "device_busy_share": prof["device_busy_s"] / m["time_s"],
+              **prof})
+    losses = [m["loss"] for m in metrics]
+    if not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"non-finite loss: {losses}")
+    if identical != [True] * rounds:
+        raise AssertionError(f"client slots differ after a round: {identical}")
+    if launches["fedavg"] != n_leaves * rounds:
+        raise AssertionError(f"fedavg launches {launches['fedavg']} != "
+                             f"{n_leaves} leaves x {rounds} rounds")
+    if launches["flash_fwd"] < cfg.n_layers * K * rounds:
+        raise AssertionError(f"flash launches {launches['flash_fwd']} < "
+                             f"layers x clients x rounds")
+    return launches
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--profile", action="store_true",
+                    help="trace each training round with torch.profiler "
+                         "(tables under chiprun_out/; slows the rounds)")
+    args = ap.parse_args(argv)
+
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA card (torch.cuda.is_available() is False)",
+              file=sys.stderr)
+        return 2
+    sys.path.insert(0, str(ROOT / "src"))
+    import repro_torch  # noqa: F401  (fails outside a checkout of the repo)
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda", 0)
+    smi = smi_line()
+    phase_device(torch, dev, smi)
+    fed = phase_fedavg(torch, dev)
+    flash = phase_flash(torch, dev)
+    launches = phase_train(torch, dev, args.profile)
+    kernels = [{
+        "name": "fedavg", "route": "cuda",
+        "source": "src/repro_torch/csrc/fedavg.cu",
+        "replaces": "src/repro/kernels/fedavg/fedavg.py:70",
+        "launches": launches["fedavg"],
+        "max_abs_err": fed["max_abs_err"], "ms": fed["kernel_ms"],
+        "plain_ms": fed["plain_ms"], "bound_ms": fed["bound_ms"],
+        "bound_by": "bytes", "library_ms": None,
+    }, {
+        "name": "flash_attn_fwd", "route": "cuda",
+        "source": "src/repro_torch/csrc/flash_attn_fwd.cu",
+        "replaces": "src/repro/kernels/flash_attn/flash_attn.py:60",
+        "launches": launches["flash_fwd"],
+        "max_abs_err": max(flash["o_max_abs_err"], flash["lse_max_abs_err"]),
+        "ms": flash["kernel_ms"], "plain_ms": flash["plain_ms"],
+        "bound_ms": flash["bound_ms"], "bound_by": flash["bound_by"],
+        "library_ms": flash["library_ms"]}]
+    emit({"kernels": kernels})
+    print(smi, flush=True)
+    emit({"ok": True, "device": {"platform": "gpu",
+                                 "kind": torch.cuda.get_device_name(0),
+                                 "count": torch.cuda.device_count()}})
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

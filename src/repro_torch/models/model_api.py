@@ -1,0 +1,49 @@
+"""Model API over the architecture families + loss functions.
+
+Every family module exposes ``param_decls(cfg)`` and
+``forward(cfg, params, batch) -> (logits (B,S,V), aux_loss)``.  Only the
+dense decoder is ported; the other families wait for their slices.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.configs.base import ArchConfig
+from repro_torch.dist import sharding as shd
+from repro_torch.models import decoder
+
+_FAMILY = {"dense": decoder}
+
+
+def get_model(cfg: ArchConfig):
+    if cfg.family not in _FAMILY:
+        raise NotImplementedError(
+            f"family {cfg.family!r} is not ported yet (see ROADMAP.md)")
+    return _FAMILY[cfg.family]
+
+
+def param_decls(cfg: ArchConfig):
+    return get_model(cfg).param_decls(cfg)
+
+
+def init_params(cfg: ArchConfig, seed: int, device):
+    return shd.materialize(param_decls(cfg), seed, device)
+
+
+# --------------------------------------------------------------------------
+# Loss
+# --------------------------------------------------------------------------
+
+def cross_entropy(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """Mean token cross-entropy, computed in f32 with a stop-gradient max."""
+    lf = logits.float()
+    m = lf.amax(dim=-1, keepdim=True).detach()
+    lse = torch.log(torch.exp(lf - m).sum(dim=-1)) + m[..., 0]
+    label_logit = lf.gather(-1, labels.long()[..., None])[..., 0]
+    return (lse - label_logit).mean()
+
+
+def loss_fn(cfg: ArchConfig, params, batch):
+    logits, aux = get_model(cfg).forward(cfg, params, batch)
+    ce = cross_entropy(logits, batch["labels"])
+    return ce + aux, {"ce": ce, "aux": aux}

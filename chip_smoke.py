@@ -9,15 +9,18 @@ sm_90a, holds each kernel against its plain PyTorch version on the card,
 times both (and the one PyTorch call that computes the same function, where
 there is one), then runs two federated rounds of qwen2-7b at its published
 widths (one layer, random weights from a seed) through ``SDFLMQTrainer``
-and shows, by the kernels' launch counters, that the rounds went through
-both kernels.  Each phase prints one JSON line; then one line lists every
-kernel, one line gives the card's name and power limit as nvidia-smi
-reports them, and the last line is ``{"ok": true, "device": ...}``.
-Any failure raises and exits non-zero; nothing runs on the CPU.
+twice: with the ``tree`` schedule (fedavg kernel) and with the
+``compressed`` schedule (int8 quantize + qagg kernel).  The kernels' launch
+counters, set to 0 just before each run and read just after, show that each
+run went through its kernels.  Each phase prints JSON lines; then one line
+lists every kernel, one line gives the card's name and power limit as
+nvidia-smi reports them, and the last line is ``{"ok": true, "device":
+...}``.  Any failure raises and exits non-zero; nothing runs on the CPU.
 """
 from __future__ import annotations
 
 import argparse
+import gc
 import json
 import math
 import subprocess
@@ -207,6 +210,99 @@ def phase_flash(torch, dev):
     return path_row
 
 
+def phase_qagg(torch, dev):
+    """qagg at the embed table's payload (the path's largest launch), a
+    large-G leaf (w_gate/w_up) and odd shapes: bit-exact with the plain
+    version, with kernel and plain times and the byte bound."""
+    from repro_torch.kernels.fedavg import ops
+    from repro_torch.kernels.fedavg.ref import qagg_ref
+    gen = torch.Generator(device=dev).manual_seed(2)
+    w = torch.tensor([0.7, 1.3, 2.0, 0.5], device=dev)
+    cases = [("path_embed", 4, 152064, 3584), ("large_G", 4, 3584, 18944),
+             ("G1", 4, 1000, 1), ("G7", 4, 999, 7), ("R1", 4, 1, 3584),
+             ("scalar", 4, 1, 1)]
+    path_row = None
+    for name, K, R, G in cases:
+        q = torch.randint(-127, 128, (K, R, G), generator=gen, device=dev,
+                          dtype=torch.int8)
+        s = torch.rand((K, R, 1), generator=gen, device=dev) * (2.0 / 127)
+        got = ops.qagg(q, s, w)
+        want = qagg_ref(q, s, w)
+        torch.cuda.synchronize()
+        nbytes = K * R * G + 4 * K * R + 4 * R * G
+        row = {"case": name, "K": K, "R": R, "G": G,
+               "bit_exact": bool(torch.equal(got, want)),
+               "max_abs_err": float((got - want).abs().max()),
+               "bytes": nbytes, "bound_ms": nbytes / PEAK_BYTES_S * 1e3}
+        if name in ("path_embed", "large_G"):
+            ms = time_ms(torch, lambda: ops.qagg(q, s, w), 10)
+            row.update({"kernel_ms": ms,
+                        "plain_ms": time_ms(torch,
+                                            lambda: qagg_ref(q, s, w), 3),
+                        "gb_s": nbytes / (ms * 1e-3) / 1e9})
+        emit({"phase": "qagg", **row})
+        if not row["bit_exact"]:
+            raise AssertionError(f"qagg kernel disagrees: {row}")
+        if name == "path_embed":
+            path_row = row
+        del q, s, got, want
+        torch.cuda.empty_cache()
+    return path_row
+
+
+def phase_quant8(torch, dev):
+    """quant8 quantize/dequantize of a 545 M-element vector (the embed
+    table's size) in bf16 and f32 and of ragged sizes that pad: bit-exact
+    with the plain versions, padding rows included."""
+    from repro_torch.kernels.quant8 import ops
+    from repro_torch.kernels.quant8.ref import dequantize_ref, quantize_ref
+    gen = torch.Generator(device=dev).manual_seed(3)
+    cases = [("path_bf16", 152064 * 3584, torch.bfloat16),
+             ("f32", 152064 * 3584, torch.float32),
+             ("ragged_f32", 3 * 65536 + 17, torch.float32),
+             ("ragged_bf16", 1_000_003, torch.bfloat16)]
+    rows = {}
+    for name, n, dtype in cases:
+        x = torch.randn((n,), generator=gen, device=dev).to(dtype)
+        x[:256] = 0                                   # an all-zero block
+        q, s, got_n = ops.quantize(x)
+        flat = ops._to_rows(x).reshape(-1)
+        want_q, want_s = quantize_ref(flat)
+        out = ops.dequantize(q, s, n)
+        want_out = dequantize_ref(q.reshape(-1), s)[:n]
+        torch.cuda.synchronize()
+        exact = (got_n == n and torch.equal(q.reshape(-1), want_q)
+                 and torch.equal(s, want_s) and torch.equal(out, want_out))
+        err = max(float((q.reshape(-1).float() - want_q.float()).abs().max()),
+                  float((s - want_s).abs().max()),
+                  float((out - want_out).abs().max()))
+        q_bytes = n * x.element_size() + n + 4 * n / 256
+        d_bytes = n + 4 * n / 256 + 4 * n
+        row = {"case": name, "n": n, "dtype": str(dtype),
+               "padded_rows": q.shape[0] - -(-n // 256),
+               "bit_exact": bool(exact), "max_abs_err": err,
+               "quantize_bound_ms": q_bytes / PEAK_BYTES_S * 1e3,
+               "dequantize_bound_ms": d_bytes / PEAK_BYTES_S * 1e3}
+        if n > 1e8:
+            qms = time_ms(torch, lambda: ops.quantize(x), 10)
+            dms = time_ms(torch, lambda: ops.dequantize(q, s, n), 10)
+            row.update({
+                "quantize_ms": qms, "dequantize_ms": dms,
+                "quantize_plain_ms": time_ms(
+                    torch, lambda: quantize_ref(flat), 3),
+                "dequantize_plain_ms": time_ms(
+                    torch, lambda: dequantize_ref(q.reshape(-1), s)[:n], 3),
+                "quantize_gb_s": q_bytes / (qms * 1e-3) / 1e9,
+                "dequantize_gb_s": d_bytes / (dms * 1e-3) / 1e9})
+        emit({"phase": "quant8", **row})
+        if not exact:
+            raise AssertionError(f"quant8 kernels disagree: {row}")
+        rows[name] = row
+        del x, q, s, flat, want_q, want_s, out, want_out
+        torch.cuda.empty_cache()
+    return rows["path_bf16"]
+
+
 def _dev_us(e) -> float:
     for name in ("self_device_time_total", "self_cuda_time_total"):
         if hasattr(e, name):
@@ -214,7 +310,7 @@ def _dev_us(e) -> float:
     return 0.0
 
 
-def summarize_profile(torch, prof, r: int) -> dict:
+def summarize_profile(torch, prof, r: int, tag: str) -> dict:
     """Device busy time and the top kernels / host ops of one profiled
     round; the full tables go to chiprun_out/profile_round<r>.txt."""
     from torch.autograd import DeviceType
@@ -227,7 +323,7 @@ def summarize_profile(torch, prof, r: int) -> dict:
     top_cpu = sorted((e for e in ka if e.device_type == DeviceType.CPU),
                      key=lambda e: e.self_cpu_time_total, reverse=True)[:12]
     OUT.mkdir(exist_ok=True)
-    with open(OUT / f"profile_round{r}.txt", "w") as f:
+    with open(OUT / f"profile_{tag}_round{r}.txt", "w") as f:
         for key in ("self_device_time_total", "self_cpu_time_total"):
             try:
                 f.write(ka.table(sort_by=key, row_limit=60) + "\n\n")
@@ -247,19 +343,25 @@ def summarize_profile(torch, prof, r: int) -> dict:
                             for e in top_cpu]}
 
 
-def phase_train(torch, dev, profile: bool = False):
+def phase_train(torch, dev, schedule: str = "tree", profile: bool = False):
+    """Two rounds of the train cell with ``schedule``; the launch counters
+    are set to 0 just before the rounds and read just after."""
     from repro_torch import tree as T
     from repro_torch.configs.base import get_arch
     from repro_torch.kernels.fedavg import ops as fedavg_ops
     from repro_torch.kernels.flash_attn import ops as flash_ops
+    from repro_torch.kernels.quant8 import ops as quant8_ops
     from repro_torch.launch.train import SDFLMQTrainer
 
     cfg = get_arch("qwen2-7b").replace(n_layers=1)   # published widths
     K, rounds, bpc, seq = 4, 2, 1, 2048
+    phase = "train" if schedule == "tree" else f"train_{schedule}"
+    gc.collect()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats(dev)
     t0 = time.perf_counter()
-    tr = SDFLMQTrainer(cfg, K, rounds, bpc, seq, seed=0, device=dev)
+    tr = SDFLMQTrainer(cfg, K, rounds, bpc, seq, seed=0, device=dev,
+                       schedule_kind=schedule)
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
     n_leaves = len(T.leaves(tr.state["params"]))
@@ -280,7 +382,7 @@ def phase_train(torch, dev, profile: bool = False):
         def on_round_end(r, state):
             torch.cuda.synchronize()
             live[0].stop()
-            profiles.append(summarize_profile(torch, live[0], r))
+            profiles.append(summarize_profile(torch, live[0], r, phase))
             check_slots(r, state)
             if r + 1 < rounds:
                 live[0] = torch.profiler.profile(activities=acts)
@@ -290,16 +392,24 @@ def phase_train(torch, dev, profile: bool = False):
     else:
         tr.on_round_end = check_slots
     fedavg_ops.launches = 0
+    fedavg_ops.qagg_launches = 0
     flash_ops.launches = 0
+    quant8_ops.quantize_launches = 0
+    quant8_ops.dequantize_launches = 0
     metrics = tr.run()
     torch.cuda.synchronize()
-    launches = {"fedavg": fedavg_ops.launches, "flash_fwd": flash_ops.launches}
+    launches = {"fedavg": fedavg_ops.launches,
+                "qagg": fedavg_ops.qagg_launches,
+                "flash_fwd": flash_ops.launches,
+                "quantize": quant8_ops.quantize_launches,
+                "dequantize": quant8_ops.dequantize_launches}
     for m in metrics:
-        emit({"phase": "train_round", "round": m["round"], "loss": m["loss"],
+        emit({"phase": f"{phase}_round", "round": m["round"], "loss": m["loss"],
               "time_s": m["time_s"], "tokens_per_s": m["tokens_per_s"],
               "max_memory_allocated": m["max_memory_allocated"],
               "schedule": m["schedule"]})
-    row = {"phase": "train", "arch": cfg.name, "n_layers": cfg.n_layers,
+    row = {"phase": phase, "schedule": schedule, "arch": cfg.name,
+           "n_layers": cfg.n_layers,
            "d_model": cfg.d_model, "n_heads": cfg.n_heads,
            "n_kv_heads": cfg.n_kv_heads, "head_dim": cfg.head_dim,
            "d_ff": cfg.d_ff, "vocab": cfg.vocab, "remat": cfg.remat,
@@ -310,7 +420,7 @@ def phase_train(torch, dev, profile: bool = False):
            "peak_memory_allocated": torch.cuda.max_memory_allocated(dev)}
     emit(row)
     for prof, m in zip(profiles, metrics):
-        emit({"phase": "train_profile", "round": m["round"],
+        emit({"phase": f"{phase}_profile", "round": m["round"],
               "round_s_profiled": m["time_s"],
               "device_busy_share": prof["device_busy_s"] / m["time_s"],
               **prof})
@@ -319,13 +429,60 @@ def phase_train(torch, dev, profile: bool = False):
         raise AssertionError(f"non-finite loss: {losses}")
     if identical != [True] * rounds:
         raise AssertionError(f"client slots differ after a round: {identical}")
-    if launches["fedavg"] != n_leaves * rounds:
-        raise AssertionError(f"fedavg launches {launches['fedavg']} != "
-                             f"{n_leaves} leaves x {rounds} rounds")
+    agg, other = ("fedavg", "qagg") if schedule == "tree" \
+        else ("qagg", "fedavg")
+    if launches[agg] != n_leaves * rounds or launches[other] != 0:
+        raise AssertionError(f"{schedule}: launches {launches}; want {agg} = "
+                             f"{n_leaves} leaves x {rounds} rounds and "
+                             f"{other} = 0")
     if launches["flash_fwd"] < cfg.n_layers * K * rounds:
         raise AssertionError(f"flash launches {launches['flash_fwd']} < "
                              f"layers x clients x rounds")
+    if launches["quantize"] or launches["dequantize"]:
+        raise AssertionError(f"quant8 launched in the round, which no path "
+                             f"of the round should do: {launches}")
+    del tr
     return launches
+
+
+def kernel_rows(fed, flash, qagg, quant8, launches):
+    """The ``kernels`` line: every kernel with its launches on the main
+    paths (quant8 is on none: its launches there are read, and are 0), its
+    error against the plain version, and its times beside the bound."""
+    rows = [
+        {"name": "fedavg", "route": "cuda",
+         "source": "src/repro_torch/csrc/fedavg.cu",
+         "replaces": "src/repro/kernels/fedavg/fedavg.py:70",
+         "launches": launches["fedavg"],
+         "max_abs_err": fed["max_abs_err"], "ms": fed["kernel_ms"],
+         "plain_ms": fed["plain_ms"], "bound_ms": fed["bound_ms"],
+         "bound_by": "bytes", "library_ms": None},
+        {"name": "flash_attn_fwd", "route": "cuda",
+         "source": "src/repro_torch/csrc/flash_attn_fwd.cu",
+         "replaces": "src/repro/kernels/flash_attn/flash_attn.py:60",
+         "launches": launches["flash_fwd"],
+         "max_abs_err": max(flash["o_max_abs_err"], flash["lse_max_abs_err"]),
+         "ms": flash["kernel_ms"], "plain_ms": flash["plain_ms"],
+         "bound_ms": flash["bound_ms"], "bound_by": flash["bound_by"],
+         "library_ms": flash["library_ms"]},
+        {"name": "qagg", "route": "cuda",
+         "source": "src/repro_torch/csrc/qagg.cu",
+         "replaces": "src/repro/kernels/fedavg/fedavg.py:43",
+         "launches": launches["qagg"],
+         "max_abs_err": qagg["max_abs_err"], "ms": qagg["kernel_ms"],
+         "plain_ms": qagg["plain_ms"], "bound_ms": qagg["bound_ms"],
+         "bound_by": "bytes", "library_ms": None}]
+    for op, line in (("quantize", 33), ("dequantize", 50)):
+        rows.append({
+            "name": op, "route": "cuda",
+            "source": "src/repro_torch/csrc/quant8.cu",
+            "replaces": f"src/repro/kernels/quant8/quant8.py:{line}",
+            "launches": launches[op],
+            "max_abs_err": quant8["max_abs_err"],
+            "ms": quant8[f"{op}_ms"], "plain_ms": quant8[f"{op}_plain_ms"],
+            "bound_ms": quant8[f"{op}_bound_ms"], "bound_by": "bytes",
+            "library_ms": None})
+    return rows
 
 
 def main(argv=None) -> int:
@@ -350,25 +507,13 @@ def main(argv=None) -> int:
     phase_device(torch, dev, smi)
     fed = phase_fedavg(torch, dev)
     flash = phase_flash(torch, dev)
-    launches = phase_train(torch, dev, args.profile)
-    kernels = [{
-        "name": "fedavg", "route": "cuda",
-        "source": "src/repro_torch/csrc/fedavg.cu",
-        "replaces": "src/repro/kernels/fedavg/fedavg.py:70",
-        "launches": launches["fedavg"],
-        "max_abs_err": fed["max_abs_err"], "ms": fed["kernel_ms"],
-        "plain_ms": fed["plain_ms"], "bound_ms": fed["bound_ms"],
-        "bound_by": "bytes", "library_ms": None,
-    }, {
-        "name": "flash_attn_fwd", "route": "cuda",
-        "source": "src/repro_torch/csrc/flash_attn_fwd.cu",
-        "replaces": "src/repro/kernels/flash_attn/flash_attn.py:60",
-        "launches": launches["flash_fwd"],
-        "max_abs_err": max(flash["o_max_abs_err"], flash["lse_max_abs_err"]),
-        "ms": flash["kernel_ms"], "plain_ms": flash["plain_ms"],
-        "bound_ms": flash["bound_ms"], "bound_by": flash["bound_by"],
-        "library_ms": flash["library_ms"]}]
-    emit({"kernels": kernels})
+    qagg = phase_qagg(torch, dev)
+    quant8 = phase_quant8(torch, dev)
+    launches = {}
+    for schedule in ("tree", "compressed"):
+        for k, n in phase_train(torch, dev, schedule, args.profile).items():
+            launches[k] = launches.get(k, 0) + n
+    emit({"kernels": kernel_rows(fed, flash, qagg, quant8, launches)})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

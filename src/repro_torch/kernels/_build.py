@@ -31,6 +31,10 @@ SIGNATURES = {
     "fedavg_f32": [_P, _P, _P, _I, _L, _P],
     "flash_fwd_bf16": [_P] * 5 + [_I] * 10 + [_P],
     "flash_fwd_f32": [_P] * 5 + [_I] * 10 + [_P],
+    "qagg": [_P, _P, _P, _P, _I, _L, _L, _P],
+    "quant8_quantize_bf16": [_P, _P, _P, _L, _P],
+    "quant8_quantize_f32": [_P, _P, _P, _L, _P],
+    "quant8_dequantize": [_P, _P, _P, _L, _P],
 }
 
 _lib = None

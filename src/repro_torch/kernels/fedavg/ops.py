@@ -1,18 +1,20 @@
-"""Dispatch for the fedavg kernel (``csrc/fedavg.cu``).
+"""Dispatch for the fedavg kernel (``csrc/fedavg.cu``) and the int8
+dequantize-aggregate kernel qagg (``csrc/qagg.cu``).
 
 A CPU tensor takes the plain version in ``ref.py``; a CUDA tensor launches
 the kernel or raises (wrong card, failed build, failed launch, unsupported
-dtype or shape).  ``launches`` counts kernel launches, so a run can show
-that its aggregation went through the kernel."""
+dtype or shape).  ``launches`` and ``qagg_launches`` count kernel launches,
+so a run can show that its aggregation went through the kernels."""
 from __future__ import annotations
 
 import torch
 
 from repro_torch import tree as T
 from repro_torch.kernels import _build
-from repro_torch.kernels.fedavg.ref import fedavg_ref
+from repro_torch.kernels.fedavg.ref import fedavg_ref, qagg_ref
 
 launches = 0
+qagg_launches = 0
 
 _FN = {torch.bfloat16: "fedavg_bf16", torch.float32: "fedavg_f32"}
 MAX_CLIENTS = 256
@@ -46,6 +48,49 @@ def fedavg(stacked: torch.Tensor, weights: torch.Tensor) -> torch.Tensor:
     _build.check_status(status, "fedavg")
     launches += 1
     return out
+
+
+def qagg(q: torch.Tensor, scales: torch.Tensor,
+         weights: torch.Tensor) -> torch.Tensor:
+    """Fused int8 dequantize + weighted sum over the leading client axis.
+
+    q: (K, *shape) int8 with ``quantize_int8``-style per-last-dim-row
+    scales (K, *shape[:-1], 1) f32; weights: (K,).  Returns the f32
+    weighted sum shaped ``shape``.  The kernel sees (K, R, G): G is the
+    last dim (1 for a scalar leaf), R the rows before it."""
+    global qagg_launches
+    K = q.shape[0]
+    shape = q.shape[1:]
+    G = shape[-1] if shape else 1
+    q3 = q.reshape(K, -1, G)
+    s3 = scales.reshape(K, -1, 1)
+    if weights.shape != (K,) or s3.shape != q3.shape[:2] + (1,):
+        raise ValueError(f"qagg: q {tuple(q.shape)} needs scales with one "
+                         f"value per row and weights ({K},), got "
+                         f"{tuple(scales.shape)} and {tuple(weights.shape)}")
+    if q.device.type == "cpu":
+        return qagg_ref(q3, s3, weights).reshape(shape)
+    _build.check_device(q, "qagg")
+    R = q3.shape[1]
+    if q.dtype != torch.int8 or scales.dtype != torch.float32:
+        raise TypeError(f"qagg kernel takes int8 q and f32 scales, got "
+                        f"{q.dtype} and {scales.dtype}")
+    if not 1 <= K <= MAX_CLIENTS or R * G < 1:
+        raise ValueError(f"qagg kernel takes 1..{MAX_CLIENTS} clients and "
+                         f"a non-empty leaf, got {tuple(q.shape)}")
+    if not (q3.is_contiguous() and s3.is_contiguous()):
+        raise ValueError("qagg kernel takes contiguous q and scales")
+    if (weights.device != q.device or weights.dtype != torch.float32
+            or scales.device != q.device):
+        raise ValueError("qagg kernel takes f32 weights and scales on q's card")
+    w = weights.contiguous()
+    out = torch.empty((R, G), dtype=torch.float32, device=q.device)
+    status = _build.load().qagg(
+        q3.data_ptr(), s3.data_ptr(), w.data_ptr(), out.data_ptr(), K, R, G,
+        _build.stream_ptr(q))
+    _build.check_status(status, "qagg")
+    qagg_launches += 1
+    return out.reshape(shape)
 
 
 def fedavg_pytree(params_stacked, weights):

@@ -1,9 +1,13 @@
-"""Plain PyTorch versions of the fused weighted-aggregation (FedAvg) kernel.
+"""Plain PyTorch versions of the fused weighted-aggregation kernels
+(FedAvg and the int8 dequantize-aggregate ``qagg``).
 
-``fedavg_ref`` sums the clients in the kernel's fixed order k = 0..K-1,
-with separate f32 multiplies and adds, so on the card it agrees with the
-kernel bit for bit; against the JAX package's einsum it agrees to f32
-rounding."""
+Both sum the clients in the kernels' fixed order k = 0..K-1, with separate
+f32 multiplies and adds, so on the card they agree with the kernels bit for
+bit.  Against the JAX package, ``fedavg_ref`` agrees with its einsum to f32
+rounding, and ``qagg_ref`` with its ``qagg_ref`` run op by op bit for bit.
+Compiled (its Pallas kernel, or under ``jax.jit``), XLA fuses ``sum(x * w)``
+into fused multiply-adds, which changes no bit at unit weights, the
+``compressed`` schedule's case."""
 from __future__ import annotations
 
 import torch
@@ -38,3 +42,15 @@ def fedavg_tree_ref(stacked, weights, groups):
         acc = acc + a
         total = total + t
     return (acc / total).to(stacked.dtype)
+
+
+def qagg_ref(q: torch.Tensor, scales: torch.Tensor,
+             weights: torch.Tensor) -> torch.Tensor:
+    """q: (K, R, G) int8; scales: (K, R, 1) f32; weights: (K,).  Returns
+    the f32 sum over k = 0..K-1, in that order, of
+    ``(q[k] * scales[k]) * weights[k]``: (R, G)."""
+    w = weights.float()
+    acc = torch.zeros(q.shape[1:], dtype=torch.float32, device=q.device)
+    for k in range(q.shape[0]):
+        acc = acc + (q[k].float() * scales[k]) * w[k]
+    return acc

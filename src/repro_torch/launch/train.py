@@ -6,7 +6,9 @@ Wires the whole stack together:
                   role (re)arrangement via topics, readiness/stats updates);
   data plane    — the coordinator's cluster tree is compiled to an
                   AggSchedule and one fl_round_step runs per round (local
-                  steps of every client, then the fedavg kernel per leaf);
+                  steps of every client, then per leaf the fedavg kernel,
+                  or for ``compressed`` an int8 quantize and the qagg
+                  kernel);
   substrate     — federated token streams (non-IID), failure injection ->
                   LWT -> role rearrangement, straggler demotion.
 
@@ -163,7 +165,7 @@ def main(argv=None):
     ap.add_argument("--seq", type=int, default=64)
     ap.add_argument("--local-steps", type=int, default=1)
     ap.add_argument("--schedule", default="tree",
-                    choices=["tree", "flat", "rs_ag"])
+                    choices=["tree", "flat", "rs_ag", "compressed"])
     ap.add_argument("--strategy", default="fedavg",
                     help="aggregation strategy (repro_torch.api.strategies)")
     ap.add_argument("--update-filter", default=None,

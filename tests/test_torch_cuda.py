@@ -10,10 +10,14 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch.core import aggregation
+from repro_torch.core.topology import AggSchedule
 from repro_torch.kernels.fedavg import ops as fedavg_ops
-from repro_torch.kernels.fedavg.ref import fedavg_ref
+from repro_torch.kernels.fedavg.ref import fedavg_ref, qagg_ref
 from repro_torch.kernels.flash_attn import ops as flash_ops
 from repro_torch.kernels.flash_attn.ref import attention_ref
+from repro_torch.kernels.quant8 import ops as quant8_ops
+from repro_torch.kernels.quant8.ref import dequantize_ref, quantize_ref
 from repro_torch.models.attention import flash_attention, full_attention
 
 pytestmark = pytest.mark.cuda
@@ -24,6 +28,11 @@ FEDAVG_CASES = [
     (5, 70000, torch.bfloat16), (3, 12345, torch.bfloat16),
     (64, 4099, torch.float32),
 ]
+QAGG_CASES = [  # (K, R, G): vector path (G % 16 == 0) and scalar path
+    (4, 64, 256), (3, 33, 7), (8, 1, 1024), (1, 5, 5), (2, 128, 128),
+    (4, 1, 1), (4, 37, 18944), (5, 1000, 3584), (4, 300, 48),
+]
+QUANT8_CASES = [65536, 1000, 70001, 3 * 65536 + 17]
 FLASH_CASES = [  # (H, Kv, causal, window)
     (4, 4, True, None), (4, 4, True, 32), (4, 2, True, None),
     (4, 2, False, None), (4, 2, True, 48),
@@ -111,3 +120,85 @@ def test_flash_gradient_matches_full_attention(card):
         grads.append([t.grad.clone() for t in (q, k, v)])
     for a, b in zip(*grads):
         torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("K,R,G", QAGG_CASES)
+def test_qagg_kernel_is_bit_exact_with_plain(card, K, R, G):
+    rng = np.random.default_rng(K * 31 + R * 7 + G)
+    q = torch.from_numpy(rng.integers(-127, 128, (K, R, G)).astype(np.int8)) \
+        .to(card)
+    s = torch.from_numpy(rng.uniform(0.5, 2.0, (K, R, 1)).astype(np.float32)
+                         / 127).to(card)
+    w = torch.from_numpy(rng.uniform(0.5, 2.0, K).astype(np.float32)).to(card)
+    before = fedavg_ops.qagg_launches
+    got = fedavg_ops.qagg(q, s, w)
+    assert fedavg_ops.qagg_launches == before + 1
+    # same summation order, no FMA contraction: bit-exact
+    assert torch.equal(got, qagg_ref(q, s, w))
+
+
+def test_qagg_kernel_takes_leaf_shapes(card):
+    rng = np.random.default_rng(0)
+    for shape in [(4,), (4, 9), (4, 2, 3, 32)]:
+        q = torch.from_numpy(rng.integers(-127, 128, shape).astype(np.int8)) \
+            .to(card)
+        s = torch.rand(shape[:-1] + (1,) if len(shape) > 1 else (4, 1),
+                       device=card)
+        w = torch.ones(4, device=card)
+        got = fedavg_ops.qagg(q, s, w)
+        assert tuple(got.shape) == shape[1:]
+        G = shape[-1] if len(shape) > 1 else 1
+        want = qagg_ref(q.reshape(4, -1, G), s.reshape(4, -1, 1), w)
+        assert torch.equal(got.reshape(-1, G), want)
+    with pytest.raises(TypeError):
+        fedavg_ops.qagg(q.float(), s, w)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n", QUANT8_CASES)
+def test_quant8_kernels_are_bit_exact_with_plain(card, n, dtype):
+    rng = np.random.default_rng(n)
+    x = (_normal(rng, (n,), torch.float32, card)
+         * torch.from_numpy(rng.uniform(0.01, 10, n).astype(np.float32))
+         .to(card)).to(dtype)
+    x[:256] = 0                          # an all-zero block
+    qb, db = quant8_ops.quantize_launches, quant8_ops.dequantize_launches
+    q, s, got_n = quant8_ops.quantize(x)
+    assert quant8_ops.quantize_launches == qb + 1 and got_n == n
+    rows = quant8_ops._to_rows(x.reshape(-1))
+    want_q, want_s = quantize_ref(rows.reshape(-1))
+    assert torch.equal(q.reshape(-1), want_q)
+    assert torch.equal(s, want_s)
+    out = quant8_ops.dequantize(q, s, n)
+    assert quant8_ops.dequantize_launches == db + 1
+    assert torch.equal(out, dequantize_ref(q.reshape(-1), s)[:n])
+
+
+def test_quant8_kernel_nan_and_inf_blocks_match_plain(card):
+    x = torch.randn(1024, device=card)
+    x[3], x[260], x[600] = float("nan"), float("inf"), -float("inf")
+    q, s, _ = quant8_ops.quantize(x)
+    want_q, want_s = quantize_ref(quant8_ops._to_rows(x).reshape(-1))
+    assert torch.equal(q.reshape(-1), want_q)
+    assert torch.isnan(s[0]) and torch.isinf(s[1]) and torch.isinf(s[2])
+    assert torch.equal(s[1:], want_s[1:])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_compressed_schedule_on_card_matches_cpu(card, dtype):
+    """The card's compressed aggregation (plain quantize + qagg kernel)
+    equals the CPU's (plain quantize + plain qagg) bit for bit."""
+    rng = np.random.default_rng(7)
+    shapes = {"a": (4, 12, 3584), "b": (4, 7), "c": (4,), "d": (4, 3, 5, 48)}
+    bank = {k: torch.from_numpy(rng.standard_normal(v).astype(np.float32))
+            .to(dtype) for k, v in shapes.items()}
+    w = torch.tensor([0.7, 0.1, 0.3, 0.0])
+    on_card = {k: v.to(card) for k, v in bank.items()}
+    before = (fedavg_ops.qagg_launches, fedavg_ops.launches)
+    aggregation.aggregate_params(on_card, w.to(card),
+                                 AggSchedule("compressed", 4))
+    assert fedavg_ops.qagg_launches == before[0] + len(shapes)
+    assert fedavg_ops.launches == before[1]
+    aggregation.aggregate_params(bank, w, AggSchedule("compressed", 4))
+    for k in shapes:
+        assert torch.equal(on_card[k].cpu(), bank[k]), k

@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""The PyTorch port's main path on one CUDA card (an H100), end to end.
+"""The PyTorch port's main paths on one CUDA card (an H100), end to end.
 
     python3 chip_smoke.py                # as a check runs it
     python3 chip_smoke.py --profile      # also trace each training round
@@ -7,15 +7,18 @@
 Builds the port's CUDA kernels from ``src/repro_torch/csrc`` with nvcc for
 sm_90a, holds each kernel against its plain PyTorch version on the card,
 times both (and the one PyTorch call that computes the same function, where
-there is one), then runs two federated rounds of qwen2-7b at its published
-widths (one layer, random weights from a seed) through ``SDFLMQTrainer``
-twice: with the ``tree`` schedule (fedavg kernel) and with the
-``compressed`` schedule (int8 quantize + qagg kernel).  The kernels' launch
-counters, set to 0 just before each run and read just after, show that each
-run went through its kernels.  Each phase prints JSON lines; then one line
-lists every kernel, one line gives the card's name and power limit as
-nvidia-smi reports them, and the last line is ``{"ok": true, "device":
-...}``.  Any failure raises and exits non-zero; nothing runs on the CPU.
+there is one), then runs two federated rounds of each train cell through
+``SDFLMQTrainer`` at published widths (random weights from a seed), each
+after the previous trainer is freed: qwen2-7b (one layer) with the ``tree``
+schedule (fedavg kernel) and with the ``compressed`` schedule (int8
+quantize + qagg kernel); rwkv6-7b (two layers, the WKV kernel with u); and
+hymba-1.5b (all 32 layers, the WKV kernel in SSD form and the flash kernel
+with a 1024 window).  The kernels' launch counters, set to 0 just before
+each run and read just after, show that each run went through its
+kernels.  Each phase prints JSON lines; then one line lists every kernel,
+one line gives the card's name and power limit as nvidia-smi reports them,
+and the last line is ``{"ok": true, "device": ...}``.  Any failure raises
+and exits non-zero; nothing runs on the CPU.
 """
 from __future__ import annotations
 
@@ -150,6 +153,8 @@ def phase_flash(torch, dev):
         ("path", 1, 2048, 2048, 28, 4, 128, torch.bfloat16, True, None, 0),
         ("window", 2, 300, 300, 4, 2, 64, torch.float32, True, 64, 0),
         ("q_offset", 1, 64, 192, 4, 2, 64, torch.float32, True, None, 128),
+        ("hymba_window", 1, 2048, 2048, 25, 5, 64, torch.bfloat16, True,
+         1024, 0),
     ]
     path_row = None
     for name, B, Sq, Sk, H, Kv, hd, dtype, causal, window, qo in cases:
@@ -167,6 +172,13 @@ def phase_flash(torch, dev):
                "causal": causal, "window": window, "q_offset": qo,
                "o_max_abs_err": o_err, "lse_max_abs_err": lse_err,
                "o_tol": o_tol, "lse_tol": lse_tol}
+        if name == "hymba_window":
+            flops = _flash_flops(B, Sq, Sk, H, hd, causal, window)
+            ms = time_ms(torch, lambda: ops.flash_fwd(q, k, v, causal,
+                                                      window), 10)
+            row.update({"kernel_ms": ms, "flops": flops,
+                        "bound_ms": flops / PEAK_BF16_FLOP_S * 1e3,
+                        "tflop_s": flops / (ms * 1e-3) / 1e12})
         if name == "path":
             flops = _flash_flops(B, Sq, Sk, H, hd, causal, window)
             nbytes = (q.numel() + k.numel() + v.numel() + o.numel()) \
@@ -303,6 +315,94 @@ def phase_quant8(torch, dev):
     return rows["path_bf16"]
 
 
+def _wkv_work(B, T, H, dk, dv, C, use_u):
+    """(FLOPs, exps) of one chunked WKV call: per chunk and head the
+    pairwise scores (3 per channel of each pair s < t, 2 per channel on the
+    diagonal, one exp per channel of each pair s < t), r*exp(base) @ S,
+    A @ v over s <= t and the state update."""
+    n = -(-T // C)
+    pairs = C * (C - 1) // 2
+    per_chunk = (3 * pairs * dk + (3 if use_u else 2) * C * dk
+                 + 2 * C * dk * dv + C * (C + 1) * dv + 2 * C * dk * dv)
+    return float(B * H * n * per_chunk), float(B * H * n * pairs * dk)
+
+
+def phase_wkv(torch, dev):
+    """The chunked WKV kernel against its plain version (``ref.chunked``)
+    at the two paths' shapes (rwkv6: per-channel decay with u; hymba's SSM
+    branch: per-head decay, SSD form) and at odd shapes (B = 2, a ragged
+    T = 200 with chunk 64, dk 4 / dv 8, a given s0).  Tolerance: 1e-4 of
+    max |o| (and of max |s_final|), f32 sums in another order."""
+    from repro_torch.kernels.ssm_scan.ops import ssm_scan
+    from repro_torch.kernels.wkv6 import ops
+    from repro_torch.kernels.wkv6.ref import chunked
+    gen = torch.Generator(device=dev).manual_seed(4)
+    cases = [  # name, B, T, H, dk, dv, chunk, use_u, per-head w, s0, dtype
+        ("path_rwkv6", 1, 2048, 64, 64, 64, 128, True, False, False,
+         torch.bfloat16),
+        ("path_hymba", 1, 2048, 25, 16, 64, 128, False, True, False,
+         torch.bfloat16),
+        ("odd_u", 2, 200, 3, 4, 8, 64, True, False, True, torch.float32),
+        ("odd_ssd", 2, 200, 3, 4, 8, 64, False, True, True, torch.float32),
+    ]
+    rows = {}
+    for name, B, T, H, dk, dv, C, use_u, scalar, with_s0, dtype in cases:
+        mk = lambda *s: torch.randn(s, generator=gen, device=dev)
+        r = (mk(B, T, H, dk) * 0.5).to(dtype)
+        k = (mk(B, T, H, dk) * 0.5).to(dtype)
+        v = mk(B, T, H, dv).to(dtype)
+        # decays like the models' (rwkv6 w0 = -2 gives ~-0.14 a step)
+        w = -torch.exp(mk(B, T, H, 1 if scalar else dk) * 0.5 - 1.5)
+        u = mk(H, dk) * 0.3 if use_u else None
+        s0 = mk(B, H, dk, dv) * 0.2 if with_s0 else None
+        o, sf = ops.wkv_f32(r, k, v, w, u=u, s0=s0, chunk=C)
+        o_ref, sf_ref = chunked(r, k, v, w, u=u, s0=s0, chunk=C)
+        torch.cuda.synchronize()
+        o_err = float((o - o_ref).abs().max())
+        s_err = float((sf - sf_ref).abs().max())
+        o_tol = 1e-4 * float(o_ref.abs().max())
+        s_tol = 1e-4 * float(sf_ref.abs().max())
+        flops, exps = _wkv_work(B, T, H, dk, dv, min(C, T), use_u)
+        nbytes = (3 * r.numel() * r.element_size() + w.numel() * 4
+                  + (u.numel() * 4 if use_u else 0)
+                  + (2 * sf.numel() * 4 if with_s0 else sf.numel() * 4)
+                  + o.numel() * 4)
+        row = {"case": name, "shape_rk": [B, T, H, dk],
+               "shape_v": [B, T, H, dv], "w_last_dim": w.shape[-1],
+               "chunk": C, "use_u": use_u, "s0": with_s0,
+               "dtype": str(dtype), "o_max_abs_err": o_err,
+               "s_final_max_abs_err": s_err, "o_tol": o_tol, "s_tol": s_tol,
+               "bytes": nbytes, "flops": flops, "exps": exps,
+               "bound_ms": max(nbytes / PEAK_BYTES_S,
+                               flops / PEAK_BF16_FLOP_S) * 1e3,
+               "bound_by": "operations" if flops / PEAK_BF16_FLOP_S
+               > nbytes / PEAK_BYTES_S else "bytes"}
+        ms = time_ms(torch, lambda: ops.wkv_f32(r, k, v, w, u=u, s0=s0,
+                                                chunk=C), 10)
+        row.update({
+            "kernel_ms": ms,
+            "plain_ms": time_ms(
+                torch, lambda: chunked(r, k, v, w, u=u, s0=s0, chunk=C), 2),
+            "gb_s": nbytes / (ms * 1e-3) / 1e9,
+            "gexp_s": exps / (ms * 1e-3) / 1e9})
+        if name == "path_hymba":       # the ssm_scan wrapper: same kernel
+            before = ops.launches_ssd
+            y, h = ssm_scan(r, k, v, w, chunk=C)
+            torch.cuda.synchronize()
+            row["ssm_scan_launches"] = ops.launches_ssd - before
+            row["ssm_scan_s_final_equal"] = bool(torch.equal(h, sf))
+            if row["ssm_scan_launches"] != 1 or y.dtype != dtype \
+                    or not row["ssm_scan_s_final_equal"]:
+                raise AssertionError(f"ssm_scan wrapper: {row}")
+        emit({"phase": "wkv", **row})
+        if not (o_err <= o_tol and s_err <= s_tol):
+            raise AssertionError(f"wkv kernel disagrees: {row}")
+        rows[name] = row
+        del r, k, v, w, o, sf, o_ref, sf_ref
+        torch.cuda.empty_cache()
+    return rows
+
+
 def _dev_us(e) -> float:
     for name in ("self_device_time_total", "self_cuda_time_total"):
         if hasattr(e, name):
@@ -343,19 +443,31 @@ def summarize_profile(torch, prof, r: int, tag: str) -> dict:
                             for e in top_cpu]}
 
 
-def phase_train(torch, dev, schedule: str = "tree", profile: bool = False):
-    """Two rounds of the train cell with ``schedule``; the launch counters
-    are set to 0 just before the rounds and read just after."""
+# phase, arch, depth, schedule: published widths, depth cut to fit one
+# card (K = 4 client banks in bf16 plus f32 AdamW moments)
+TRAIN_CELLS = [
+    ("train", "qwen2-7b", 1, "tree"),
+    ("train_compressed", "qwen2-7b", 1, "compressed"),
+    ("train_rwkv6", "rwkv6-7b", 2, "tree"),
+    ("train_hymba", "hymba-1.5b", 32, "tree"),
+]
+K_CLIENTS, ROUNDS, BATCH_PER_CLIENT, SEQ = 4, 2, 1, 2048
+
+
+def phase_train(torch, dev, phase, arch, n_layers, schedule="tree",
+                profile=False):
+    """Two rounds of one train cell; the launch counters are set to 0 just
+    before the rounds and read just after."""
     from repro_torch import tree as T
     from repro_torch.configs.base import get_arch
     from repro_torch.kernels.fedavg import ops as fedavg_ops
     from repro_torch.kernels.flash_attn import ops as flash_ops
     from repro_torch.kernels.quant8 import ops as quant8_ops
+    from repro_torch.kernels.wkv6 import ops as wkv_ops
     from repro_torch.launch.train import SDFLMQTrainer
 
-    cfg = get_arch("qwen2-7b").replace(n_layers=1)   # published widths
-    K, rounds, bpc, seq = 4, 2, 1, 2048
-    phase = "train" if schedule == "tree" else f"train_{schedule}"
+    cfg = get_arch(arch).replace(n_layers=n_layers)   # published widths
+    K, rounds, bpc, seq = K_CLIENTS, ROUNDS, BATCH_PER_CLIENT, SEQ
     gc.collect()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats(dev)
@@ -396,23 +508,29 @@ def phase_train(torch, dev, schedule: str = "tree", profile: bool = False):
     flash_ops.launches = 0
     quant8_ops.quantize_launches = 0
     quant8_ops.dequantize_launches = 0
+    wkv_ops.launches_u = 0
+    wkv_ops.launches_ssd = 0
     metrics = tr.run()
     torch.cuda.synchronize()
     launches = {"fedavg": fedavg_ops.launches,
                 "qagg": fedavg_ops.qagg_launches,
                 "flash_fwd": flash_ops.launches,
                 "quantize": quant8_ops.quantize_launches,
-                "dequantize": quant8_ops.dequantize_launches}
+                "dequantize": quant8_ops.dequantize_launches,
+                "wkv6": wkv_ops.launches_u,
+                "ssm_scan": wkv_ops.launches_ssd}
     for m in metrics:
         emit({"phase": f"{phase}_round", "round": m["round"], "loss": m["loss"],
               "time_s": m["time_s"], "tokens_per_s": m["tokens_per_s"],
               "max_memory_allocated": m["max_memory_allocated"],
               "schedule": m["schedule"]})
     row = {"phase": phase, "schedule": schedule, "arch": cfg.name,
-           "n_layers": cfg.n_layers,
+           "family": cfg.family, "n_layers": cfg.n_layers,
            "d_model": cfg.d_model, "n_heads": cfg.n_heads,
            "n_kv_heads": cfg.n_kv_heads, "head_dim": cfg.head_dim,
-           "d_ff": cfg.d_ff, "vocab": cfg.vocab, "remat": cfg.remat,
+           "d_ff": cfg.d_ff, "vocab": cfg.vocab, "window": cfg.window,
+           "rwkv_head_dim": cfg.rwkv_head_dim, "rwkv_chunk": cfg.rwkv_chunk,
+           "ssm_state": cfg.ssm_state, "remat": cfg.remat,
            "clients": K, "batch_per_client": bpc, "seq": seq,
            "rounds": rounds, "params_per_client": n_params,
            "leaves": n_leaves, "init_s": init_s, "launches": launches,
@@ -435,9 +553,16 @@ def phase_train(torch, dev, schedule: str = "tree", profile: bool = False):
         raise AssertionError(f"{schedule}: launches {launches}; want {agg} = "
                              f"{n_leaves} leaves x {rounds} rounds and "
                              f"{other} = 0")
-    if launches["flash_fwd"] < cfg.n_layers * K * rounds:
-        raise AssertionError(f"flash launches {launches['flash_fwd']} < "
-                             f"layers x clients x rounds")
+    floor = cfg.n_layers * K * rounds         # one launch a layer and client
+    want = {"flash_fwd": cfg.family in ("dense", "hybrid"),
+            "wkv6": cfg.family == "rwkv", "ssm_scan": cfg.family == "hybrid"}
+    for name, on_path in want.items():
+        if on_path and launches[name] < floor:
+            raise AssertionError(f"{name} launches {launches[name]} < "
+                                 f"layers x clients x rounds = {floor}")
+        if not on_path and launches[name]:
+            raise AssertionError(f"{name} launched on a {cfg.family} path, "
+                                 f"which has none: {launches}")
     if launches["quantize"] or launches["dequantize"]:
         raise AssertionError(f"quant8 launched in the round, which no path "
                              f"of the round should do: {launches}")
@@ -445,10 +570,12 @@ def phase_train(torch, dev, schedule: str = "tree", profile: bool = False):
     return launches
 
 
-def kernel_rows(fed, flash, qagg, quant8, launches):
-    """The ``kernels`` line: every kernel with its launches on the main
-    paths (quant8 is on none: its launches there are read, and are 0), its
-    error against the plain version, and its times beside the bound."""
+def kernel_rows(fed, flash, qagg, quant8, wkv, launches):
+    """The ``kernels`` line: every kernel with its launches summed over the
+    train cells (quant8 is on none: its launches there are read, and are
+    0), its error against the plain version, and its times beside the
+    bound.  wkv6 and ssm_scan are the one WKV kernel in its two forms, each
+    at its path's shape."""
     rows = [
         {"name": "fedavg", "route": "cuda",
          "source": "src/repro_torch/csrc/fedavg.cu",
@@ -482,6 +609,19 @@ def kernel_rows(fed, flash, qagg, quant8, launches):
             "ms": quant8[f"{op}_ms"], "plain_ms": quant8[f"{op}_plain_ms"],
             "bound_ms": quant8[f"{op}_bound_ms"], "bound_by": "bytes",
             "library_ms": None})
+    for op, case, ref in (
+            ("wkv6", "path_rwkv6", "src/repro/kernels/wkv6/wkv6.py:65"),
+            ("ssm_scan", "path_hymba", "src/repro/kernels/ssm_scan/ops.py:15")):
+        row = wkv[case]
+        rows.append({
+            "name": op, "route": "cuda",
+            "source": "src/repro_torch/csrc/wkv6.cu", "replaces": ref,
+            "launches": launches[op],
+            "max_abs_err": max(row["o_max_abs_err"],
+                               row["s_final_max_abs_err"]),
+            "ms": row["kernel_ms"], "plain_ms": row["plain_ms"],
+            "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
+            "library_ms": None})
     return rows
 
 
@@ -509,11 +649,13 @@ def main(argv=None) -> int:
     flash = phase_flash(torch, dev)
     qagg = phase_qagg(torch, dev)
     quant8 = phase_quant8(torch, dev)
+    wkv = phase_wkv(torch, dev)
     launches = {}
-    for schedule in ("tree", "compressed"):
-        for k, n in phase_train(torch, dev, schedule, args.profile).items():
+    for phase, arch, n_layers, schedule in TRAIN_CELLS:
+        for k, n in phase_train(torch, dev, phase, arch, n_layers, schedule,
+                                args.profile).items():
             launches[k] = launches.get(k, 0) + n
-    emit({"kernels": kernel_rows(fed, flash, qagg, quant8, launches)})
+    emit({"kernels": kernel_rows(fed, flash, qagg, quant8, wkv, launches)})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

@@ -35,6 +35,8 @@ SIGNATURES = {
     "quant8_quantize_bf16": [_P, _P, _P, _L, _P],
     "quant8_quantize_f32": [_P, _P, _P, _L, _P],
     "quant8_dequantize": [_P, _P, _P, _L, _P],
+    "wkv6_bf16": [_P] * 8 + [_I] * 7 + [_P],
+    "wkv6_f32": [_P] * 8 + [_I] * 7 + [_P],
 }
 
 _lib = None

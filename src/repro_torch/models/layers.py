@@ -1,6 +1,6 @@
 """Shared neural-net building blocks (plain PyTorch, decl-based params).
 
-Layernorm and the GELU MLP wait for the encoder-decoder slice.
+The GELU MLP waits for the encoder-decoder slice.
 """
 from __future__ import annotations
 
@@ -22,6 +22,21 @@ def rmsnorm(params, x, eps: float = 1e-5):
     xf = x.float()
     var = xf.square().mean(dim=-1, keepdim=True)
     out = xf * torch.rsqrt(var + eps) * params["scale"]
+    return out.to(x.dtype)
+
+
+def layernorm_decl(d_model: int):
+    return {"scale": decl((d_model,), (None,), init="ones",
+                          dtype=torch.float32),
+            "bias": decl((d_model,), (None,), init="zeros",
+                         dtype=torch.float32)}
+
+
+def layernorm(params, x, eps: float = 1e-5):
+    xf = x.float()
+    mu = xf.mean(dim=-1, keepdim=True)
+    var = xf.var(dim=-1, keepdim=True, unbiased=False)   # jnp.var: population
+    out = (xf - mu) * torch.rsqrt(var + eps) * params["scale"] + params["bias"]
     return out.to(x.dtype)
 
 

@@ -1,8 +1,9 @@
 """Model API over the architecture families + loss functions.
 
 Every family module exposes ``param_decls(cfg)`` and
-``forward(cfg, params, batch) -> (logits (B,S,V), aux_loss)``.  Only the
-dense decoder is ported; the other families wait for their slices.
+``forward(cfg, params, batch) -> (logits (B,S,V), aux_loss)``.  Ported:
+the dense decoder, RWKV6 (``rwkv``) and the Hymba hybrid (``hybrid``);
+MoE, VLM and encoder-decoder wait for their slices.
 """
 from __future__ import annotations
 
@@ -10,9 +11,9 @@ import torch
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.dist import sharding as shd
-from repro_torch.models import decoder
+from repro_torch.models import decoder, hybrid, rwkv6
 
-_FAMILY = {"dense": decoder}
+_FAMILY = {"dense": decoder, "rwkv": rwkv6, "hybrid": hybrid}
 
 
 def get_model(cfg: ArchConfig):

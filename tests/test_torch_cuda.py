@@ -18,7 +18,11 @@ from repro_torch.kernels.flash_attn import ops as flash_ops
 from repro_torch.kernels.flash_attn.ref import attention_ref
 from repro_torch.kernels.quant8 import ops as quant8_ops
 from repro_torch.kernels.quant8.ref import dequantize_ref, quantize_ref
+from repro_torch.kernels.ssm_scan.ops import ssm_scan
+from repro_torch.kernels.wkv6 import ops as wkv_ops
+from repro_torch.kernels.wkv6.ref import chunked as wkv_chunked
 from repro_torch.models.attention import flash_attention, full_attention
+from repro_torch.models.linear_attn import linear_attention
 
 pytestmark = pytest.mark.cuda
 
@@ -33,6 +37,15 @@ QAGG_CASES = [  # (K, R, G): vector path (G % 16 == 0) and scalar path
     (4, 1, 1), (4, 37, 18944), (5, 1000, 3584), (4, 300, 48),
 ]
 QUANT8_CASES = [65536, 1000, 70001, 3 * 65536 + 17]
+WKV_CASES = [  # (B, T, H, dk, dv, chunk, use_u, scalar decay, s0)
+    (1, 256, 4, 64, 64, 128, True, False, False),   # rwkv6 widths
+    (1, 256, 3, 16, 64, 128, False, True, False),   # hymba SSD widths
+    (2, 200, 3, 4, 8, 64, True, False, True),       # ragged T, s0
+    (2, 200, 3, 4, 8, 64, False, True, True),
+    (1, 77, 2, 16, 128, 32, True, False, True),     # two value tiles
+    (2, 5, 1, 8, 4, 64, False, False, False),       # T < chunk
+    (1, 96, 2, 33, 17, 16, True, True, False),      # odd widths
+]
 FLASH_CASES = [  # (H, Kv, causal, window)
     (4, 4, True, None), (4, 4, True, 32), (4, 2, True, None),
     (4, 2, False, None), (4, 2, True, 48),
@@ -202,3 +215,85 @@ def test_compressed_schedule_on_card_matches_cpu(card, dtype):
     aggregation.aggregate_params(bank, w, AggSchedule("compressed", 4))
     for k in shapes:
         assert torch.equal(on_card[k].cpu(), bank[k]), k
+
+
+def _wkv_inputs(rng, B, T, H, dk, dv, use_u, scalar, s0, dtype, dev):
+    w = -torch.exp(_normal(rng, (B, T, H, 1 if scalar else dk),
+                           torch.float32, dev) * 0.5 - 1.0)
+    return dict(
+        r=_normal(rng, (B, T, H, dk), dtype, dev) * 0.5,
+        k=_normal(rng, (B, T, H, dk), dtype, dev) * 0.5,
+        v=_normal(rng, (B, T, H, dv), dtype, dev), w_log=w,
+        u=_normal(rng, (H, dk), torch.float32, dev) * 0.3 if use_u else None,
+        s0=_normal(rng, (B, H, dk, dv), torch.float32, dev) * 0.2
+        if s0 else None)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,T,H,dk,dv,chunk,use_u,scalar,s0", WKV_CASES)
+def test_wkv_kernel_matches_plain(card, dtype, B, T, H, dk, dv, chunk,
+                                  use_u, scalar, s0):
+    rng = np.random.default_rng(T * 3 + dk)
+    x = _wkv_inputs(rng, B, T, H, dk, dv, use_u, scalar, s0, dtype, card)
+    counter = "launches_u" if use_u else "launches_ssd"
+    before = (wkv_ops.launches_u, wkv_ops.launches_ssd)
+    o, sf = wkv_ops.wkv_f32(**x, chunk=chunk)
+    after = (wkv_ops.launches_u, wkv_ops.launches_ssd)
+    assert [a - b for a, b in zip(after, before)] == \
+        ([1, 0] if use_u else [0, 1]), counter
+    o_ref, sf_ref = wkv_chunked(**x, chunk=chunk)
+    torch.cuda.synchronize()
+    assert o.dtype == torch.float32 and o.shape == (B, T, H, dv)
+    # both upcast the same inputs to f32 and sum in other orders
+    torch.testing.assert_close(o, o_ref, rtol=0,
+                               atol=1e-4 * float(o_ref.abs().max()))
+    torch.testing.assert_close(sf, sf_ref, rtol=0,
+                               atol=1e-4 * float(sf_ref.abs().max()))
+    o_v, _ = wkv_ops.wkv(**x, chunk=chunk)
+    assert o_v.dtype == dtype
+
+
+def test_ssm_scan_on_card_launches_the_ssd_kernel(card):
+    rng = np.random.default_rng(5)
+    x = _wkv_inputs(rng, 1, 128, 5, 16, 64, False, True, False,
+                    torch.bfloat16, card)
+    before = wkv_ops.launches_ssd
+    y, h = ssm_scan(x["r"], x["k"], x["v"], x["w_log"], chunk=64)
+    assert wkv_ops.launches_ssd == before + 1
+    y_ref, h_ref = wkv_chunked(x["r"], x["k"], x["v"], x["w_log"], chunk=64)
+    torch.testing.assert_close(y.float(), y_ref.to(torch.bfloat16).float(),
+                               rtol=0, atol=1e-2 * float(y_ref.abs().max()))
+    torch.testing.assert_close(h, h_ref, rtol=0,
+                               atol=1e-4 * float(h_ref.abs().max()))
+
+
+@pytest.mark.parametrize("use_u", [True, False])
+def test_wkv_gradient_on_card_matches_autograd_through_plain(card, use_u):
+    rng = np.random.default_rng(11)
+    x = _wkv_inputs(rng, 2, 100, 2, 16, 32, use_u, not use_u, True,
+                    torch.float32, card)
+    x = {k: None if v is None else v.requires_grad_() for k, v in x.items()}
+    cot = _normal(rng, (2, 100, 2, 32), torch.float32, card)
+    grads = []
+    for fn in (linear_attention, wkv_chunked):
+        for t in x.values():
+            if t is not None:
+                t.grad = None
+        o, sf = fn(**x, chunk=32)
+        ((o * cot).sum() + sf.sum()).backward()
+        grads.append([t.grad.clone() for t in x.values() if t is not None])
+    for a, b in zip(*grads):
+        torch.testing.assert_close(a, b, rtol=1e-4,
+                                   atol=1e-4 * float(b.abs().max()))
+
+
+def test_wkv_kernel_rejects_what_it_does_not_take(card):
+    rng = np.random.default_rng(0)
+    x = _wkv_inputs(rng, 1, 16, 1, 4, 4, True, False, False, torch.float16,
+                    card)
+    with pytest.raises(TypeError):
+        wkv_ops.wkv(**x)
+    x = _wkv_inputs(rng, 1, 16, 1, 72, 4, True, False, False, torch.float32,
+                    card)
+    with pytest.raises(ValueError):
+        wkv_ops.wkv(**x)

@@ -139,6 +139,11 @@ def _flash_flops(B, Sq, Sk, H, hd, causal, window, q_offset=0, kv_offset=0):
 
 
 def phase_flash(torch, dev):
+    """The flash kernel against its plain version (``attention_ref``) at
+    the two paths' shapes (qwen2: causal; hymba: window 1024) and at odd
+    ones, then the gradient through it.  The path shapes are timed beside
+    the plain version and ``scaled_dot_product_attention``; ``bound_share``
+    is the bound over the kernel's time."""
     import torch.nn.functional as F
     from repro_torch.kernels.flash_attn import ops
     from repro_torch.kernels.flash_attn.ref import attention_ref
@@ -172,31 +177,35 @@ def phase_flash(torch, dev):
                "causal": causal, "window": window, "q_offset": qo,
                "o_max_abs_err": o_err, "lse_max_abs_err": lse_err,
                "o_tol": o_tol, "lse_tol": lse_tol}
-        if name == "hymba_window":
-            flops = _flash_flops(B, Sq, Sk, H, hd, causal, window)
-            ms = time_ms(torch, lambda: ops.flash_fwd(q, k, v, causal,
-                                                      window), 10)
-            row.update({"kernel_ms": ms, "flops": flops,
-                        "bound_ms": flops / PEAK_BF16_FLOP_S * 1e3,
-                        "tflop_s": flops / (ms * 1e-3) / 1e12})
-        if name == "path":
+        if name in ("path", "hymba_window"):
             flops = _flash_flops(B, Sq, Sk, H, hd, causal, window)
             nbytes = (q.numel() + k.numel() + v.numel() + o.numel()) \
                 * q.element_size() + lse.numel() * 4
-            ms = time_ms(torch, lambda: ops.flash_fwd(q, k, v, causal), 10)
+            ms = time_ms(torch, lambda: ops.flash_fwd(q, k, v, causal,
+                                                      window), 10)
             plain_ms = time_ms(
-                torch, lambda: attention_ref(q, k, v, causal), 3)
+                torch, lambda: attention_ref(q, k, v, causal, window), 3)
             qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
-            lib_ms = time_ms(torch, lambda: F.scaled_dot_product_attention(
-                qt, kt, vt, is_causal=True, enable_gqa=True), 10)
+            if window is None:
+                lib = lambda: F.scaled_dot_product_attention(
+                    qt, kt, vt, is_causal=True, enable_gqa=True)
+            else:
+                pos = torch.arange(Sq, device=dev)
+                keep = (pos[:, None] >= pos[None, :]) \
+                    & (pos[:, None] - pos[None, :] < window)
+                lib = lambda: F.scaled_dot_product_attention(
+                    qt, kt, vt, attn_mask=keep, enable_gqa=True)
+            lib_ms = time_ms(torch, lib, 10)
+            bound_ms = max(flops / PEAK_BF16_FLOP_S,
+                           nbytes / PEAK_BYTES_S) * 1e3
             row.update({
                 "kernel_ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
-                "flops": flops, "bytes": nbytes,
-                "bound_ms": max(flops / PEAK_BF16_FLOP_S,
-                                nbytes / PEAK_BYTES_S) * 1e3,
+                "flops": flops, "bytes": nbytes, "bound_ms": bound_ms,
                 "bound_by": "operations" if flops / PEAK_BF16_FLOP_S
                 > nbytes / PEAK_BYTES_S else "bytes",
+                "bound_share": bound_ms / ms,
                 "tflop_s": flops / (ms * 1e-3) / 1e12})
+        if name == "path":
             path_row = row
         emit({"phase": "flash_fwd", **row})
         if o_err > o_tol or lse_err > lse_tol:
@@ -316,10 +325,11 @@ def phase_quant8(torch, dev):
 
 
 def _wkv_work(B, T, H, dk, dv, C, use_u):
-    """(FLOPs, exps) of one chunked WKV call: per chunk and head the
-    pairwise scores (3 per channel of each pair s < t, 2 per channel on the
-    diagonal, one exp per channel of each pair s < t), r*exp(base) @ S,
-    A @ v over s <= t and the state update."""
+    """(FLOPs, exps) of one chunked WKV call in the plain chunked form: per
+    chunk and head the pairwise scores (3 per channel of each pair s < t, 2
+    per channel on the diagonal, one exp per channel of each pair s < t),
+    r*exp(base) @ S, A @ v over s <= t and the state update.  The kernel
+    factors most of the pairwise exps away; the bound is its bytes."""
     n = -(-T // C)
     pairs = C * (C - 1) // 2
     per_chunk = (3 * pairs * dk + (3 if use_u else 2) * C * dk
@@ -332,7 +342,8 @@ def phase_wkv(torch, dev):
     at the two paths' shapes (rwkv6: per-channel decay with u; hymba's SSM
     branch: per-head decay, SSD form) and at odd shapes (B = 2, a ragged
     T = 200 with chunk 64, dk 4 / dv 8, a given s0).  Tolerance: 1e-4 of
-    max |o| (and of max |s_final|), f32 sums in another order."""
+    max |o| (and of max |s_final|), f32 sums in another order.
+    ``bound_share`` is the bound over the kernel's time."""
     from repro_torch.kernels.ssm_scan.ops import ssm_scan
     from repro_torch.kernels.wkv6 import ops
     from repro_torch.kernels.wkv6.ref import chunked
@@ -383,6 +394,7 @@ def phase_wkv(torch, dev):
             "kernel_ms": ms,
             "plain_ms": time_ms(
                 torch, lambda: chunked(r, k, v, w, u=u, s0=s0, chunk=C), 2),
+            "bound_share": row["bound_ms"] / ms,
             "gb_s": nbytes / (ms * 1e-3) / 1e9,
             "gexp_s": exps / (ms * 1e-3) / 1e9})
         if name == "path_hymba":       # the ssm_scan wrapper: same kernel

@@ -35,9 +35,11 @@ SIGNATURES = {
     "quant8_quantize_bf16": [_P, _P, _P, _L, _P],
     "quant8_quantize_f32": [_P, _P, _P, _L, _P],
     "quant8_dequantize": [_P, _P, _P, _L, _P],
-    "wkv6_bf16": [_P] * 8 + [_I] * 7 + [_P],
-    "wkv6_f32": [_P] * 8 + [_I] * 7 + [_P],
+    "wkv6_bf16": [_P] * 9 + [_I] * 7 + [_P],
+    "wkv6_f32": [_P] * 9 + [_I] * 7 + [_P],
+    "wkv6_scratch_floats": [_I] * 7,
 }
+RESTYPES = {"wkv6_scratch_floats": _L}   # every other function: cudaError_t
 
 _lib = None
 build_log = ""          # ptxas register/shared-memory report of the last build
@@ -110,7 +112,7 @@ def load() -> ctypes.CDLL:
         for name, argtypes in SIGNATURES.items():
             fn = getattr(lib, name)
             fn.argtypes = argtypes
-            fn.restype = ctypes.c_int
+            fn.restype = RESTYPES.get(name, ctypes.c_int)
         _lib = lib
     return _lib
 

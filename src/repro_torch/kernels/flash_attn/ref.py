@@ -16,9 +16,11 @@ NEG_INF = -1e30
 
 def attention_ref(q, k, v, causal: bool = True, window=None,
                   q_offset: int = 0, kv_offset: int = 0,
-                  block_k: int = 128):
+                  block_k: int = 128, round_p: bool = False):
     """q: (B,Sq,H,hd); k/v: (B,Sk,Kv,hd) with H % Kv == 0.
-    Returns o (B,Sq,H,hd) in q's dtype and lse (B,H,Sq) f32."""
+    Returns o (B,Sq,H,hd) in q's dtype and lse (B,H,Sq) f32.  With
+    ``round_p`` the probabilities are rounded to bf16 before P @ V (the row
+    sum keeps them in f32)."""
     B, Sq, H, hd = q.shape
     Sk, Kv = k.shape[1], k.shape[2]
     G = H // Kv
@@ -44,9 +46,18 @@ def attention_ref(q, k, v, causal: bool = True, window=None,
         p = torch.where(ok, torch.exp(s - m_new[..., None]), 0.0)
         alpha = torch.exp(m - m_new)
         l = l * alpha + p.sum(dim=-1)
-        acc = acc * alpha[..., None] + torch.einsum("bkgqs,bskh->bkgqh", p, vb)
+        pv = p.to(torch.bfloat16).float() if round_p else p
+        acc = acc * alpha[..., None] + torch.einsum("bkgqs,bskh->bkgqh", pv, vb)
         m = m_new
     denom = torch.clamp(l, min=1e-30)
     lse = (m + torch.log(denom)).reshape(B, H, Sq)
     o = (acc / denom[..., None]).permute(0, 3, 1, 2, 4).reshape(B, Sq, H, hd)
     return o.to(q.dtype), lse
+
+
+def attention_tc_ref(q, k, v, causal: bool = True, window=None,
+                     q_offset: int = 0, kv_offset: int = 0):
+    """What the bf16 kernel computes: 64-key tiles, f32 scores and row
+    sums, P rounded to bf16 before P @ V.  Tests only; no path calls it."""
+    return attention_ref(q, k, v, causal, window, q_offset, kv_offset,
+                         block_k=64, round_p=True)

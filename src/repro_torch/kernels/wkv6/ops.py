@@ -6,7 +6,9 @@ broadcastable to r (per channel, or (B,T,H,1) per head), u (H,dk) or None,
 s0 (B,H,dk,dv) or None.  The kernel reads that layout in place, so nothing
 is transposed to (B·H, T, d) as the reference does for Pallas; a per-head
 decay is read as one value per (b, t, h), not broadcast in memory.  A
-ragged T is padded with k = 0 and w_log = 0.  A CPU tensor takes the
+ragged T is padded with k = 0 and w_log = 0.  The kernel's chunk-start
+states and flags live in a scratch allocated here (its size from
+``wkv6_scratch_floats``).  A CPU tensor takes the
 plain version (``ref.chunked``); a CUDA tensor launches the kernel or
 raises.  ``launches_u`` counts RWKV6 launches (u given) and
 ``launches_ssd`` SSD launches (u=None)."""
@@ -75,11 +77,17 @@ def wkv_f32(r, k, v, w_log, u=None, s0=None, chunk: int = DEFAULT_CHUNK):
     Tp = T + pad
     o = torch.empty((B, Tp, H, dv), dtype=torch.float32, device=r.device)
     sf = torch.empty((B, H, dk, dv), dtype=torch.float32, device=r.device)
-    status = getattr(_build.load(), _FN[r.dtype])(
+    lib = _build.load()
+    # per kernel chunk: its state contribution, then its start state
+    # (dk x dv), and its decay (dk)
+    scratch = torch.empty(lib.wkv6_scratch_floats(B, Tp, H, dk, dv, wd, C),
+                          dtype=torch.float32, device=r.device)
+    status = getattr(lib, _FN[r.dtype])(
         r.data_ptr(), k.data_ptr(), v.data_ptr(), w.data_ptr(),
         None if uf is None else uf.data_ptr(),
         None if s0f is None else s0f.data_ptr(),
-        o.data_ptr(), sf.data_ptr(), B, Tp, H, dk, dv, wd, C,
+        o.data_ptr(), sf.data_ptr(), scratch.data_ptr(), B, Tp, H, dk, dv,
+        wd, C,
         _build.stream_ptr(r))
     _build.check_status(status, "wkv")
     if u is None:

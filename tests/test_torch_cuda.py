@@ -297,3 +297,108 @@ def test_wkv_kernel_rejects_what_it_does_not_take(card):
                     card)
     with pytest.raises(ValueError):
         wkv_ops.wkv(**x)
+
+
+# bf16 flash on the tensor cores: head dims that run unpadded (128), padded
+# in shared memory (80 -> 128) and loaded without cp.async (20, not a
+# multiple of 8); ragged Sq/Sk against the 64-key tile and the q tile;
+# 128-row q tiles (a grid of at least one wave) and 64-row ones
+FLASH_TC_CASES = [  # (B, Sq, Sk, H, Kv, hd, causal, window, q_offset)
+    (1, 300, 300, 4, 2, 128, True, None, 0),
+    (1, 300, 300, 4, 2, 80, True, None, 0),
+    (2, 130, 130, 2, 2, 20, True, 40, 0),
+    (1, 100, 237, 3, 1, 64, True, 50, 137),
+    (1, 77, 77, 4, 1, 16, False, None, 0),
+    (2, 1100, 1100, 8, 2, 64, True, 300, 0),
+]
+
+
+@pytest.mark.parametrize("B,Sq,Sk,H,Kv,hd,causal,window,q_offset",
+                         FLASH_TC_CASES)
+def test_flash_bf16_kernel_tiles_match_plain(card, B, Sq, Sk, H, Kv, hd,
+                                             causal, window, q_offset):
+    rng = np.random.default_rng(Sq * 7 + hd)
+    q = _normal(rng, (B, Sq, H, hd), torch.bfloat16, card)
+    k = _normal(rng, (B, Sk, Kv, hd), torch.bfloat16, card)
+    v = _normal(rng, (B, Sk, Kv, hd), torch.bfloat16, card)
+    o, lse = flash_ops.flash_fwd(q, k, v, causal, window, q_offset)
+    o_ref, lse_ref = attention_ref(q, k, v, causal, window, q_offset)
+    torch.cuda.synchronize()
+    assert torch.isfinite(o.float()).all()
+    # bf16 o: one bf16 ulp below 2; lse: f32 scores of exact bf16 products
+    torch.testing.assert_close(o.float(), o_ref.float(), rtol=0, atol=2e-2)
+    torch.testing.assert_close(lse, lse_ref, rtol=0, atol=2e-5)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_kernel_ragged_offset_window_single_kv_head(card, dtype):
+    rng = np.random.default_rng(3)
+    q = _normal(rng, (2, 70, 4, 64), dtype, card)
+    k = _normal(rng, (2, 203, 1, 64), dtype, card)
+    v = _normal(rng, (2, 203, 1, 64), dtype, card)
+    o, lse = flash_ops.flash_fwd(q, k, v, True, 45, 133)
+    o_ref, lse_ref = attention_ref(q, k, v, True, 45, 133)
+    tol = 2e-5 if dtype == torch.float32 else 2e-2
+    torch.testing.assert_close(o.float(), o_ref.float(), rtol=0, atol=tol)
+    torch.testing.assert_close(lse, lse_ref, rtol=0, atol=2e-5)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("use_u,scalar", [(True, False), (False, True),
+                                          (True, True), (False, False)])
+def test_wkv_kernel_strong_decay_is_finite_and_matches_plain(
+        card, dtype, use_u, scalar):
+    """w about -5 a step: exp(-cum) alone would overflow within a chunk;
+    the kernel's sub-block reference points keep every exponent <= 0."""
+    rng = np.random.default_rng(17)
+    B, T, H, dk, dv = 1, 256, 2, 64, 64
+    x = _wkv_inputs(rng, B, T, H, dk, dv, use_u, scalar, True, dtype, card)
+    x["w_log"] = -5.0 + 0.1 * _normal(rng, tuple(x["w_log"].shape),
+                                      torch.float32, card)
+    o, sf = wkv_ops.wkv_f32(**x, chunk=128)
+    o_ref, sf_ref = wkv_chunked(**x, chunk=128)
+    torch.cuda.synchronize()
+    assert torch.isfinite(o).all() and torch.isfinite(sf).all()
+    torch.testing.assert_close(o, o_ref, rtol=0,
+                               atol=1e-4 * float(o_ref.abs().max()))
+    torch.testing.assert_close(sf, sf_ref, rtol=0,
+                               atol=1e-4 * float(sf_ref.abs().max()))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("use_u", [True, False])
+def test_wkv_kernel_ragged_t_full_widths_with_s0(card, dtype, use_u):
+    rng = np.random.default_rng(23)
+    B, T, H, dk, dv = 2, 200, 3, 64, 64
+    x = _wkv_inputs(rng, B, T, H, dk, dv, use_u, not use_u, True, dtype,
+                    card)
+    o, sf = wkv_ops.wkv_f32(**x, chunk=64)
+    o_ref, sf_ref = wkv_chunked(**x, chunk=64)
+    torch.cuda.synchronize()
+    assert o.shape == (B, T, H, dv)
+    torch.testing.assert_close(o, o_ref, rtol=0,
+                               atol=1e-4 * float(o_ref.abs().max()))
+    torch.testing.assert_close(sf, sf_ref, rtol=0,
+                               atol=1e-4 * float(sf_ref.abs().max()))
+
+
+def test_each_op_call_adds_one_launch(card):
+    """An op call counts once (the WKV op also clears its chunks' flags
+    with a memset before its kernel)."""
+    rng = np.random.default_rng(29)
+    q = _normal(rng, (1, 128, 4, 64), torch.bfloat16, card)
+    kv = _normal(rng, (1, 128, 2, 64), torch.bfloat16, card)
+    before = flash_ops.launches
+    flash_ops.flash_fwd(q, kv, kv, True)
+    assert flash_ops.launches == before + 1
+    for use_u in (True, False):
+        x = _wkv_inputs(rng, 1, 256, 2, 16, 32, use_u, not use_u, False,
+                        torch.bfloat16, card)
+        before = (wkv_ops.launches_u, wkv_ops.launches_ssd)
+        wkv_ops.wkv(**x, chunk=128)
+        after = (wkv_ops.launches_u, wkv_ops.launches_ssd)
+        assert [a - b for a, b in zip(after, before)] == \
+            ([1, 0] if use_u else [0, 1])
+    before = wkv_ops.launches_ssd
+    ssm_scan(x["r"], x["k"], x["v"], x["w_log"], chunk=128)
+    assert wkv_ops.launches_ssd == before + 1

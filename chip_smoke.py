@@ -7,18 +7,24 @@
 Builds the port's CUDA kernels from ``src/repro_torch/csrc`` with nvcc for
 sm_90a, holds each kernel against its plain PyTorch version on the card,
 times both (and the one PyTorch call that computes the same function, where
-there is one), then runs two federated rounds of each train cell through
-``SDFLMQTrainer`` at published widths (random weights from a seed), each
-after the previous trainer is freed: qwen2-7b (one layer) with the ``tree``
-schedule (fedavg kernel) and with the ``compressed`` schedule (int8
-quantize + qagg kernel); rwkv6-7b (two layers, the WKV kernel with u); and
-hymba-1.5b (all 32 layers, the WKV kernel in SSD form and the flash kernel
-with a 1024 window).  The kernels' launch counters, set to 0 just before
-each run and read just after, show that each run went through its
-kernels.  Each phase prints JSON lines; then one line lists every kernel,
-one line gives the card's name and power limit as nvidia-smi reports them,
-and the last line is ``{"ok": true, "device": ...}``.  Any failure raises
-and exits non-zero; nothing runs on the CPU.
+there is one), and holds every compiled aggregation strategy on the card
+against the same call on the CPU.  Then it runs two federated rounds of each
+train cell through ``SDFLMQTrainer`` at published widths (random weights
+from a seed), each after the previous trainer is freed: qwen2-7b (one
+layer) with the ``tree`` schedule (fedavg kernel) and with the
+``compressed`` schedule (int8 quantize + qagg kernel); rwkv6-7b (two
+layers, the WKV kernel with u); hymba-1.5b (all 32 layers, the WKV kernel
+in SSD form and the flash kernel with a 1024 window); and qwen2-7b under
+``fedprox`` (premapped chunks through the fedavg kernel's f32 entry),
+``trimmed_mean`` and ``multi_krum`` (plain PyTorch combines; c3 dies in
+round 1).  The kernels' launch counters, set to 0 just before each run and
+read just after, show that each run went through its kernels.  Last, the
+``resume`` phase checkpoints and resumes qwen2-7b's smoke config on the
+card, and ``resume_full`` saves and restores a hymba-1.5b state at
+published widths (depth cut to 2 layers).  Each phase prints JSON lines; then one line lists every kernel, one
+line gives the card's name and power limit as nvidia-smi reports them, and
+the last line is ``{"ok": true, "device": ...}``.  Any failure raises and
+exits non-zero; nothing runs on the CPU but the strategies' references.
 """
 from __future__ import annotations
 
@@ -26,6 +32,8 @@ import argparse
 import gc
 import json
 import math
+import os
+import shutil
 import subprocess
 import sys
 import time
@@ -90,6 +98,7 @@ def phase_fedavg(torch, dev):
     gen = torch.Generator(device=dev).manual_seed(0)
     w = torch.tensor([3.0, 1.0, 2.0, 4.0], device=dev)
     cases = [("path_largest_leaf", 4, 152064 * 3584, torch.bfloat16),
+             ("path_f32_chunk", 4, 1 << 26, torch.float32),   # fedprox's
              ("norm_leaf", 4, 3584, torch.float32),
              ("ragged", 4, 1_000_003, torch.float32)]
     rows = []
@@ -415,6 +424,116 @@ def phase_wkv(torch, dev):
     return rows
 
 
+STRATEGIES = ["fedavg", "fedprox", "fedprox_poly", "norm_clip",
+              "trimmed_mean", "coordinate_median", "weighted_trimmed_mean",
+              "weighted_median", "krum", "multi_krum",
+              "clipped_weighted_trimmed_mean"]
+NORM_CLIPPED = {"norm_clip", "clipped_weighted_trimmed_mean"}
+
+
+def phase_strategies(torch, dev):
+    """Each compiled strategy's ``aggregate_params`` on the card against the
+    same call on the CPU: K = 4 with one dead row, a bf16 leaf of
+    CHUNK + 1 elements a client (two chunks) and an f32 leaf, each client's
+    pre-round ref a noisy copy of its row.  Client k's rows spread with k,
+    so krum's distances are well separated and its selection does not hang
+    on the Gram's rounding (the card's matmul sums in another order).
+    Tolerance 0, except for the norm clip, whose per-client sums of squares
+    the card reduces in another order: 4 f32 ulps of the leaf's largest
+    magnitude, or one bf16 ulp of the value.  ``ms`` is one call on the card.
+    Also times the stable sort the stack combines use (a compare-exchange
+    network over the K rows) against ``torch.sort`` on one chunk."""
+    from repro_torch.core import aggregation
+    from repro_torch.core.topology import AggSchedule
+    from repro_torch.core.xp_torch import TorchXP
+    from repro_torch.kernels.fedavg import ops as fedavg_ops
+    gen = torch.Generator(device=dev).manual_seed(5)
+    K = 4
+    shapes = {"big": ((K, aggregation.CHUNK + 1), torch.bfloat16),
+              "norm": ((K, 3584), torch.float32)}
+    bank, ref = {}, {}
+    for name, (shape, dtype) in shapes.items():
+        spread = torch.arange(1, K + 1, device=dev, dtype=torch.float32)
+        spread = spread.view((K,) + (1,) * (len(shape) - 1))
+        mk = lambda: torch.randn(shape, generator=gen, device=dev)
+        x = torch.randn(shape[1:], generator=gen, device=dev) \
+            + 0.3 * spread * mk()
+        bank[name] = x.to(dtype)
+        ref[name] = (x + 0.2 * spread * mk()).to(dtype)
+        del x
+    w = torch.tensor([1.0, 2.0, 0.0, 3.0])
+    sched = AggSchedule("tree", K)
+    chunks = sum(len(aggregation._chunks(t[0].numel()))
+                 for t in bank.values())
+    cpu_bank = {k: v.cpu() for k, v in bank.items()}
+    cpu_ref = {k: v.cpu() for k, v in ref.items()}
+    rows = {}
+    for name in STRATEGIES:
+        want = {k: v.clone() for k, v in cpu_bank.items()}
+        t0 = time.perf_counter()
+        aggregation.aggregate_params(want, w, sched, name, ref=cpu_ref)
+        cpu_s = time.perf_counter() - t0
+        warm = {k: v.clone() for k, v in bank.items()}
+        aggregation.aggregate_params(warm, w.to(dev), sched, name, ref=ref)
+        del warm
+        got = {k: v.clone() for k, v in bank.items()}
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        before = fedavg_ops.launches
+        torch.cuda.synchronize()
+        start.record()
+        aggregation.aggregate_params(got, w.to(dev), sched, name, ref=ref)
+        end.record()
+        end.synchronize()
+        launches = fedavg_ops.launches - before
+        errs, ok = {}, True
+        for k, (_, dtype) in shapes.items():
+            g, t = got[k].float().cpu(), want[k].float()
+            err = (g - t).abs()
+            errs[k] = float(err.max())
+            if name in NORM_CLIPPED:
+                tol = torch.full_like(t, 4 * 2.0 ** -23 * float(t.abs().max()))
+                if dtype == torch.bfloat16:
+                    tol = torch.maximum(tol, torch.exp2(torch.floor(torch.log2(
+                        t.abs().clamp_min(2.0 ** -126))) - 7))
+                ok &= bool((err <= tol).all())
+            else:
+                ok &= bool(torch.equal(got[k].cpu(), want[k]))
+        strat = aggregation.check_strategy(name)
+        want_launches = (0 if strat.reduction == "stack" else
+                         chunks if strat.needs_ref else len(shapes))
+        row = {"strategy": name, "reduction": strat.reduction,
+               "needs_ref": strat.needs_ref, "K": K,
+               "elements_per_client": {k: int(v[0].numel())
+                                       for k, v in bank.items()},
+               "max_abs_err": max(errs.values()), "max_abs_err_by_leaf": errs,
+               "tolerance": ("4 f32 ulps of max|x| or 1 bf16 ulp"
+                             if name in NORM_CLIPPED else 0),
+               "ms": start.elapsed_time(end), "cpu_s": cpu_s,
+               "fedavg_launches": launches}
+        emit({"phase": "strategies", **row})
+        if not ok or launches != want_launches:
+            raise AssertionError(f"strategy {name} on the card: {row}; "
+                                 f"want {want_launches} fedavg launches")
+        rows[name] = row
+        del want, got
+    xp = TorchXP(dev)
+    x = bank["big"][:, :aggregation.CHUNK].float()
+    net = xp.sort(x, axis=0)
+    lib = torch.sort(x, dim=0, stable=True).values
+    row = {"phase": "strategies_sort", "shape": list(x.shape),
+           "equal": bool(torch.equal(net, lib)),
+           "network_ms": time_ms(torch, lambda: xp.sort(x, axis=0), 5),
+           "torch_sort_ms": time_ms(
+               torch, lambda: torch.sort(x, dim=0, stable=True), 5)}
+    emit(row)
+    if not row["equal"]:
+        raise AssertionError(f"sorting network != torch.sort: {row}")
+    del bank, ref, cpu_bank, cpu_ref, x, net, lib
+    torch.cuda.empty_cache()
+    return rows
+
+
 def _dev_us(e) -> float:
     for name in ("self_device_time_total", "self_cuda_time_total"):
         if hasattr(e, name):
@@ -455,23 +574,33 @@ def summarize_profile(torch, prof, r: int, tag: str) -> dict:
                             for e in top_cpu]}
 
 
-# phase, arch, depth, schedule: published widths, depth cut to fit one
-# card (K = 4 client banks in bf16 plus f32 AdamW moments)
+# phase, arch, depth, schedule, strategy, failures (round -> clients):
+# published widths, depth cut to fit one card (K = 4 client banks in bf16
+# plus f32 AdamW moments)
 TRAIN_CELLS = [
-    ("train", "qwen2-7b", 1, "tree"),
-    ("train_compressed", "qwen2-7b", 1, "compressed"),
-    ("train_rwkv6", "rwkv6-7b", 2, "tree"),
-    ("train_hymba", "hymba-1.5b", 32, "tree"),
+    ("train", "qwen2-7b", 1, "tree", "fedavg", {}),
+    ("train_compressed", "qwen2-7b", 1, "compressed", "fedavg", {}),
+    ("train_rwkv6", "rwkv6-7b", 2, "tree", "fedavg", {}),
+    ("train_hymba", "hymba-1.5b", 32, "tree", "fedavg", {}),
+    ("train_fedprox", "qwen2-7b", 1, "tree", "fedprox", {}),
+    ("train_trimmed_mean", "qwen2-7b", 1, "tree", "trimmed_mean",
+     {1: ["c3"]}),
+    ("train_multi_krum", "qwen2-7b", 1, "tree", "multi_krum", {1: ["c3"]}),
 ]
 K_CLIENTS, ROUNDS, BATCH_PER_CLIENT, SEQ = 4, 2, 1, 2048
+CARD_BYTES = 80e9
 
 
 def phase_train(torch, dev, phase, arch, n_layers, schedule="tree",
-                profile=False):
+                strategy="fedavg", fail_at=None, profile=False):
     """Two rounds of one train cell; the launch counters are set to 0 just
-    before the rounds and read just after."""
+    before the rounds and read just after.  Each round's aggregation (and
+    the pre-round copy a ``needs_ref`` strategy takes) is its device time
+    between two CUDA events, which the round step records."""
     from repro_torch import tree as T
     from repro_torch.configs.base import get_arch
+    from repro_torch.core import aggregation
+    from repro_torch.ft.failures import FailurePlan
     from repro_torch.kernels.fedavg import ops as fedavg_ops
     from repro_torch.kernels.flash_attn import ops as flash_ops
     from repro_torch.kernels.quant8 import ops as quant8_ops
@@ -485,7 +614,8 @@ def phase_train(torch, dev, phase, arch, n_layers, schedule="tree",
     torch.cuda.reset_peak_memory_stats(dev)
     t0 = time.perf_counter()
     tr = SDFLMQTrainer(cfg, K, rounds, bpc, seq, seed=0, device=dev,
-                       schedule_kind=schedule)
+                       schedule_kind=schedule, strategy=strategy,
+                       failure_plan=FailurePlan(fail_at=dict(fail_at or {})))
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
     n_leaves = len(T.leaves(tr.state["params"]))
@@ -534,9 +664,14 @@ def phase_train(torch, dev, phase, arch, n_layers, schedule="tree",
     for m in metrics:
         emit({"phase": f"{phase}_round", "round": m["round"], "loss": m["loss"],
               "time_s": m["time_s"], "tokens_per_s": m["tokens_per_s"],
+              "aggregate_ms": m.get("aggregate_ms"),
+              "pre_round_ref_ms": m.get("ref_ms"),
+              "n_clients": m["n_clients"],
               "max_memory_allocated": m["max_memory_allocated"],
               "schedule": m["schedule"]})
-    row = {"phase": phase, "schedule": schedule, "arch": cfg.name,
+    row = {"phase": phase, "schedule": schedule, "strategy": strategy,
+           "fail_at": {str(r): c for r, c in (fail_at or {}).items()},
+           "arch": cfg.name,
            "family": cfg.family, "n_layers": cfg.n_layers,
            "d_model": cfg.d_model, "n_heads": cfg.n_heads,
            "n_kv_heads": cfg.n_kv_heads, "head_dim": cfg.head_dim,
@@ -557,14 +692,38 @@ def phase_train(torch, dev, phase, arch, n_layers, schedule="tree",
     losses = [m["loss"] for m in metrics]
     if not all(math.isfinite(x) for x in losses):
         raise AssertionError(f"non-finite loss: {losses}")
+    strat = aggregation.check_strategy(strategy)
+    spans = [[k for k in ("aggregate_ms", "ref_ms") if k in m]
+             for m in metrics]
+    want_spans = ["aggregate_ms"] + ["ref_ms"] * strat.needs_ref
+    if len(metrics) != rounds or spans != [want_spans] * rounds:
+        raise AssertionError(f"{len(metrics)} rounds, spans timed {spans}")
+    # the failure plan took effect: each round counts the clients still
+    # alive, and a dead client's row carries weight 0 (the dead-row path)
+    dead = set()
+    for m in metrics:
+        dead.update((fail_at or {}).get(m["round"], []))
+        if m["n_clients"] != K - len(dead):
+            raise AssertionError(f"round {m['round']}: {m['n_clients']} "
+                                 f"clients with {sorted(dead)} dead")
+    if any(tr.weights[int(c[1:])] != 0 for c in dead):
+        raise AssertionError(f"a dead client has weight: {tr.weights}")
     if identical != [True] * rounds:
         raise AssertionError(f"client slots differ after a round: {identical}")
-    agg, other = ("fedavg", "qagg") if schedule == "tree" \
-        else ("qagg", "fedavg")
-    if launches[agg] != n_leaves * rounds or launches[other] != 0:
-        raise AssertionError(f"{schedule}: launches {launches}; want {agg} = "
-                             f"{n_leaves} leaves x {rounds} rounds and "
-                             f"{other} = 0")
+    if row["peak_memory_allocated"] >= CARD_BYTES:
+        raise AssertionError(f"peak {row['peak_memory_allocated']} B")
+    chunks = sum(len(aggregation._chunks(t[0].numel()))
+                 for t in T.leaves(tr.state["params"]))
+    want_agg = {"fedavg": 0, "qagg": 0}
+    if schedule == "compressed":
+        want_agg["qagg"] = n_leaves * rounds
+    elif strat.reduction == "sum":
+        want_agg["fedavg"] = (chunks if strat.needs_ref else n_leaves) * rounds
+    got_agg = {k: launches[k] for k in want_agg}
+    if got_agg != want_agg:
+        raise AssertionError(f"{schedule}/{strategy}: launches {launches}; "
+                             f"want {want_agg} ({n_leaves} leaves, {chunks} "
+                             f"chunks, {rounds} rounds)")
     floor = cfg.n_layers * K * rounds         # one launch a layer and client
     want = {"flash_fwd": cfg.family in ("dense", "hybrid"),
             "wkv6": cfg.family == "rwkv", "ssm_scan": cfg.family == "hybrid"}
@@ -580,6 +739,209 @@ def phase_train(torch, dev, phase, arch, n_layers, schedule="tree",
                              f"of the round should do: {launches}")
     del tr
     return launches
+
+
+class _Stop(Exception):
+    pass
+
+
+def phase_resume(torch, dev):
+    """Checkpoint and resume on the card at qwen2-7b's smoke config, K = 4,
+    under ``torch.use_deterministic_algorithms`` (``main`` sets
+    ``CUBLAS_WORKSPACE_CONFIG`` before the first cuBLAS call):
+
+    * 4 rounds with c3 failing at round 2, a checkpoint after each round
+      under ``build/``; a second trainer on the same directory starts at
+      round 4, and the newest checkpoint read back equals the live state
+      bit for bit;
+    * fedprox, 2 rounds without a stop against 1 round, a checkpoint, a
+      stop, a fresh trainer restoring it and 1 round: bit for bit when two
+      uninterrupted runs agree bit for bit, else within 4 times their own
+      spread (``held`` says which)."""
+    from repro_torch import tree as T
+    from repro_torch.ckpt.checkpoint import load_checkpoint, \
+        restore_checkpoint
+    from repro_torch.configs.base import get_arch, smoke_config
+    from repro_torch.ft.failures import FailurePlan
+    from repro_torch.launch.train import SDFLMQTrainer
+
+    cfg = smoke_config(get_arch("qwen2-7b"))
+    K, bpc, seq = 4, 2, 128
+    root = ROOT / "build" / "chip_smoke_ckpt"
+    shutil.rmtree(root, ignore_errors=True)
+    snap = lambda st: [t.detach().cpu().clone() if torch.is_tensor(t) else t
+                       for t in T.leaves(st)]
+
+    def max_diff(a, b):
+        return max(float((x.float() - y.float()).abs().max())
+                   if torch.is_tensor(x) else abs(x - y)
+                   for x, y in zip(a, b))
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        tr = SDFLMQTrainer(cfg, K, 4, bpc, seq, ckpt_dir=str(root / "fail"),
+                           failure_plan=FailurePlan(fail_at={2: ["c3"]}),
+                           device=dev)
+        save_s, real_save = [], tr.ckpt.save
+
+        def timed_save(*a, **kw):
+            t = time.perf_counter()
+            out = real_save(*a, **kw)
+            save_s.append(time.perf_counter() - t)
+            return out
+        tr.ckpt.save = timed_save
+        ms = tr.run()
+        newest = root / "fail" / "step_4"
+        nbytes = sum(f.stat().st_size for f in newest.iterdir())
+        tr2 = SDFLMQTrainer(cfg, K, 4, bpc, seq, ckpt_dir=str(root / "fail"),
+                            device=dev)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        restore_checkpoint(str(newest), tr2.state)
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t
+        reloaded, _ = load_checkpoint(str(newest))
+        live = snap(tr.state)
+        reload_equal = all(
+            torch.equal(a, b) if torch.is_tensor(b) else int(a) == b
+            for a, b in zip(reloaded, live))
+        same_state = max_diff(snap(tr2.state), live) == 0
+
+        make = lambda ckpt=None: SDFLMQTrainer(
+            cfg, K, 2, bpc, seq, ckpt_dir=ckpt, strategy="fedprox",
+            device=dev)
+        runs = []
+        for _ in range(2):
+            whole = make()
+            whole.run()
+            runs.append(snap(whole.state))
+            del whole
+        spread = max_diff(runs[0], runs[1])
+        first = make(str(root / "stop"))
+
+        def stop(r, state):
+            raise _Stop(r)
+        first.on_round_end = stop
+        try:
+            first.run()
+        except _Stop:
+            pass
+        second = make(str(root / "stop"))
+        start_round_stop = second.start_round
+        second.run()
+        resumed = max_diff(snap(second.state), runs[0])
+    finally:
+        torch.use_deterministic_algorithms(False)
+        shutil.rmtree(root, ignore_errors=True)
+    held = "bit_exact" if spread == 0 else "tolerance"
+    row = {"phase": "resume", "arch": cfg.name, "clients": K,
+           "batch_per_client": bpc, "seq": seq,
+           "losses": [m["loss"] for m in ms],
+           "n_clients_last": ms[-1]["n_clients"],
+           "start_round_after_4": tr2.start_round,
+           "reload_equals_live": reload_equal,
+           "restored_state_equals_live": same_state,
+           "bytes_written": nbytes, "save_s": save_s,
+           "restore_s": restore_s,
+           "uninterrupted_runs_max_abs_diff": spread,
+           "start_round_after_stop": start_round_stop,
+           "resumed_max_abs_diff": resumed, "held": held}
+    emit(row)
+    if (len(ms) != 4 or ms[-1]["n_clients"] != 3
+            or not all(math.isfinite(m["loss"]) for m in ms)
+            or tr2.start_round != 4 or not reload_equal or not same_state
+            or start_round_stop != 1
+            or resumed > (0.0 if spread == 0 else 4 * spread)):
+        raise AssertionError(f"resume on the card: {row}")
+    return row
+
+
+# published widths, depth cut to 2 of 32 layers: every leaf of the K = 4
+# state stays within the checkpoint format's 4 GiB (qwen2-7b's client-stacked
+# embedding moments do not)
+RESUME_FULL = ("hymba-1.5b", 2)
+
+
+def phase_resume_full(torch, dev):
+    """What a checkpoint costs at published widths: one round of
+    hymba-1.5b (depth cut) with K = 4 at the train cells' batch and
+    sequence, saved by the trainer under ``build/``; the checkpoint then
+    restored into the state of a trainer drawn from another seed, which
+    must equal the live state bit for bit."""
+    from repro_torch import tree as T
+    from repro_torch.ckpt import checkpoint as CK
+    from repro_torch.configs.base import get_arch
+    from repro_torch.launch.train import SDFLMQTrainer
+
+    arch, n_layers = RESUME_FULL
+    cfg = get_arch(arch).replace(n_layers=n_layers)
+    K, bpc, seq = K_CLIENTS, BATCH_PER_CLIENT, SEQ
+    root = ROOT / "build" / "chip_smoke_ckpt_full"
+    shutil.rmtree(root, ignore_errors=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    same = lambda a, b: all(
+        torch.equal(x, y) if torch.is_tensor(x) else x == y
+        for x, y in zip(T.leaves(a), T.leaves(b)))
+    try:
+        tr = SDFLMQTrainer(cfg, K, 1, bpc, seq, ckpt_dir=str(root),
+                           device=dev)
+        save_s, real_save = [], tr.ckpt.save
+
+        def timed_save(*a, **kw):
+            t = time.perf_counter()
+            out = real_save(*a, **kw)
+            save_s.append(time.perf_counter() - t)
+            return out
+        tr.ckpt.save = timed_save
+        ms = tr.run()
+        newest = root / "step_1"
+        files = sorted(newest.iterdir())
+        nbytes = sum(f.stat().st_size for f in files)
+        tensors = [t for t in T.leaves(tr.state) if torch.is_tensor(t)]
+        state_bytes = sum(t.numel() * t.element_size() for t in tensors)
+        size = lambda t: t.numel() * t.element_size()
+        largest = max(size(t) for t in tensors)
+        # the codec alone, one thread, on 64 MiB of the largest weight
+        # (random bf16) and of the largest moment (f32, many zeros)
+        codec_MBps = {}
+        for name, tree in (("params", tr.state["params"]),
+                           ("moment", tr.state["opt"])):
+            big = max(T.leaves(tree), key=size)
+            _, raw = CK._raw(big.reshape(-1)[:(64 << 20) // big.element_size()])
+            t = time.perf_counter()
+            CK._comp(raw)
+            codec_MBps[name] = len(raw) / (time.perf_counter() - t) / 1e6
+        other = SDFLMQTrainer(cfg, K, 1, bpc, seq, seed=1, device=dev)
+        differed = not same(other.state, tr.state)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        CK.restore_checkpoint(str(newest), other.state)
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t
+        equal = same(other.state, tr.state)
+        params = sum(t[0].numel() for t in T.leaves(tr.state["params"]))
+        del tr, other
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    row = {"phase": "resume_full", "arch": cfg.name, "n_layers": n_layers,
+           "d_model": cfg.d_model, "vocab": cfg.vocab, "clients": K,
+           "batch_per_client": bpc, "seq": seq, "loss": ms[0]["loss"],
+           "round_s": ms[0]["time_s"], "params_per_client": params,
+           "state_bytes": state_bytes, "largest_leaf_bytes": largest,
+           "bytes_written": nbytes, "files": len(files),
+           "codec": CK.CODEC, "codec_MBps_one_thread": codec_MBps,
+           "workers": CK.WORKERS, "save_s": save_s,
+           "save_GBps": state_bytes / save_s[0] / 1e9 if save_s else None,
+           "restore_s": restore_s,
+           "restore_GBps": state_bytes / restore_s / 1e9,
+           "other_seed_differed": differed, "restored_equals_live": equal,
+           "peak_memory_allocated": torch.cuda.max_memory_allocated(dev)}
+    emit(row)
+    if (len(save_s) != 1 or not differed or not equal
+            or not math.isfinite(row["loss"])):
+        raise AssertionError(f"resume at published widths: {row}")
+    return row
 
 
 def kernel_rows(fed, flash, qagg, quant8, wkv, launches):
@@ -644,6 +1006,9 @@ def main(argv=None) -> int:
                          "(tables under chiprun_out/; slows the rounds)")
     args = ap.parse_args(argv)
 
+    # before the first cuBLAS call: the resume phase runs with
+    # torch.use_deterministic_algorithms, which needs a fixed workspace
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA card (torch.cuda.is_available() is False)",
@@ -662,11 +1027,14 @@ def main(argv=None) -> int:
     qagg = phase_qagg(torch, dev)
     quant8 = phase_quant8(torch, dev)
     wkv = phase_wkv(torch, dev)
+    phase_strategies(torch, dev)
     launches = {}
-    for phase, arch, n_layers, schedule in TRAIN_CELLS:
+    for phase, arch, n_layers, schedule, strategy, fail_at in TRAIN_CELLS:
         for k, n in phase_train(torch, dev, phase, arch, n_layers, schedule,
-                                args.profile).items():
+                                strategy, fail_at, args.profile).items():
             launches[k] = launches.get(k, 0) + n
+    phase_resume(torch, dev)
+    phase_resume_full(torch, dev)
     emit({"kernels": kernel_rows(fed, flash, qagg, quant8, wkv, launches)})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

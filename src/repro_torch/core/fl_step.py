@@ -18,6 +18,7 @@ copied.  Client k owns index k of the bank; the coordinator's
 """
 from __future__ import annotations
 
+from contextlib import contextmanager
 from dataclasses import dataclass
 from fnmatch import fnmatchcase
 from typing import Optional
@@ -254,6 +255,44 @@ def build_cohort_local_step(cfg: ArchConfig, n_cohort: int,
     return cohort_local_step
 
 
+def pre_round_ref(bank):
+    """The pre-round model that a ``needs_ref`` strategy premaps against,
+    taken before the local steps update the bank in place.
+
+    After any aggregation every client slot holds the same global, and the
+    ref is one slot on the bank's device (leading dim 1).  Otherwise (round
+    0: ``init_state`` draws each client independently) each client premaps
+    against its own pre-round slot, as the reference does, and the ref is
+    a copy of the whole bank on the host (pinned when the bank is on a
+    card), brought back chunk by chunk during the aggregation."""
+    leaves = T.leaves(bank)
+    if all(torch.equal(t[k], t[0]) for t in leaves
+           for k in range(1, t.shape[0])):
+        return T.tree_map(lambda t: t[0:1].clone(), bank)
+
+    def host(t):
+        out = torch.empty(t.shape, dtype=t.dtype,
+                          pin_memory=t.device.type == "cuda")
+        return out.copy_(t)
+    return T.tree_map(host, bank)
+
+
+@contextmanager
+def _span(spans: dict, name: str, dev: torch.device):
+    """On the card, records a CUDA event pair around the block into
+    ``spans[name]``: the block's device time, read once the round has been
+    waited for, at no synchronization of its own."""
+    if dev.type != "cuda":
+        yield
+        return
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    yield
+    end.record()
+    spans[name] = (start, end)
+
+
 def build_fl_round_step(cfg: ArchConfig, n_clients: int,
                         schedule: AggSchedule, device="cuda",
                         total_steps: int = 10000,
@@ -268,7 +307,11 @@ def build_fl_round_step(cfg: ArchConfig, n_clients: int,
     ported aggregation strategy name (repro_torch.api.strategies).
 
     ``update_filter`` (ParamFilter or its comma string form) switches on
-    partial updates: only matching leaves are trained and aggregated."""
+    partial updates: only matching leaves are trained and aggregated.
+
+    A ``needs_ref`` strategy (fedprox, norm_clip, ...) premaps each client
+    against the pre-round parameters, as the reference passes them
+    (``pre_round_ref``)."""
     strat = check_strategy(strategy)
     dev = resolve(device)
     opt = make_optimizer(cfg, total_steps=total_steps)
@@ -276,23 +319,30 @@ def build_fl_round_step(cfg: ArchConfig, n_clients: int,
     frozen_mask = _frozen_mask(cfg, update_filter)
     client_fn = _make_client_fn(cfg, opt, E, frozen_mask=frozen_mask)
 
-    def _agg(params, weights):
+    def _trainable(params):
+        """The aggregated leaves: all, or under ``update_filter`` only the
+        trainable ones (frozen leaves keep the post-restore client values,
+        which equal the pre-round state)."""
         if frozen_mask is None:
-            return aggregate_params(params, weights, schedule, strat)
-        # aggregate only the trainable subset; frozen leaves keep the
-        # post-restore client values, which equal the pre-round state
-        sub = {str(i): p for i, (p, f) in enumerate(
+            return params
+        return {str(i): p for i, (p, f) in enumerate(
             zip(T.leaves(params), T.leaves(frozen_mask))) if not f}
-        aggregate_params(sub, weights, schedule, strat)
-        return params
 
     def fl_round_step(state, batch, weights):
+        spans = {}           # name -> (start, end) CUDA events, card only
+        ref = None
+        if n_clients > 1 and strat.needs_ref:
+            with record_function("fl/ref"), _span(spans, "ref", dev):
+                ref = pre_round_ref(_trainable(state["params"]))
         loss = _local_round(client_fn, state, _to_device(batch, dev), n_clients)
         if n_clients > 1:
-            with record_function("fl/aggregate"):
-                _agg(state["params"], _on(weights, dev, torch.float32))
+            with record_function("fl/aggregate"), \
+                    _span(spans, "aggregate", dev):
+                aggregate_params(_trainable(state["params"]),
+                                 _on(weights, dev, torch.float32), schedule,
+                                 strat, ref=ref)
         state["step"] = state["step"] + E
-        return state, {"loss": loss}
+        return state, {"loss": loss, "spans": spans}
 
     return fl_round_step
 

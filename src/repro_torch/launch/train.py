@@ -9,11 +9,12 @@ Wires the whole stack together:
                   steps of every client, then per leaf the fedavg kernel,
                   or for ``compressed`` an int8 quantize and the qagg
                   kernel);
-  substrate     — federated token streams (non-IID), failure injection ->
-                  LWT -> role rearrangement, straggler demotion.
+  substrate     — federated token streams (non-IID), checkpoint manager
+                  (resume-exact), failure injection -> LWT -> role
+                  rearrangement, straggler demotion.
 
 Round steps are cached per schedule signature, as the reference caches its
-compiled steps.  Checkpoint/resume waits for the checkpoint slice.
+compiled steps.
 
 Usage:
     PYTHONPATH=src python -m repro_torch.launch.train --arch qwen2-7b \
@@ -29,6 +30,8 @@ import torch
 from torch.profiler import record_function
 
 from repro_torch.api.federation import Federation
+from repro_torch.ckpt.checkpoint import check_leaf_sizes
+from repro_torch.ckpt.manager import CheckpointManager
 from repro_torch.configs.base import get_arch, smoke_config
 from repro_torch.core.fl_step import build_fl_round_step, init_state
 from repro_torch.core.stats import StatsSimulator
@@ -45,9 +48,6 @@ class SDFLMQTrainer:
                  failure_plan: FailurePlan | None = None,
                  strategy: str = "fedavg",
                  update_filter=None, device="cuda"):
-        if ckpt_dir is not None:
-            raise NotImplementedError(
-                "checkpoint/resume is not ported yet (see ROADMAP.md)")
         self.device = resolve(device)
         self.cfg, self.rounds = cfg, rounds
         self.n = n_clients
@@ -83,11 +83,18 @@ class SDFLMQTrainer:
                                 total_steps=rounds * cfg.fl.local_steps,
                                 update_filter=update_filter)
         self._steps = {}
+        self.ckpt = CheckpointManager(ckpt_dir, keep=2) if ckpt_dir else None
         self.start_round = 0
+        if self.ckpt:
+            check_leaf_sizes(self.state)      # raise before round 0
+            restored, meta = self.ckpt.restore_latest(self.state)
+            if restored is not None:
+                self.start_round = int(meta["step"])
         self.metrics: list[dict] = []
         self.latencies: dict[str, float] = {}
         self.weights: np.ndarray | None = None
         # optional hook: on_round_end(round_idx, state) after each round
+        # (after its checkpoint is saved)
         self.on_round_end = None
 
     # ------------------------------------------------------------------
@@ -131,6 +138,9 @@ class SDFLMQTrainer:
             self.state, m = step(self.state, batch, weights_np)
             loss = float(m["loss"])          # waits for the device
             dt = time.perf_counter() - t0
+            # device ms of the round's spans (aggregate, ref), card only
+            span_ms = {f"{k}_ms": a.elapsed_time(b)
+                       for k, (a, b) in m["spans"].items()}
             tokens = self.n * self.batch_per_client * self.seq \
                 * self.cfg.fl.local_steps
             self.metrics.append({
@@ -138,9 +148,11 @@ class SDFLMQTrainer:
                 "tokens_per_s": tokens / dt,
                 "schedule": schedule.signature(),
                 "level_groups": schedule.level_groups,
-                "n_clients": len(self.clients),
+                "n_clients": len(self.clients), **span_ms,
                 "max_memory_allocated": (torch.cuda.max_memory_allocated(
                     self.device) if cuda else None)})
+            if self.ckpt and self.ckpt.should_save(r + 1):
+                self.ckpt.save(r + 1, self.state, {"loss": loss})
             if self.on_round_end is not None:
                 self.on_round_end(r, self.state)
             # round-status updates: stats + readiness -> role optimization

@@ -10,6 +10,10 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch import tree as T
+from repro_torch.api.strategies import get_strategy, list_strategies
+from repro_torch.ckpt.checkpoint import restore_checkpoint, save_checkpoint
+from repro_torch.configs.base import get_arch, smoke_config
 from repro_torch.core import aggregation
 from repro_torch.core.topology import AggSchedule
 from repro_torch.kernels.fedavg import ops as fedavg_ops
@@ -21,6 +25,7 @@ from repro_torch.kernels.quant8.ref import dequantize_ref, quantize_ref
 from repro_torch.kernels.ssm_scan.ops import ssm_scan
 from repro_torch.kernels.wkv6 import ops as wkv_ops
 from repro_torch.kernels.wkv6.ref import chunked as wkv_chunked
+from repro_torch.launch.train import SDFLMQTrainer
 from repro_torch.models.attention import flash_attention, full_attention
 from repro_torch.models.linear_attn import linear_attention
 
@@ -402,3 +407,97 @@ def test_each_op_call_adds_one_launch(card):
     before = wkv_ops.launches_ssd
     ssm_scan(x["r"], x["k"], x["v"], x["w_log"], chunk=128)
     assert wkv_ops.launches_ssd == before + 1
+
+
+COMPILED = sorted(n for n in list_strategies() if get_strategy(n).compiled)
+NORM_CLIPPED = {"norm_clip", "clipped_weighted_trimmed_mean"}
+
+
+@pytest.mark.parametrize("name", COMPILED)
+def test_strategy_on_card_matches_cpu(card, name, monkeypatch):
+    """Every compiled strategy, K = 4 with a dead row, leaves that cross
+    chunks of 1000 elements: the card equals the CPU bit for bit (krum's
+    rows are well separated, so the Gram's summation order does not move
+    the selection); the norm clip's per-client sums of squares reduce in
+    another order on the card: 4 f32 ulps of the leaf's largest magnitude,
+    or one bf16 ulp of the value."""
+    monkeypatch.setattr(aggregation, "CHUNK", 1000)
+    rng = np.random.default_rng(31)
+    K = 4
+    spread = (1.0 + np.arange(K)).reshape(K, 1, 1)
+    bank, ref = {}, {}
+    for k, (shape, dtype) in {"a": ((K, 7, 301), torch.bfloat16),
+                              "b": ((K, 3, 64), torch.float32)}.items():
+        x = rng.standard_normal(shape[1:]) \
+            + 0.3 * spread * rng.standard_normal(shape)
+        g = x + 0.2 * spread * rng.standard_normal(shape)
+        bank[k] = torch.from_numpy(x.astype(np.float32)).to(dtype)
+        ref[k] = torch.from_numpy(g.astype(np.float32)).to(dtype)
+    w = torch.tensor([1.0, 2.0, 0.0, 3.0])
+    on_card = {k: v.to(card) for k, v in bank.items()}
+    before = fedavg_ops.launches
+    aggregation.aggregate_params(on_card, w.to(card), AggSchedule("tree", K),
+                                 name, ref={k: v.to(card)
+                                            for k, v in ref.items()})
+    strat = get_strategy(name)
+    want_launches = (0 if strat.reduction == "stack" else
+                     3 + 1 if strat.needs_ref else 2)   # chunks, or leaves
+    assert fedavg_ops.launches == before + want_launches
+    aggregation.aggregate_params(bank, w, AggSchedule("tree", K), name,
+                                 ref=ref)
+    for k, t in bank.items():
+        got = on_card[k].cpu()
+        if name not in NORM_CLIPPED:
+            assert torch.equal(got, t), k
+            continue
+        err = (got.float() - t.float()).abs()
+        tol = torch.full_like(err, 4 * 2.0 ** -23 * float(t.abs().max()))
+        if t.dtype == torch.bfloat16:
+            tol = torch.maximum(tol, torch.exp2(torch.floor(torch.log2(
+                t.float().abs().clamp_min(2.0 ** -126))) - 7))
+        assert bool((err <= tol).all()), (k, float(err.max()))
+
+
+def test_premapped_sum_from_a_pinned_host_ref_matches_a_card_ref(card):
+    """Round 0's ref is a pinned host copy, streamed in a chunk at a time."""
+    rng = np.random.default_rng(37)
+    bank = _normal(rng, (4, 5000), torch.bfloat16, card)
+    ref = _normal(rng, (4, 5000), torch.bfloat16, card)
+    w = torch.tensor([1.0, 2.0, 0.5, 3.0], device=card)
+    host = torch.empty(ref.shape, dtype=ref.dtype, pin_memory=True)
+    host.copy_(ref)
+    a, b = {"x": bank.clone()}, {"x": bank.clone()}
+    aggregation.aggregate_params(a, w, AggSchedule("tree", 4), "fedprox",
+                                 ref={"x": ref})
+    aggregation.aggregate_params(b, w, AggSchedule("tree", 4), "fedprox",
+                                 ref={"x": host})
+    assert torch.equal(a["x"], b["x"])
+
+
+def test_fedavg_f32_entry_at_a_path_chunk(card):
+    """fedprox's premapped contributions: an f32 (4, 2^26) chunk."""
+    gen = torch.Generator(device=card).manual_seed(0)
+    x = torch.randn((4, aggregation.CHUNK), generator=gen, device=card)
+    w = torch.tensor([3.0, 1.0, 0.0, 4.0], device=card)
+    assert torch.equal(fedavg_ops.fedavg(x, w), fedavg_ref(x, w))
+
+
+def test_resume_round_trip_on_card(card, tmp_path):
+    """A checkpoint of a state on the card restores into another state on
+    the card bit for bit, and a trainer resumes from it."""
+    cfg = smoke_config(get_arch("qwen2-7b"))
+    tr = SDFLMQTrainer(cfg, 4, 2, 2, 32, ckpt_dir=str(tmp_path),
+                       strategy="fedprox", device=card)
+    tr.run()
+    other = SDFLMQTrainer(cfg, 4, 2, 2, 32, device=card, seed=1)
+    restore_checkpoint(save_checkpoint(str(tmp_path / "copy"), tr.state),
+                       other.state)
+    for a, b in zip(T.leaves(tr.state), T.leaves(other.state)):
+        assert (torch.equal(a, b) if torch.is_tensor(a) else a == b)
+    again = SDFLMQTrainer(cfg, 4, 2, 2, 32, ckpt_dir=str(tmp_path),
+                          device=card)
+    assert again.start_round == 2
+    for a, b in zip(T.leaves(tr.state), T.leaves(again.state)):
+        assert (torch.equal(a, b) if torch.is_tensor(a) else a == b)
+        if torch.is_tensor(b):
+            assert b.device.type == "cuda"

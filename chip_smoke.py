@@ -17,13 +17,16 @@ layers, the WKV kernel with u); hymba-1.5b (all 32 layers, the WKV kernel
 in SSD form and the flash kernel with a 1024 window); and qwen2-7b under
 ``fedprox`` (premapped chunks through the fedavg kernel's f32 entry),
 ``trimmed_mean`` and ``multi_krum`` (plain PyTorch combines; c3 dies in
-round 1).  The kernels' launch counters, set to 0 just before each run and
-read just after, show that each run went through its kernels.  Last, the
-``resume`` phase checkpoints and resumes qwen2-7b's smoke config on the
-card, and ``resume_full`` saves and restores a hymba-1.5b state at
-published widths (depth cut to 2 layers).  Each phase prints JSON lines; then one line lists every kernel, one
-line gives the card's name and power limit as nvidia-smi reports them, and
-the last line is ``{"ok": true, "device": ...}``.  Any failure raises and
+round 1); mixtral-8x22b (one layer: the MoE layer, flash with 6 q heads
+a kv head and a 4096 window) and internlm2-20b (two layers), both under
+Adafactor, their config's optimizer.  The kernels' launch counters, set to
+0 just before each run and read just after, show that each run went
+through its kernels.  Last, the ``resume`` phase checkpoints and resumes
+qwen2-7b's smoke config on the card, and ``resume_full`` saves and
+restores a hymba-1.5b state at published widths (depth cut to 2 layers).
+Each phase prints JSON lines; then one line lists every kernel, one line
+gives the card's name and power limit as nvidia-smi reports them, and the
+last line is ``{"ok": true, "device": ...}``.  Any failure raises and
 exits non-zero; nothing runs on the CPU but the strategies' references.
 """
 from __future__ import annotations
@@ -99,6 +102,7 @@ def phase_fedavg(torch, dev):
     w = torch.tensor([3.0, 1.0, 2.0, 4.0], device=dev)
     cases = [("path_largest_leaf", 4, 152064 * 3584, torch.bfloat16),
              ("path_f32_chunk", 4, 1 << 26, torch.float32),   # fedprox's
+             ("mixtral_expert_leaf", 4, 8 * 6144 * 16384, torch.bfloat16),
              ("norm_leaf", 4, 3584, torch.float32),
              ("ragged", 4, 1_000_003, torch.float32)]
     rows = []
@@ -149,10 +153,11 @@ def _flash_flops(B, Sq, Sk, H, hd, causal, window, q_offset=0, kv_offset=0):
 
 def phase_flash(torch, dev):
     """The flash kernel against its plain version (``attention_ref``) at
-    the two paths' shapes (qwen2: causal; hymba: window 1024) and at odd
-    ones, then the gradient through it.  The path shapes are timed beside
-    the plain version and ``scaled_dot_product_attention``; ``bound_share``
-    is the bound over the kernel's time."""
+    the paths' shapes (qwen2: causal; hymba: window 1024; mixtral: 48 q and
+    8 kv heads, window 4096) and at odd ones, then the gradient through
+    it.  The path shapes are timed beside the plain version and
+    ``scaled_dot_product_attention``; ``bound_share`` is the bound over the
+    kernel's time."""
     import torch.nn.functional as F
     from repro_torch.kernels.flash_attn import ops
     from repro_torch.kernels.flash_attn.ref import attention_ref
@@ -169,6 +174,8 @@ def phase_flash(torch, dev):
         ("q_offset", 1, 64, 192, 4, 2, 64, torch.float32, True, None, 128),
         ("hymba_window", 1, 2048, 2048, 25, 5, 64, torch.bfloat16, True,
          1024, 0),
+        ("mixtral_window", 1, 2048, 2048, 48, 8, 128, torch.bfloat16, True,
+         4096, 0),
     ]
     path_row = None
     for name, B, Sq, Sk, H, Kv, hd, dtype, causal, window, qo in cases:
@@ -186,7 +193,7 @@ def phase_flash(torch, dev):
                "causal": causal, "window": window, "q_offset": qo,
                "o_max_abs_err": o_err, "lse_max_abs_err": lse_err,
                "o_tol": o_tol, "lse_tol": lse_tol}
-        if name in ("path", "hymba_window"):
+        if name in ("path", "hymba_window", "mixtral_window"):
             flops = _flash_flops(B, Sq, Sk, H, hd, causal, window)
             nbytes = (q.numel() + k.numel() + v.numel() + o.numel()) \
                 * q.element_size() + lse.numel() * 4
@@ -576,7 +583,8 @@ def summarize_profile(torch, prof, r: int, tag: str) -> dict:
 
 # phase, arch, depth, schedule, strategy, failures (round -> clients):
 # published widths, depth cut to fit one card (K = 4 client banks in bf16
-# plus f32 AdamW moments)
+# plus the optimizer's state: f32 AdamW moments, or Adafactor's factors
+# for mixtral-8x22b and internlm2-20b)
 TRAIN_CELLS = [
     ("train", "qwen2-7b", 1, "tree", "fedavg", {}),
     ("train_compressed", "qwen2-7b", 1, "compressed", "fedavg", {}),
@@ -586,6 +594,8 @@ TRAIN_CELLS = [
     ("train_trimmed_mean", "qwen2-7b", 1, "tree", "trimmed_mean",
      {1: ["c3"]}),
     ("train_multi_krum", "qwen2-7b", 1, "tree", "multi_krum", {1: ["c3"]}),
+    ("train_mixtral", "mixtral-8x22b", 1, "tree", "fedavg", {}),
+    ("train_internlm2", "internlm2-20b", 2, "tree", "fedavg", {}),
 ]
 K_CLIENTS, ROUNDS, BATCH_PER_CLIENT, SEQ = 4, 2, 1, 2048
 CARD_BYTES = 80e9
@@ -606,6 +616,7 @@ def phase_train(torch, dev, phase, arch, n_layers, schedule="tree",
     from repro_torch.kernels.quant8 import ops as quant8_ops
     from repro_torch.kernels.wkv6 import ops as wkv_ops
     from repro_torch.launch.train import SDFLMQTrainer
+    from repro_torch.models import moe
 
     cfg = get_arch(arch).replace(n_layers=n_layers)   # published widths
     K, rounds, bpc, seq = K_CLIENTS, ROUNDS, BATCH_PER_CLIENT, SEQ
@@ -652,8 +663,10 @@ def phase_train(torch, dev, phase, arch, n_layers, schedule="tree",
     quant8_ops.dequantize_launches = 0
     wkv_ops.launches_u = 0
     wkv_ops.launches_ssd = 0
+    moe.reset_stats()
     metrics = tr.run()
     torch.cuda.synchronize()
+    routing = moe.read_stats()
     launches = {"fedavg": fedavg_ops.launches,
                 "qagg": fedavg_ops.qagg_launches,
                 "flash_fwd": flash_ops.launches,
@@ -678,11 +691,20 @@ def phase_train(torch, dev, phase, arch, n_layers, schedule="tree",
            "d_ff": cfg.d_ff, "vocab": cfg.vocab, "window": cfg.window,
            "rwkv_head_dim": cfg.rwkv_head_dim, "rwkv_chunk": cfg.rwkv_chunk,
            "ssm_state": cfg.ssm_state, "remat": cfg.remat,
+           "optimizer": cfg.optimizer, "moe": None,
            "clients": K, "batch_per_client": bpc, "seq": seq,
            "rounds": rounds, "params_per_client": n_params,
            "leaves": n_leaves, "init_s": init_s, "launches": launches,
            "slots_identical_each_round": identical,
            "peak_memory_allocated": torch.cuda.max_memory_allocated(dev)}
+    if cfg.moe is not None:
+        tokens = bpc * seq
+        row["moe"] = {
+            "n_experts": cfg.moe.n_experts, "top_k": cfg.moe.top_k,
+            "d_ff_expert": cfg.moe.d_ff_expert,
+            "capacity": moe.capacity(tokens, cfg.moe),
+            "assignments_per_call": tokens * cfg.moe.top_k, **routing,
+            "dropped_per_call": routing["dropped"] / routing["calls"]}
     emit(row)
     for prof, m in zip(profiles, metrics):
         emit({"phase": f"{phase}_profile", "round": m["round"],
@@ -724,8 +746,16 @@ def phase_train(torch, dev, phase, arch, n_layers, schedule="tree",
         raise AssertionError(f"{schedule}/{strategy}: launches {launches}; "
                              f"want {want_agg} ({n_leaves} leaves, {chunks} "
                              f"chunks, {rounds} rounds)")
+    if cfg.moe is not None:       # a call an MoE layer and client (the
+        # recompute under remat does not count)
+        calls = (cfg.n_layers - cfg.moe.first_k_dense) * K * rounds
+        if routing["calls"] != calls or not math.isfinite(
+                routing["aux_mean"]):
+            raise AssertionError(f"MoE calls {routing}, want {calls}")
+    elif routing["calls"]:
+        raise AssertionError(f"MoE layer ran on a {cfg.family} path")
     floor = cfg.n_layers * K * rounds         # one launch a layer and client
-    want = {"flash_fwd": cfg.family in ("dense", "hybrid"),
+    want = {"flash_fwd": cfg.family in ("dense", "hybrid", "moe"),
             "wkv6": cfg.family == "rwkv", "ssm_scan": cfg.family == "hybrid"}
     for name, on_path in want.items():
         if on_path and launches[name] < floor:

@@ -128,11 +128,27 @@ def _frozen_mask(cfg: ArchConfig, update_filter):
     return T.unflatten_like(model_api.param_decls(cfg), [not k for k in keep])
 
 
+def init_opt_state(opt, params, n_clients: int):
+    """Optimizer state for the client-stacked bank: each client's own
+    slot's state, stacked on a leading client axis, as the reference vmaps
+    ``opt.init`` over clients.  So Adafactor factors each client's leaf (a
+    client's (D,) norm keeps a full ``v``), not the (K, ...) bank.  The
+    structure comes from ``opt.init`` on the meta device; every
+    optimizer's state starts at zeros."""
+    if n_clients == 1:
+        return opt.init(params)
+    one = opt.init(T.tree_map(lambda t: torch.empty(
+        t.shape[1:], dtype=t.dtype, device="meta"), params))
+    dev = T.leaves(params)[0].device
+    return T.tree_map(lambda s: torch.zeros(
+        (n_clients,) + tuple(s.shape), dtype=s.dtype, device=dev), one)
+
+
 def init_state(cfg: ArchConfig, n_clients: int, seed: int = 0,
                device="cuda", total_steps: int = 10000, update_filter=None):
     """Concrete train state on ``device``: the client-stacked parameter bank
-    (each client drawn independently, as the reference does), f32 AdamW
-    moments of the same shapes, and the step count.
+    (each client drawn independently, as the reference does), each
+    client's optimizer state (``init_opt_state``), and the step count.
 
     With ``update_filter`` set, frozen (non-matching) leaves are broadcast
     from client 0 so every client starts from the SAME frozen base."""
@@ -144,7 +160,8 @@ def init_state(cfg: ArchConfig, n_clients: int, seed: int = 0,
         for p, f in zip(T.leaves(params), T.leaves(frozen)):
             if f:
                 p.copy_(p[0:1].expand_as(p))
-    return {"params": params, "opt": opt.init(params), "step": 0}
+    return {"params": params, "opt": init_opt_state(opt, params, n_clients),
+            "step": 0}
 
 
 # --------------------------------------------------------------------------

@@ -2,8 +2,8 @@
 
 Every family module exposes ``param_decls(cfg)`` and
 ``forward(cfg, params, batch) -> (logits (B,S,V), aux_loss)``.  Ported:
-the dense decoder, RWKV6 (``rwkv``) and the Hymba hybrid (``hybrid``);
-MoE, VLM and encoder-decoder wait for their slices.
+the decoder (``dense`` and ``moe``), RWKV6 (``rwkv``) and the Hymba hybrid
+(``hybrid``); VLM and encoder-decoder wait for their slices.
 """
 from __future__ import annotations
 
@@ -13,7 +13,8 @@ from repro_torch.configs.base import ArchConfig
 from repro_torch.dist import sharding as shd
 from repro_torch.models import decoder, hybrid, rwkv6
 
-_FAMILY = {"dense": decoder, "rwkv": rwkv6, "hybrid": hybrid}
+_FAMILY = {"dense": decoder, "moe": decoder, "rwkv": rwkv6,
+           "hybrid": hybrid}
 
 
 def get_model(cfg: ArchConfig):

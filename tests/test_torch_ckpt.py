@@ -1,7 +1,8 @@
 """The port's checkpoints (``repro_torch/ckpt``) and resume, against the JAX
 package's format: round trips, checkpoints crossing between the packages
-in both directions, keep-N rotation, the trainer's resume, and the
-single-device federated-LM example."""
+in both directions (a client-stacked Adafactor state too), keep-N
+rotation, the trainer's resume, and the single-device federated-LM
+example."""
 import json
 import os
 import subprocess
@@ -15,10 +16,16 @@ import pytest
 import torch
 
 from repro.ckpt import checkpoint as RCK
+from repro.configs.base import get_arch as ref_get_arch
+from repro.configs.base import smoke_config as ref_smoke_config
+from repro.dist import sharding as ref_shd
+from repro.models import model_api as ref_model_api
+from repro.optim.api import make_optimizer as ref_make_optimizer
 from repro_torch import tree as T
 from repro_torch.ckpt import checkpoint as CK
 from repro_torch.ckpt.manager import CheckpointManager
 from repro_torch.configs.base import get_arch, smoke_config
+from repro_torch.core.fl_step import init_state
 from repro_torch.ft.failures import FailurePlan
 from repro_torch.launch.train import SDFLMQTrainer
 
@@ -158,6 +165,61 @@ def test_port_checkpoint_loads_into_the_reference(tmp_path):
                  for p in (path, ref_path)]
     assert manifests[0]["treedef"] == manifests[1]["treedef"]
     assert manifests[0]["leaves"] == manifests[1]["leaves"]
+
+
+def _adafactor_states(K=3):
+    """mixtral-8x22b's smoke state under Adafactor in both packages: the
+    port's ``init_state`` and the reference's client-stacked params with
+    ``jax.vmap(opt.init)``, the factors filled from a seed."""
+    cfg = smoke_config(get_arch("mixtral-8x22b"))
+    ref_cfg = ref_smoke_config(ref_get_arch("mixtral-8x22b"))
+    port = init_state(cfg, K, seed=0, device="cpu")
+    g = torch.Generator().manual_seed(4)
+    for t in T.leaves(port["opt"]):
+        t.copy_(torch.rand(t.shape, generator=g))
+    port["step"] = 6
+    rp = ref_shd.materialize(ref_shd.prepend_axis(
+        ref_model_api.param_decls(ref_cfg), K, "clients"),
+        jax.random.PRNGKey(1))
+    ref = {"params": rp,
+           "opt": jax.vmap(ref_make_optimizer(ref_cfg).init)(rp),
+           "step": jnp.asarray(9, jnp.int32)}
+    ref["opt"] = jax.tree_util.tree_map(
+        lambda a: a + jnp.float32(0.5), ref["opt"])
+    return port, ref
+
+
+def test_adafactor_state_crosses_between_packages(tmp_path):
+    """A port checkpoint of a client-stacked Adafactor state loads into the
+    reference's reader with the reference's own state as ``like`` (same
+    tree: ``{"f": {leaf: {"vr", "vc"} or {"v"}}}``), and the reference's
+    checkpoint restores into the port's state, bit for bit both ways."""
+    port, ref = _adafactor_states()
+    path = CK.save_checkpoint(str(tmp_path / "port"), port, {"step": 6})
+    restored, meta = RCK.load_checkpoint(path, like=ref)
+    assert meta == {"step": 6}
+    got = {"/".join(str(getattr(k, "key", k)) for k in p): leaf
+           for p, leaf in jax.tree_util.tree_flatten_with_path(restored)[0]}
+    want = {"/".join(p): leaf for p, leaf in T.leaves_with_path(port)}
+    assert list(got) == list(want)
+    assert "opt/f/final_norm/scale/v" in got
+    for name, leaf in want.items():
+        if torch.is_tensor(leaf):
+            np.testing.assert_array_equal(np.asarray(got[name], np.float32),
+                                          leaf.float().numpy(), err_msg=name)
+        else:
+            assert int(got[name]) == leaf
+
+    path = RCK.save_checkpoint(str(tmp_path / "ref"), ref, {"step": 9})
+    live = _zeros_like(port)
+    assert CK.restore_checkpoint(path, live) == {"step": 9}
+    assert live["step"] == 9
+    for (name, t), r in zip(T.leaves_with_path(live),
+                            jax.tree_util.tree_leaves(ref)):
+        if torch.is_tensor(t):
+            np.testing.assert_array_equal(t.float().numpy(),
+                                          np.asarray(r, np.float32),
+                                          err_msg="/".join(name))
 
 
 def test_manager_keeps_n_and_ignores_uncommitted(tmp_path):

@@ -6,6 +6,8 @@ machine that has only PyTorch:
 
     python -m pytest -q -m cuda tests/test_torch_cuda.py
 """
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -16,6 +18,7 @@ from repro_torch.ckpt.checkpoint import restore_checkpoint, save_checkpoint
 from repro_torch.configs.base import get_arch, smoke_config
 from repro_torch.core import aggregation
 from repro_torch.core.topology import AggSchedule
+from repro_torch.dist.sharding import materialize
 from repro_torch.kernels.fedavg import ops as fedavg_ops
 from repro_torch.kernels.fedavg.ref import fedavg_ref, qagg_ref
 from repro_torch.kernels.flash_attn import ops as flash_ops
@@ -27,6 +30,7 @@ from repro_torch.kernels.wkv6 import ops as wkv_ops
 from repro_torch.kernels.wkv6.ref import chunked as wkv_chunked
 from repro_torch.launch.train import SDFLMQTrainer
 from repro_torch.models.attention import flash_attention, full_attention
+from repro_torch.models import moe
 from repro_torch.models.linear_attn import linear_attention
 
 pytestmark = pytest.mark.cuda
@@ -501,3 +505,77 @@ def test_resume_round_trip_on_card(card, tmp_path):
         assert (torch.equal(a, b) if torch.is_tensor(a) else a == b)
         if torch.is_tensor(b):
             assert b.device.type == "cuda"
+
+
+@pytest.mark.parametrize("arch", ["mixtral-8x22b", "kimi-k2-1t-a32b"])
+def test_moe_layer_on_card_matches_cpu(card, arch):
+    """The MoE layer at the smoke config in f32 on the card against the
+    port on the CPU: identical routing ids and dropped assignments (a
+    capacity factor of 0.5 drops half), the output, the auxiliary loss and
+    the gradients (f32 products in another order)."""
+    cfg = smoke_config(get_arch(arch))
+    cfg = cfg.replace(moe=dataclasses.replace(cfg.moe, capacity_factor=0.5))
+    p0 = materialize(moe.moe_decl(cfg), 0, "cpu")
+    rng = np.random.default_rng(2)
+    x = rng.standard_normal((2, 96, cfg.d_model)).astype(np.float32)
+    cot = rng.standard_normal(x.shape).astype(np.float32)
+    out = []
+    for dev in ("cpu", card):
+        p = T.tree_map(lambda t: t.to(dev, torch.float32).clone()
+                       .requires_grad_(True), p0)
+        xt = torch.from_numpy(x).to(dev).requires_grad_(True)
+        _, ids, _ = moe.route(p["router"], xt.reshape(-1, cfg.d_model),
+                              cfg.moe.top_k)
+        moe.reset_stats()
+        y, aux = moe.moe_apply_dense(cfg, p, xt)
+        stats = moe.read_stats()
+        ((y * torch.from_numpy(cot).to(dev)).sum() + aux).backward()
+        out.append((ids.cpu(), stats, y.detach().cpu(), aux.item(),
+                    [t.grad.cpu() for t in T.leaves(p)] + [xt.grad.cpu()]))
+    (ids0, st0, y0, a0, g0), (ids1, st1, y1, a1, g1) = out
+    assert torch.equal(ids0, ids1)
+    assert st0["dropped"] == st1["dropped"] > 0
+    torch.testing.assert_close(y1, y0, rtol=1e-5, atol=1e-5)
+    assert abs(a1 - a0) <= 1e-6 * abs(a0)
+    for a, b in zip(g1, g0):
+        torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-5)
+
+
+def test_adafactor_update_on_card_matches_cpu(card):
+    """Two Adafactor updates of 1-D to 4-D f32 leaves on the card against
+    the CPU: factors and parameters (means, rsqrt and the RMS in another
+    order: rtol 1e-5)."""
+    from repro_torch.optim import api as optim
+    rng = np.random.default_rng(4)
+    shapes = {"a": (3, 4), "b": (5,), "c": (2, 64, 96), "d": (2, 3, 40, 8)}
+    p0 = {k: rng.standard_normal(s).astype(np.float32)
+          for k, s in shapes.items()}
+    gs = [{k: rng.standard_normal(s).astype(np.float32)
+           for k, s in shapes.items()} for _ in range(2)]
+    out = []
+    for dev in ("cpu", card):
+        opt = optim.adafactor(optim.warmup_cosine(1e-2, 1, 10))
+        p = {k: torch.from_numpy(v.copy()).to(dev) for k, v in p0.items()}
+        s = opt.init(p)
+        for step, g in enumerate(gs):
+            upd, s = opt.update({k: torch.from_numpy(v).to(dev)
+                                 for k, v in g.items()}, s, p, step)
+            optim.apply_updates(p, upd)
+        out.append([t.cpu() for t in T.leaves(p) + T.leaves(s)])
+    for a, b in zip(*out):
+        torch.testing.assert_close(b, a, rtol=1e-5, atol=1e-6)
+
+
+def test_flash_at_mixtral_shape_matches_plain(card):
+    """The flash kernel at mixtral-8x22b's path shape: q (1, 2048, 48,
+    128), 8 kv heads (6 q heads a kv head), window 4096 > seq."""
+    rng = np.random.default_rng(6)
+    q = _normal(rng, (1, 2048, 48, 128), torch.bfloat16, card)
+    k = _normal(rng, (1, 2048, 8, 128), torch.bfloat16, card)
+    v = _normal(rng, (1, 2048, 8, 128), torch.bfloat16, card)
+    before = flash_ops.launches
+    o, lse = flash_ops.flash_fwd(q, k, v, True, 4096)
+    assert flash_ops.launches == before + 1
+    o_ref, lse_ref = attention_ref(q, k, v, True, 4096)
+    torch.testing.assert_close(o.float(), o_ref.float(), rtol=0, atol=2e-2)
+    torch.testing.assert_close(lse, lse_ref, rtol=0, atol=2e-5)

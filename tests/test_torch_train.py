@@ -18,15 +18,19 @@ from repro_torch.launch.train import SDFLMQTrainer
 SRC = Path(__file__).resolve().parents[1] / "src"
 
 COPIED = (
-    ["api/__init__.py", "api/federation.py", "api/strategies.py",
-     "api/transport.py"]
+    [f"api/{m}.py" for m in (
+        "__init__ async_fl federation fleet mini_broker mqtt_transport "
+        "scenarios strategies transport").split()]
     + [f"core/{m}.py" for m in (
-        "broker client clustering coordinator defense mqttfc "
+        "broker client clustering cohort coordinator defense mqttfc "
         "parameter_server role_optimizer roles session stats topics "
         "topology wire").split()]
     + sorted(str(p.relative_to(SRC / "repro"))
              for p in (SRC / "repro" / "configs").glob("*.py"))
-    + ["data/federated.py", "data/synthetic.py", "ft/failures.py"])
+    + ["data/federated.py", "data/synthetic.py", "ft/failures.py"]
+    + [f"obs/{m}.py" for m in
+       "__init__ exporters instrument registry tracer".split()]
+    + ["train/mlp.py"])
 
 
 def _env():

@@ -129,6 +129,13 @@ def phase_fedavg(torch, dev):
                "kernel_ms": ms, "plain_ms": plain_ms,
                "bound_ms": nbytes / PEAK_BYTES_S * 1e3,
                "gb_s": nbytes / (ms * 1e-3) / 1e9}
+        if name == "path_largest_leaf":
+            # the one PyTorch call for the same weighted mean: the (1, K)
+            # normalized weight row times the (K, N) view (it rounds
+            # otherwise, so it is timed, not compared)
+            row_w = (w / w.sum()).to(dtype)[None, :]
+            row["library_ms"] = time_ms(
+                torch, lambda: torch.matmul(row_w, x), 10)
         emit({"phase": "fedavg", **row})
         if not ok:
             raise AssertionError(f"fedavg kernel disagrees: {row}")
@@ -353,7 +360,16 @@ def _wkv_work(B, T, H, dk, dv, C, use_u):
     return float(B * H * n * per_chunk), float(B * H * n * pairs * dk)
 
 
-def phase_wkv(torch, dev):
+WKV_CASES = [  # name, B, T, H, dk, dv, chunk, use_u, per-head w, s0, dtype
+    ("path_rwkv6", 1, 2048, 64, 64, 64, 128, True, False, False,
+     "bfloat16"),
+    ("path_hymba", 1, 2048, 25, 16, 64, 128, False, True, False, "bfloat16"),
+    ("odd_u", 2, 200, 3, 4, 8, 64, True, False, True, "float32"),
+    ("odd_ssd", 2, 200, 3, 4, 8, 64, False, True, True, "float32"),
+]
+
+
+def phase_wkv(torch, dev, cases=WKV_CASES, phase="wkv", seed=4):
     """The chunked WKV kernel against its plain version (``ref.chunked``)
     at the two paths' shapes (rwkv6: per-channel decay with u; hymba's SSM
     branch: per-head decay, SSD form) and at odd shapes (B = 2, a ragged
@@ -363,17 +379,10 @@ def phase_wkv(torch, dev):
     from repro_torch.kernels.ssm_scan.ops import ssm_scan
     from repro_torch.kernels.wkv6 import ops
     from repro_torch.kernels.wkv6.ref import chunked
-    gen = torch.Generator(device=dev).manual_seed(4)
-    cases = [  # name, B, T, H, dk, dv, chunk, use_u, per-head w, s0, dtype
-        ("path_rwkv6", 1, 2048, 64, 64, 64, 128, True, False, False,
-         torch.bfloat16),
-        ("path_hymba", 1, 2048, 25, 16, 64, 128, False, True, False,
-         torch.bfloat16),
-        ("odd_u", 2, 200, 3, 4, 8, 64, True, False, True, torch.float32),
-        ("odd_ssd", 2, 200, 3, 4, 8, 64, False, True, True, torch.float32),
-    ]
+    gen = torch.Generator(device=dev).manual_seed(seed)
     rows = {}
     for name, B, T, H, dk, dv, C, use_u, scalar, with_s0, dtype in cases:
+        dtype = getattr(torch, dtype)
         mk = lambda *s: torch.randn(s, generator=gen, device=dev)
         r = (mk(B, T, H, dk) * 0.5).to(dtype)
         k = (mk(B, T, H, dk) * 0.5).to(dtype)
@@ -422,7 +431,7 @@ def phase_wkv(torch, dev):
             if row["ssm_scan_launches"] != 1 or y.dtype != dtype \
                     or not row["ssm_scan_s_final_equal"]:
                 raise AssertionError(f"ssm_scan wrapper: {row}")
-        emit({"phase": "wkv", **row})
+        emit({"phase": phase, **row})
         if not (o_err <= o_tol and s_err <= s_tol):
             raise AssertionError(f"wkv kernel disagrees: {row}")
         rows[name] = row
@@ -974,6 +983,386 @@ def phase_resume_full(torch, dev):
     return row
 
 
+# the kernel cases serving adds: the flash forward at batch 4 in each
+# model's head layout, the WKV with u and the SSD at T = 1 (chunk 1) with
+# a cached state (a decode step), and both at batch 4 over a prompt
+SERVE_FLASH_CASES = [  # name, B, S, H, Kv, hd, window
+    ("qwen2", 4, 2048, 28, 4, 128, None),
+    ("hymba", 4, 2048, 25, 5, 64, 1024),
+    ("mixtral", 4, 2048, 48, 8, 128, 4096),
+]
+SERVE_WKV_CASES = [
+    ("decode_rwkv6", 4, 1, 64, 64, 64, 1, True, False, True, "bfloat16"),
+    ("decode_hymba", 4, 1, 25, 16, 64, 1, False, True, True, "bfloat16"),
+    ("prefill_rwkv6", 4, 2048, 64, 64, 64, 128, True, False, False,
+     "bfloat16"),
+    ("prefill_hymba", 4, 2048, 25, 16, 64, 128, False, True, False,
+     "bfloat16"),
+]
+
+
+def phase_serve_kernels(torch, dev):
+    """The kernel cases that serving adds, each against its plain version
+    on the card and timed beside it, its bound and, for flash,
+    ``scaled_dot_product_attention``: flash at B = 4 and S = 2048 in the
+    three head layouts (bf16 tolerance as ``phase_flash``), and the WKV
+    kernel at serving's shapes (``phase_wkv``'s tolerance)."""
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attn import ops
+    from repro_torch.kernels.flash_attn.ref import attention_ref
+    gen = torch.Generator(device=dev).manual_seed(7)
+    flash = {}
+    for name, B, S, H, Kv, hd, window in SERVE_FLASH_CASES:
+        mk = lambda *s: torch.randn(s, generator=gen, device=dev,
+                                    dtype=torch.bfloat16)
+        q, k, v = mk(B, S, H, hd), mk(B, S, Kv, hd), mk(B, S, Kv, hd)
+        o, lse = ops.flash_fwd(q, k, v, True, window)
+        o_ref, lse_ref = attention_ref(q, k, v, True, window)
+        torch.cuda.synchronize()
+        o_err = float((o.float() - o_ref.float()).abs().max())
+        lse_err = float((lse - lse_ref).abs().max())
+        flops = _flash_flops(B, S, S, H, hd, True, window)
+        nbytes = (q.numel() + k.numel() + v.numel() + o.numel()) * 2 \
+            + lse.numel() * 4
+        bound_ms = max(flops / PEAK_BF16_FLOP_S, nbytes / PEAK_BYTES_S) * 1e3
+        qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+        pos = torch.arange(S, device=dev)
+        keep = (pos[:, None] >= pos[None, :]) & (
+            (pos[:, None] - pos[None, :] < window) if window
+            else torch.ones((), dtype=torch.bool, device=dev))
+        ms = time_ms(torch, lambda: ops.flash_fwd(q, k, v, True, window), 10)
+        row = {"case": f"flash_{name}", "shape_q": [B, S, H, hd],
+               "shape_kv": [B, S, Kv, hd], "window": window,
+               "o_max_abs_err": o_err, "lse_max_abs_err": lse_err,
+               "o_tol": 2e-2, "lse_tol": 1e-3, "kernel_ms": ms,
+               "plain_ms": time_ms(
+                   torch, lambda: attention_ref(q, k, v, True, window), 2),
+               "library_ms": time_ms(
+                   torch, lambda: F.scaled_dot_product_attention(
+                       qt, kt, vt, attn_mask=keep, enable_gqa=True), 10),
+               "flops": flops, "bytes": nbytes, "bound_ms": bound_ms,
+               "bound_by": "operations" if flops / PEAK_BF16_FLOP_S
+               > nbytes / PEAK_BYTES_S else "bytes",
+               "bound_share": bound_ms / ms}
+        emit({"phase": "serve_flash", **row})
+        if o_err > 2e-2 or lse_err > 1e-3:
+            raise AssertionError(f"flash kernel disagrees at batch 4: {row}")
+        flash[name] = row
+        del q, k, v, o, lse, o_ref, lse_ref, qt, kt, vt
+        torch.cuda.empty_cache()
+    wkv = phase_wkv(torch, dev, SERVE_WKV_CASES, "serve_wkv", seed=8)
+    return flash, wkv
+
+
+# phase, arch, layers: published widths and depth, but mixtral-8x22b, cut
+# to 4 of its 56 layers (all 56 hold 281 GB of bf16 weights)
+SERVE_CELLS = [
+    ("serve_qwen2", "qwen2-7b", None),
+    ("serve_rwkv6", "rwkv6-7b", None),
+    ("serve_hymba", "hymba-1.5b", None),
+    ("serve_mixtral", "mixtral-8x22b", 4),
+]
+SERVE_REQUESTS, SERVE_BATCH, SERVE_MAX_NEW = 8, 4, 32
+SERVE_PROMPT = (1536, 2048)        # prompt lengths, drawn from the seed
+SERVE_PROFILE_STEPS = 8
+# The bf16 check of the cache path against the parallel path, in relative
+# L2 of a logit row, ||a - b|| / ||b||: at 28-32 layers of random weights
+# bf16 rounding alone moves a row by a few % (GEMV against GEMM order,
+# decode's f32 attention over a bf16 cache against the bf16 flash kernel),
+# so the yardstick is measured in the same run: ``forward`` on f32 copies
+# of the weights is the exact row, and a decode step may be no farther
+# from it than SERVE_NOISE_FACTOR times the bf16 ``forward``'s own
+# distance from it
+SERVE_NOISE_FACTOR = 2.0
+
+
+def _logit_err(torch, got, want):
+    g, w = got.float().reshape(-1), want.float().reshape(-1)
+    return {"rel_l2": float((g - w).norm() / w.norm()),
+            "max_abs_err": float((g - w).abs().max()),
+            "max_abs": float(w.abs().max()),
+            "argmax_equal": bool(g.argmax() == w.argmax())}
+
+
+def _serve_check(torch, dev, cfg, params, params32, prompt, layouts,
+                 fault=None):
+    """One request through prefill on the card, then one decode step from
+    each cache layout in ``layouts`` ({name: fn(cache, S) -> cache}, each
+    given its own copy of the prefilled cache).  -> {"prefill": prefill's
+    logits against bf16 ``forward`` over the same S tokens, "noise": bf16
+    ``forward`` over S + 1 tokens against the f32 one at position S,
+    "decode": {name: the step against the f32 ``forward``}, "held": every
+    layout but ``fault`` within the tolerance}, and the steps' logits."""
+    from repro_torch.models import model_api
+    mod = model_api.get_model(cfg)
+    with torch.inference_mode():
+        toks = torch.from_numpy(prompt[None].astype("int32")).to(dev)
+        S = toks.shape[1]
+        plog, cache = mod.prefill(cfg, params, {"tokens": toks})
+        flog = mod.forward(cfg, params, {"tokens": toks})[0][:, -1]
+        pre = _logit_err(torch, plog, flog)
+        del flog
+        tok = plog.argmax(-1).to(torch.int32)[:, None]
+        batch = {"token": tok, "pos": torch.full((1,), S, dtype=torch.int32,
+                                                 device=dev)}
+        decoded = {}
+        for name, fn in layouts.items():
+            copy = fn({k: v.clone() for k, v in cache.items()}, S)
+            decoded[name] = mod.decode_step(cfg, params, copy, batch)[0]
+            del copy
+        del cache
+        ext = {"tokens": torch.cat([toks, tok], dim=1)}
+        f16 = mod.forward(cfg, params, ext)[0][:, -1]
+        f32 = mod.forward(cfg, params32, ext)[0][:, -1]
+    noise = _logit_err(torch, f16, f32)
+    dec = {name: _logit_err(torch, d, f32) for name, d in decoded.items()}
+    tol = SERVE_NOISE_FACTOR * noise["rel_l2"]
+    return {"prefill": pre, "noise": noise, "decode": dec, "tol_rel_l2": tol,
+            "held": pre["rel_l2"] <= tol
+            and all(d["rel_l2"] <= tol for k, d in dec.items()
+                    if k != fault)}, decoded
+
+
+def _fault_size(torch, dev, cfg, params32, prompt, fixed):
+    """A reference fault's size on one decode step, in f32 (no bf16 noise
+    to hide it): the step from the cache as the reference leaves it
+    against the step from the layout ``fixed`` repairs."""
+    from repro_torch.models import model_api
+    mod = model_api.get_model(cfg)
+    with torch.inference_mode():
+        toks = torch.from_numpy(prompt[None].astype("int32")).to(dev)
+        S = toks.shape[1]
+        plog, cache = mod.prefill(cfg, params32, {"tokens": toks})
+        batch = {"token": plog.argmax(-1).to(torch.int32)[:, None],
+                 "pos": torch.full((1,), S, dtype=torch.int32, device=dev)}
+        steps = [mod.decode_step(cfg, params32, fn(
+            {k: v.clone() for k, v in cache.items()}, S), batch)[0]
+            for fn in (_as_is, fixed)]
+    return _logit_err(torch, *steps)
+
+
+def _as_is(cache, S):
+    return cache
+
+
+def _padded(cache, S):
+    from repro_torch.models import kvcache as kvc
+    return kvc.pad_cache(cache, S + 2)
+
+
+def _ring(cache, S):
+    """A windowed prefill cache laid out as decode's ring expects it:
+    position p at slot p % W (prefill keeps position S - W + i at slot i,
+    R3)."""
+    W = cache["k"].shape[2]
+    out = dict(cache)
+    for key, dim in (("k", 2), ("v", 2), ("kv_pos", 1)):
+        out[key] = cache[key].roll(S % W, dims=dim)
+    return out
+
+
+def _profile_decode(torch, dev, engine, prompts):
+    """SERVE_PROFILE_STEPS decode steps after a prefill of one batch,
+    under ``torch.profiler``: device busy time, the profiled wall time,
+    and the top kernels."""
+    import numpy as np
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity
+    from repro_torch.models import kvcache as kvc
+    cfg, mod = engine.cfg, engine.model
+    B = len(prompts)
+    S = max(len(p) for p in prompts)
+    toks = np.zeros((B, S), np.int32)
+    for i, p in enumerate(prompts):
+        toks[i, S - len(p):] = p
+    with torch.inference_mode():
+        logits, cache = mod.prefill(cfg, engine.params,
+                                    {"tokens": torch.from_numpy(toks).to(dev)})
+        if cfg.window is None and cfg.family != "rwkv":
+            cache = kvc.pad_cache(cache, S + SERVE_PROFILE_STEPS + 2)
+        cur = logits.argmax(-1).to(torch.int32)
+
+        def step(i):
+            pos = torch.full((B,), S + i, dtype=torch.int32, device=dev)
+            return mod.decode_step(cfg, engine.params, cache,
+                                   {"token": cur[:, None], "pos": pos})[0] \
+                .argmax(-1).to(torch.int32)
+        cur = step(0)                                   # warm
+        torch.cuda.synchronize()
+        with torch.profiler.profile(activities=[ProfilerActivity.CPU,
+                                                ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for i in range(1, SERVE_PROFILE_STEPS + 1):
+                cur = step(i)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+    ka = prof.key_averages()
+    kernels = [e for e in ka if e.device_type == DeviceType.CUDA]
+    busy = sum(_dev_us(e) for e in kernels) / 1e6
+    top = sorted(kernels, key=_dev_us, reverse=True)[:8]
+    launches = sum(e.count for e in kernels)
+    return {"steps": SERVE_PROFILE_STEPS, "wall_s_profiled": wall,
+            "device_busy_s": busy, "idle_share_profiled": 1 - busy / wall,
+            "device_ms_per_step": busy / SERVE_PROFILE_STEPS * 1e3,
+            "kernels_per_step": launches / SERVE_PROFILE_STEPS,
+            "top_kernels_ms": [[e.key[:80], _dev_us(e) / 1e3, e.count]
+                               for e in top]}
+
+
+def phase_serve(torch, dev, phase, arch, n_layers):
+    """Eight requests (prompts of 1536-2048 tokens from the seed, 32 new
+    tokens each) through ``ServeEngine`` at batch 4, two batches, on bf16
+    weights at published widths from a seed.  ``max_seq`` holds the
+    longest prompt and its new tokens, so a full-attention cache is grown
+    and never wraps.  The launch counters are set to 0 just before the
+    engine runs and read just after; then the decode steps are profiled,
+    and one request is checked through prefill and one decode step against
+    ``forward`` (``_serve_check``; the tolerance is SERVE_NOISE_FACTOR
+    times bf16 ``forward``'s own distance from an f32 ``forward`` on the
+    same weights).  hymba is checked at a 2048-token prompt, where its
+    window ring holds, and at
+    the first request whose length the window does not divide, from the
+    ring laid out as decode expects it; R3's size there is the decode step
+    from prefill's layout against the one from the ring, in bf16 and in
+    f32 (``_fault_size``).  mixtral is checked with a capacity factor of
+    E / top_k (no assignment dropped, as at decode: forward's drops would
+    differ from decode's), padded; R4's size is the step from the
+    unpadded cache the engine leaves against the padded one."""
+    import dataclasses
+    import numpy as np
+    from repro_torch import tree as T
+    from repro_torch.configs.base import get_arch
+    from repro_torch.kernels.flash_attn import ops as flash_ops
+    from repro_torch.kernels.wkv6 import ops as wkv_ops
+    from repro_torch.models import model_api, moe
+    from repro_torch.serve.engine import ServeEngine
+
+    cfg = get_arch(arch)
+    reduced = []
+    if n_layers is not None:
+        reduced = [f"depth {n_layers} of {cfg.n_layers}"]
+        cfg = cfg.replace(n_layers=n_layers)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    params = model_api.init_params(cfg, 0, dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    weights = T.leaves(params)
+    weight_bytes = sum(t.numel() * t.element_size() for t in weights)
+    rng = np.random.default_rng(0)
+    lens = rng.integers(SERVE_PROMPT[0], SERVE_PROMPT[1] + 1, SERVE_REQUESTS)
+    prompts = [rng.integers(0, cfg.vocab, int(n)).astype(np.int32)
+               for n in lens]
+    engine = ServeEngine(cfg, params, batch_size=SERVE_BATCH,
+                         max_seq=SERVE_PROMPT[1] + SERVE_MAX_NEW + 1,
+                         device=dev)
+    flash_ops.launches = 0
+    wkv_ops.launches_u = 0
+    wkv_ops.launches_ssd = 0
+    moe.reset_stats()
+    batches, done = [], []
+    for b in range(0, SERVE_REQUESTS, SERVE_BATCH):
+        before = dict(engine.stats)
+        for p in prompts[b:b + SERVE_BATCH]:
+            engine.submit(p, SERVE_MAX_NEW)
+        done += engine.run()
+        batches.append({k: engine.stats[k] - before[k] for k in
+                        ("prefill_tokens", "prefill_s", "decode_steps",
+                         "decode_s")})
+    torch.cuda.synchronize()
+    launches = {"flash_fwd": flash_ops.launches, "wkv6": wkv_ops.launches_u,
+                "ssm_scan": wkv_ops.launches_ssd}
+    moe_calls = moe.read_stats()["calls"]
+    peak = torch.cuda.max_memory_allocated(dev)
+    st = engine.stats
+    bound_ms = weight_bytes / PEAK_BYTES_S * 1e3
+    decode_ms = st["decode_s"] / st["decode_steps"] * 1e3
+    profile = _profile_decode(torch, dev, engine, prompts[:SERVE_BATCH])
+
+    # each check holds the layout the engine decodes from (for hymba's R3
+    # prompt, the ring as decode expects it); a fault's size is the step
+    # from the reference's layout against the one from the fixed layout
+    params32 = T.tree_map(lambda t: t.float(), params)
+    checks, fault = {}, {}
+    if cfg.family == "hybrid":
+        hold = rng.integers(0, cfg.vocab, 2 * cfg.window).astype(np.int32)
+        checks["window_multiple"], _ = _serve_check(
+            torch, dev, cfg, params, params32, hold, {"as_is": _as_is})
+        r3 = next(p for p in prompts if len(p) % cfg.window)
+        checks["ring"], dec = _serve_check(
+            torch, dev, cfg, params, params32, r3,
+            {"ring": _ring, "as_is": _as_is}, fault="as_is")
+        fault["r3"] = {"prompt_len": len(r3),
+                       "bf16": _logit_err(torch, dec["as_is"], dec["ring"]),
+                       "f32": _fault_size(torch, dev, cfg, params32, r3,
+                                          _ring)}
+    elif cfg.moe is not None:
+        nodrop = cfg.replace(moe=dataclasses.replace(
+            cfg.moe, capacity_factor=cfg.moe.n_experts / cfg.moe.top_k))
+        checks["padded"], dec = _serve_check(
+            torch, dev, nodrop, params, params32, prompts[0],
+            {"padded": _padded, "as_is": _as_is}, fault="as_is")
+        fault["r4"] = {"prompt_len": len(prompts[0]),
+                       "bf16": _logit_err(torch, dec["as_is"], dec["padded"]),
+                       "f32": _fault_size(torch, dev, nodrop, params32,
+                                          prompts[0], _padded)}
+    else:
+        layout = _as_is if cfg.family == "rwkv" else _padded
+        checks["request0"], _ = _serve_check(
+            torch, dev, cfg, params, params32, prompts[0],
+            {"engine": layout})
+    del params32
+    held = all(c["held"] for c in checks.values())
+
+    L = cfg.n_layers
+    steps_per_batch = SERVE_MAX_NEW
+    n_batches = len(batches)
+    attn_layers = L if cfg.family in ("dense", "moe", "hybrid") else 0
+    want = {"flash_fwd": attn_layers * n_batches,
+            "wkv6": L * (1 + steps_per_batch) * n_batches
+            if cfg.family == "rwkv" else 0,
+            "ssm_scan": L * (1 + steps_per_batch) * n_batches
+            if cfg.family == "hybrid" else 0}
+    want_moe = ((L - cfg.moe.first_k_dense) * (1 + steps_per_batch)
+                * n_batches if cfg.moe else 0)
+    row = {"phase": phase, "arch": cfg.name, "family": cfg.family,
+           "n_layers": L, "reduced": reduced, "d_model": cfg.d_model,
+           "vocab": cfg.vocab, "window": cfg.window,
+           "requests": SERVE_REQUESTS, "batch": SERVE_BATCH,
+           "max_new": SERVE_MAX_NEW, "prompt_lens": [int(n) for n in lens],
+           "params": sum(t.numel() for t in weights),
+           "weight_bytes": weight_bytes, "init_s": init_s,
+           "prefill_tokens_s": st["prefill_tokens"] / st["prefill_s"],
+           "ttft_s_per_batch": [b["prefill_s"] for b in batches],
+           "decode_ms_per_step": decode_ms,
+           "decode_ms_per_step_per_batch": [
+               b["decode_s"] / b["decode_steps"] * 1e3 for b in batches],
+           "decode_tokens_s": SERVE_BATCH * st["decode_steps"]
+           / st["decode_s"],
+           "decode_bound_ms": bound_ms,
+           "decode_bound_share": bound_ms / decode_ms,
+           "peak_memory_allocated": peak, "launches": launches,
+           "moe_calls": moe_calls, "stats": st,
+           "tokens_out": sum(len(r.out) for r in done),
+           "check_noise_factor": SERVE_NOISE_FACTOR, "checks": checks,
+           "checks_held": held, "reference_fault": fault}
+    emit(row)
+    emit({"phase": f"{phase}_profile", "decode_ms_per_step_unprofiled":
+          decode_ms, **profile})
+    del engine, params, weights
+    if launches != want or moe_calls != want_moe:
+        raise AssertionError(f"{phase}: launches {launches}, MoE calls "
+                             f"{moe_calls}; want {want}, {want_moe}")
+    if (not held or row["tokens_out"] != SERVE_REQUESTS * SERVE_MAX_NEW
+            or not all(r.done for r in done)):
+        raise AssertionError(f"{phase}: {row}")
+    if peak >= CARD_BYTES:
+        raise AssertionError(f"{phase}: peak {peak} B")
+    return launches
+
+
 def kernel_rows(fed, flash, qagg, quant8, wkv, launches):
     """The ``kernels`` line: every kernel with its launches summed over the
     train cells (quant8 is on none: its launches there are read, and are
@@ -987,7 +1376,7 @@ def kernel_rows(fed, flash, qagg, quant8, wkv, launches):
          "launches": launches["fedavg"],
          "max_abs_err": fed["max_abs_err"], "ms": fed["kernel_ms"],
          "plain_ms": fed["plain_ms"], "bound_ms": fed["bound_ms"],
-         "bound_by": "bytes", "library_ms": None},
+         "bound_by": "bytes", "library_ms": fed["library_ms"]},
         {"name": "flash_attn_fwd", "route": "cuda",
          "source": "src/repro_torch/csrc/flash_attn_fwd.cu",
          "replaces": "src/repro/kernels/flash_attn/flash_attn.py:60",
@@ -1065,6 +1454,10 @@ def main(argv=None) -> int:
             launches[k] = launches.get(k, 0) + n
     phase_resume(torch, dev)
     phase_resume_full(torch, dev)
+    phase_serve_kernels(torch, dev)
+    for phase, arch, n_layers in SERVE_CELLS:
+        for k, n in phase_serve(torch, dev, phase, arch, n_layers).items():
+            launches[k] = launches.get(k, 0) + n
     emit({"kernels": kernel_rows(fed, flash, qagg, quant8, wkv, launches)})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

@@ -7,9 +7,12 @@ hand-written kernel (``kernels/flash_attn``) on a CUDA tensor and its plain
 version on the CPU, and returns ``o`` and the row log-sum-exp; its backward
 is plain PyTorch and mirrors the reference ``_flash_bwd``: recompute the
 probabilities from ``lse``, chunked over kv.  The reference has no Pallas
-backward either.
+backward either.  Without autograd (serving's prefill, under
+``torch.inference_mode``) the dispatch calls the kernel's forward directly
+and keeps nothing for a backward.
 
-``decode_attention`` waits for the serving slice.
+``decode_attention`` attends one new token to a ring-buffer cache; it is
+plain PyTorch, as the reference computes it outside any Pallas kernel.
 """
 from __future__ import annotations
 
@@ -181,4 +184,31 @@ def attention(q, k, v, q_pos, kv_pos, *, causal: bool,
     if k.shape[1] <= chunk_threshold:
         return full_attention(q, k, v, q_pos, kv_pos, causal=causal,
                               window=window)
+    if not torch.is_grad_enabled():
+        return flash_fwd(q.contiguous(), k.contiguous(), v.contiguous(),
+                         causal, window)[0]
     return flash_attention(q, k, v, causal, window, chunk)
+
+
+# --------------------------------------------------------------------------
+# Single-token decode attention
+# --------------------------------------------------------------------------
+
+def decode_attention(q, k_cache, v_cache, kv_pos, pos, *,
+                     window: Optional[int] = None):
+    """q: (B,1,H,hd); caches: (B,S,K,hd); kv_pos: (B,S) absolute positions
+    stored in each cache slot (-1 = empty); pos: (B,) current position.
+    Scores and softmax in f32, probabilities in q's dtype for P @ V."""
+    B, _, H, hd = q.shape
+    K = k_cache.shape[2]
+    G = H // K
+    qg = q.reshape(B, K, G, hd)
+    s = torch.einsum("bkgh,bskh->bkgs", qg.float(), k_cache.float())
+    s = s / math.sqrt(hd)
+    ok = (kv_pos >= 0) & (kv_pos <= pos[:, None])
+    if window is not None:
+        ok &= pos[:, None] - kv_pos < window
+    s = torch.where(ok[:, None, None, :], s, NEG_INF)
+    p = torch.softmax(s, dim=-1).to(q.dtype)
+    o = torch.einsum("bkgs,bskh->bkgh", p, v_cache.to(q.dtype))
+    return o.reshape(B, 1, H, hd)

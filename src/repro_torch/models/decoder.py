@@ -2,11 +2,15 @@
 layers (Kimi-K2 ``first_k_dense``), GQA attention with optional sliding
 window and QKV bias, RoPE, SwiGLU or MoE FFN, vocab-parallel logits.
 
+Three entry points: ``forward`` (train), ``prefill`` (last-token logits
+and a filled KV cache) and ``decode_step`` (one token against the cache,
+which it updates in place).
+
 The reference's ``lax.scan`` over stacked layer parameters becomes a loop
 over the layer index on views of the stacked ``(L, ...)`` leaves, and
-``cfg.remat`` becomes ``torch.utils.checkpoint`` per layer.
+``cfg.remat`` becomes ``torch.utils.checkpoint`` per layer in training.
 
-VLM layers, ``prefill`` and ``decode_step`` wait for later slices.
+VLM layers wait for a later slice.
 """
 from __future__ import annotations
 
@@ -17,6 +21,7 @@ from repro_torch import tree as T
 from repro_torch.configs.base import ArchConfig
 from repro_torch.dist.sharding import stack
 from repro_torch.models import attention as attn
+from repro_torch.models import kvcache as kvc
 from repro_torch.models.layers import (embed_decl, embed_lookup, logits_out,
                                        rmsnorm, rmsnorm_decl, swiglu,
                                        swiglu_decl)
@@ -68,6 +73,11 @@ def param_decls(cfg: ArchConfig):
     return decls
 
 
+def cache_decl(cfg: ArchConfig, batch: int, cache_len: int):
+    return kvc.kv_cache_decl(cfg.n_layers, batch, cache_len,
+                             cfg.n_kv_heads, cfg.head_dim)
+
+
 # --------------------------------------------------------------------------
 # Layer application
 # --------------------------------------------------------------------------
@@ -79,9 +89,14 @@ def _ffn(cfg: ArchConfig, lp, x, kind: str):
                                              device=x.device)
 
 
-def _apply_layer(cfg: ArchConfig, lp, x, positions, kind: str):
+def _apply_layer(cfg: ArchConfig, lp, x, positions, kind: str, kv_out=None):
+    """One layer; with ``kv_out`` (two (B,S,K,hd) views of a cache) its
+    keys and values are copied there (prefill)."""
     h = rmsnorm(lp["ln1"], x, cfg.norm_eps)
     q, k, v = attn.project_qkv(lp["attn"], h, positions, cfg.rope_theta)
+    if kv_out is not None:
+        kv_out[0].copy_(k)
+        kv_out[1].copy_(v)
     o = attn.attention(q, k, v, positions, positions, causal=True,
                        window=cfg.window, chunk=cfg.attn_chunk,
                        chunk_threshold=cfg.attn_chunk_threshold)
@@ -91,12 +106,45 @@ def _apply_layer(cfg: ArchConfig, lp, x, positions, kind: str):
     return x + y, aux
 
 
+def _apply_layer_decode(cfg: ArchConfig, lp, x, k_l, v_l, kv_pos, pos,
+                        slot, kind: str):
+    """x: (B,1,D); k_l/v_l: (B,S,K,hd) views of the cache, written in
+    place; pos: (B,)."""
+    h = rmsnorm(lp["ln1"], x, cfg.norm_eps)
+    q, k, v = attn.project_qkv(lp["attn"], h, pos[:, None], cfg.rope_theta)
+    kvc.update_kv_layer(k_l, v_l, k, v, slot)
+    o = attn.decode_attention(q, k_l, v_l, kv_pos, pos, window=cfg.window)
+    x = x + attn.project_out(lp["attn"], o)
+    h2 = rmsnorm(lp["ln2"], x, cfg.norm_eps)
+    y, _ = _ffn(cfg, lp, h2, kind)
+    return x + y
+
+
+def _stacks(cfg: ArchConfig, params):
+    """[(stacked layer params, kind)] in layer order: Kimi's leading dense
+    layers, then the uniform stack."""
+    out = [(params["dense_layers"], "dense")] if n_dense_layers(cfg) else []
+    return out + [(params["layers"], "moe" if cfg.moe else "dense")]
+
+
+def _layer_views(stacked):
+    """Each layer's parameters, as views of the stacked leaves."""
+    for i in range(T.leaves(stacked)[0].shape[0]):
+        yield T.tree_map(lambda a: a[i], stacked)
+
+
+def _layers(cfg: ArchConfig, params):
+    """(layer params, kind) of every layer in order."""
+    for stacked, kind in _stacks(cfg, params):
+        for lp in _layer_views(stacked):
+            yield lp, kind
+
+
 def _run_layers(cfg: ArchConfig, stacked, x, positions, kind: str):
     """The layers of one stack in order -> (x, their auxiliary losses
     summed from 0, in layer order, as the reference's scan carries it)."""
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    for i in range(T.leaves(stacked)[0].shape[0]):
-        lp = T.tree_map(lambda a: a[i], stacked)
+    for lp in _layer_views(stacked):
         if cfg.remat:
             x, a = checkpoint(_apply_layer, cfg, lp, x, positions, kind,
                               use_reentrant=False)
@@ -112,11 +160,41 @@ def forward(cfg: ArchConfig, params, batch):
     x = embed_lookup(params["embed"], batch["tokens"])
     positions = torch.arange(x.shape[1], dtype=torch.int32, device=x.device)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    if n_dense_layers(cfg):
-        x, a = _run_layers(cfg, params["dense_layers"], x, positions, "dense")
+    for stacked, kind in _stacks(cfg, params):
+        x, a = _run_layers(cfg, stacked, x, positions, kind)
         aux = aux + a
-    kind = "moe" if cfg.moe else "dense"
-    x, a = _run_layers(cfg, params["layers"], x, positions, kind)
-    aux = aux + a
     x = rmsnorm(params["final_norm"], x, cfg.norm_eps)
     return logits_out(params["embed"], x), aux
+
+
+def prefill(cfg: ArchConfig, params, batch):
+    """-> (last-token logits (B,V), cache {k, v (L,B,S,K,hd), kv_pos})."""
+    _check_family(cfg)
+    x = embed_lookup(params["embed"], batch["tokens"])
+    B, S = x.shape[0], x.shape[1]
+    positions = torch.arange(S, dtype=torch.int32, device=x.device)
+    shape = (cfg.n_layers, B, S, cfg.n_kv_heads, cfg.head_dim)
+    k = torch.empty(shape, dtype=x.dtype, device=x.device)
+    v = torch.empty_like(k)
+    for i, (lp, kind) in enumerate(_layers(cfg, params)):
+        x, _ = _apply_layer(cfg, lp, x, positions, kind, kv_out=(k[i], v[i]))
+    x = rmsnorm(params["final_norm"], x, cfg.norm_eps)
+    logits = logits_out(params["embed"], x[:, -1])
+    return logits, {"k": k, "v": v,
+                    "kv_pos": kvc.prefilled_pos(B, S, x.device)}
+
+
+def decode_step(cfg: ArchConfig, params, cache, batch):
+    """batch: {"token": (B,1) int32, "pos": (B,) int32} -> (logits (B,V),
+    cache).  The cache's tensors are updated in place and returned."""
+    _check_family(cfg)
+    token, pos = batch["token"], batch["pos"]
+    x = embed_lookup(params["embed"], token)
+    cache_len = cache["k"].shape[2]
+    slot = kvc.cache_slot(pos, cache_len)
+    kv_pos = kvc.update_kv_pos(cache["kv_pos"], pos, cache_len)
+    for i, (lp, kind) in enumerate(_layers(cfg, params)):
+        x = _apply_layer_decode(cfg, lp, x, cache["k"][i], cache["v"][i],
+                                kv_pos, pos, slot, kind)
+    x = rmsnorm(params["final_norm"], x, cfg.norm_eps)
+    return logits_out(params["embed"], x[:, -1]), cache

@@ -2,7 +2,8 @@
 RWKV6 ("Finch", data-dependent per-channel decay, bonus u) and the Hymba
 SSM branch (SSD form, scalar per-head decay, u=None).
 
-``recurrent`` (the exact time-step recurrence, the oracle) and ``chunked``
+``recurrent`` (the exact time-step recurrence, the oracle), ``decode_step``
+(one step of it) and ``chunked``
 (the chunked form the kernel computes, each chunk under
 ``torch.utils.checkpoint``) are plain PyTorch; they live beside the kernel
 in ``kernels/wkv6/ref.py`` as its plain version and are re-exported here.
@@ -14,10 +15,11 @@ the chunk-start states are recomputed by a cheap state-only scan, then
 each chunk's forward is recomputed with autograd from its start state, in
 reverse, carrying the state's gradient.  Only one chunk's (B,C,C,H,dk)
 pairwise-decay tensor is alive at a time.  ``o`` is f32, as the JAX
-package's chunked form returns it.
+package's chunked form returns it.  Serving's decode step is T = 1 with
+the cached state as ``s0``, through the same kernel, as the reference's
+families call ``chunked`` with ``chunk=1``.
 
-The reference's mesh pinning waits for multi-GPU; ``decode_step`` waits
-for serving.
+The reference's mesh pinning waits for multi-GPU.
 """
 from __future__ import annotations
 
@@ -28,7 +30,22 @@ from repro_torch.kernels.wkv6 import ops as wkv_ops
 from repro_torch.kernels.wkv6.ref import (chunk_state, chunk_step, chunked,
                                           recurrent)
 
-__all__ = ["recurrent", "chunked", "WKV", "linear_attention"]
+__all__ = ["recurrent", "decode_step", "chunked", "WKV", "linear_attention"]
+
+
+def decode_step(r, k, v, w_log, S, u=None):
+    """One token of the recurrence.  r,k: (B,H,dk); v: (B,H,dv); w_log
+    (B,H,dk) or (B,H,1); S: (B,H,dk,dv) f32.  Returns (o (B,H,dv) in r's
+    dtype, S_new f32)."""
+    rf, kf, vf = (a.float() for a in (r, k, v))
+    decay = torch.exp(w_log.float().expand(rf.shape))[..., None]
+    kv = kf[..., :, None] * vf[..., None, :]
+    if u is not None:
+        att = S + u[None, :, :, None] * kv
+    else:
+        att = decay * S + kv
+    o = torch.einsum("bhk,bhkv->bhv", rf, att)
+    return o.to(r.dtype), decay * S + kv
 
 
 def _wkv_bwd(r, k, v, w_log, u, s0, C, do, dsf):

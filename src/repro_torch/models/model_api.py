@@ -1,9 +1,14 @@
 """Model API over the architecture families + loss functions.
 
-Every family module exposes ``param_decls(cfg)`` and
-``forward(cfg, params, batch) -> (logits (B,S,V), aux_loss)``.  Ported:
-the decoder (``dense`` and ``moe``), RWKV6 (``rwkv``) and the Hymba hybrid
-(``hybrid``); VLM and encoder-decoder wait for their slices.
+Every family module exposes:
+    param_decls(cfg) -> ParamDecl tree
+    forward(cfg, params, batch) -> (logits (B,S,V), aux_loss)
+    prefill(cfg, params, batch) -> (last_logits (B,V), cache)
+    decode_step(cfg, params, cache, batch) -> (logits (B,V), cache), the
+        cache updated in place
+    cache_decl(cfg, batch, cache_len) -> ParamDecl tree
+Ported: the decoder (``dense`` and ``moe``), RWKV6 (``rwkv``) and the
+Hymba hybrid (``hybrid``); VLM and encoder-decoder wait for their slices.
 """
 from __future__ import annotations
 
@@ -30,6 +35,12 @@ def param_decls(cfg: ArchConfig):
 
 def init_params(cfg: ArchConfig, seed: int, device):
     return shd.materialize(param_decls(cfg), seed, device)
+
+
+def cache_len_for(cfg: ArchConfig, seq_len: int) -> int:
+    if cfg.family == "rwkv":
+        return 0  # recurrent state only
+    return min(cfg.window, seq_len) if cfg.window else seq_len
 
 
 # --------------------------------------------------------------------------

@@ -579,3 +579,118 @@ def test_flash_at_mixtral_shape_matches_plain(card):
     o_ref, lse_ref = attention_ref(q, k, v, True, 4096)
     torch.testing.assert_close(o.float(), o_ref.float(), rtol=0, atol=2e-2)
     torch.testing.assert_close(lse, lse_ref, rtol=0, atol=2e-5)
+
+
+# --------------------------------------------------------------------------
+# Serving: the kernel cases it adds, and the engine on the card
+# --------------------------------------------------------------------------
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("H,dk,dv,use_u,scalar", [
+    (64, 64, 64, True, False),      # rwkv6-7b's decode step
+    (25, 16, 64, False, True),      # hymba-1.5b's SSM branch at decode
+])
+def test_wkv_kernel_at_t1_with_state_matches_plain(card, dtype, H, dk, dv,
+                                                   use_u, scalar):
+    """A decode step: T = 1, chunk 1, B = 4 and a given s0, one launch."""
+    rng = np.random.default_rng(H + dk)
+    x = _wkv_inputs(rng, 4, 1, H, dk, dv, use_u, scalar, True, dtype, card)
+    before = wkv_ops.launches_u + wkv_ops.launches_ssd
+    o, sf = wkv_ops.wkv_f32(**x, chunk=1)
+    assert wkv_ops.launches_u + wkv_ops.launches_ssd == before + 1
+    o_ref, sf_ref = wkv_chunked(**x, chunk=1)
+    torch.cuda.synchronize()
+    assert o.shape == (4, 1, H, dv) and sf.shape == (4, H, dk, dv)
+    torch.testing.assert_close(o, o_ref, rtol=0,
+                               atol=1e-4 * float(o_ref.abs().max()))
+    torch.testing.assert_close(sf, sf_ref, rtol=0,
+                               atol=1e-4 * float(sf_ref.abs().max()))
+
+
+@pytest.mark.parametrize("H,Kv,hd,window", [
+    (28, 4, 128, None), (25, 5, 64, 1024), (48, 8, 128, 4096)])
+def test_flash_kernel_at_batch_4_matches_plain(card, H, Kv, hd, window):
+    """Prefill's shapes: B = 4, Sq = Sk = 2048, bf16, in qwen2-7b's,
+    hymba-1.5b's and mixtral-8x22b's head layouts."""
+    rng = np.random.default_rng(H)
+    q = _normal(rng, (4, 2048, H, hd), torch.bfloat16, card)
+    k = _normal(rng, (4, 2048, Kv, hd), torch.bfloat16, card)
+    v = _normal(rng, (4, 2048, Kv, hd), torch.bfloat16, card)
+    o, lse = flash_ops.flash_fwd(q, k, v, True, window)
+    o_ref, lse_ref = attention_ref(q, k, v, True, window)
+    torch.testing.assert_close(o.float(), o_ref.float(), rtol=0, atol=2e-2)
+    torch.testing.assert_close(lse, lse_ref, rtol=0, atol=1e-3)
+
+
+class _Recording:
+    """A model module whose prefill/decode logits are kept (on the CPU)."""
+
+    def __init__(self, mod):
+        self.mod, self.logits = mod, []
+
+    def prefill(self, *a):
+        out = self.mod.prefill(*a)
+        self.logits.append(out[0].float().cpu())
+        return out
+
+    def decode_step(self, *a):
+        out = self.mod.decode_step(*a)
+        self.logits.append(out[0].float().cpu())
+        return out
+
+
+@pytest.mark.parametrize("arch", ["qwen2-7b", "mixtral-8x22b", "rwkv6-7b",
+                                  "hymba-1.5b"])
+def test_serve_engine_on_card_matches_cpu(card, arch):
+    """Five requests (prompts 40-80 tokens: the flash path above the smoke
+    threshold, hymba's window ring) at the smoke config in f32 through
+    ``ServeEngine`` on the card and on the CPU: the same tokens (f32
+    products in another order; a near-tie under 1e-3 would be allowed to
+    flip, and ends the comparison), logits within 1e-4, equal stats
+    counts, and the card's path through the kernels."""
+    from repro_torch.models import model_api
+    from repro_torch.serve.engine import ServeEngine
+    cfg = smoke_config(get_arch(arch))
+    p0 = T.tree_map(lambda t: t.float(), model_api.init_params(cfg, 0, "cpu"))
+    rng = np.random.default_rng(5)
+    prompts = [rng.integers(0, cfg.vocab, int(n)) for n in
+               rng.integers(40, 81, 5)]
+    runs = []
+    for dev in ("cpu", card):
+        eng = ServeEngine(cfg, T.tree_map(lambda t: t.to(dev), p0),
+                          device=dev)
+        eng.model = _Recording(eng.model)
+        for p in prompts:
+            eng.submit(p, 4)
+        before = (flash_ops.launches, wkv_ops.launches_u,
+                  wkv_ops.launches_ssd)
+        done = eng.run()
+        after = (flash_ops.launches, wkv_ops.launches_u,
+                 wkv_ops.launches_ssd)
+        runs.append((done, eng.stats, eng.model.logits,
+                     [a - b for a, b in zip(after, before)]))
+    (want, st0, lg0, _), (got, st1, lg1, launched) = runs
+    # a flash launch a layer for each batch whose longest prompt is over
+    # the threshold; a WKV launch a layer at prefill and at each of the
+    # 4 decode steps of both batches
+    L = cfg.n_layers
+    flash = L * sum(max(len(p) for p in prompts[b:b + 4])
+                    > cfg.attn_chunk_threshold for b in (0, 4))
+    wkv = L * 5 * 2
+    want_launch = {"dense": [flash, 0, 0], "moe": [flash, 0, 0],
+                   "rwkv": [0, wkv, 0],
+                   "hybrid": [flash, 0, wkv]}[cfg.family]
+    assert launched == want_launch
+    for key in ("prefill_tokens", "decode_steps", "requests"):
+        assert st1[key] == st0[key]
+    same = True
+    for i, (w, g) in enumerate(zip(want, got)):
+        for j, (a, b) in enumerate(zip(w.out, g.out)):
+            if a != b:
+                top2 = lg0[(i // 4) * 5 + j][i % 4].topk(2).values
+                assert float(top2[0] - top2[1]) < 1e-3, (i, j)
+                same = False
+                break
+    if same:
+        for a, b in zip(lg1, lg0):
+            torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-4)

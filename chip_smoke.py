@@ -19,11 +19,17 @@ in SSD form and the flash kernel with a 1024 window); and qwen2-7b under
 ``trimmed_mean`` and ``multi_krum`` (plain PyTorch combines; c3 dies in
 round 1); mixtral-8x22b (one layer: the MoE layer, flash with 6 q heads
 a kv head and a 4096 window) and internlm2-20b (two layers), both under
-Adafactor, their config's optimizer.  The kernels' launch counters, set to
-0 just before each run and read just after, show that each run went
-through its kernels.  Last, the ``resume`` phase checkpoints and resumes
-qwen2-7b's smoke config on the card, and ``resume_full`` saves and
-restores a hymba-1.5b state at published widths (depth cut to 2 layers).
+Adafactor, their config's optimizer; then two rounds of whisper-small
+(all layers: the encoder and the cross-attention through the flash kernel
+at 1500 frames, non-causal) and of internvl2-2b (16 of 24 layers, patches
+filling the front) through the round step itself.  The kernels' launch
+counters, set to 0 just before each run and read just after, show that
+each run went through its kernels.  Then the ``resume`` phase checkpoints
+and resumes qwen2-7b's smoke config on the card, ``resume_full`` saves
+and restores a hymba-1.5b state at published widths (depth cut to 2
+layers), and six serving cells (qwen2-7b, rwkv6-7b, hymba-1.5b,
+mixtral-8x22b at 4 layers, whisper-small, internvl2-2b) each serve 8
+requests through ``ServeEngine``.
 Each phase prints JSON lines; then one line lists every kernel, one line
 gives the card's name and power limit as nvidia-smi reports them, and the
 last line is ``{"ok": true, "device": ...}``.  Any failure raises and
@@ -72,6 +78,31 @@ def time_ms(torch, fn, iters: int, warmup: int = 1) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / iters
+
+
+# each kernel's launch counter: name -> (its ops module, the attribute)
+COUNTERS = {"fedavg": ("fedavg", "launches"),
+            "qagg": ("fedavg", "qagg_launches"),
+            "flash_fwd": ("flash_attn", "launches"),
+            "quantize": ("quant8", "quantize_launches"),
+            "dequantize": ("quant8", "dequantize_launches"),
+            "wkv6": ("wkv6", "launches_u"),
+            "ssm_scan": ("wkv6", "launches_ssd")}
+
+
+def _counter(name):
+    import importlib
+    mod, attr = COUNTERS[name]
+    return importlib.import_module(f"repro_torch.kernels.{mod}.ops"), attr
+
+
+def reset_launches():
+    for name in COUNTERS:
+        setattr(*_counter(name), 0)
+
+
+def read_launches(names=tuple(COUNTERS)):
+    return {name: getattr(*_counter(name)) for name in names}
 
 
 # --------------------------------------------------------------------------
@@ -620,10 +651,6 @@ def phase_train(torch, dev, phase, arch, n_layers, schedule="tree",
     from repro_torch.configs.base import get_arch
     from repro_torch.core import aggregation
     from repro_torch.ft.failures import FailurePlan
-    from repro_torch.kernels.fedavg import ops as fedavg_ops
-    from repro_torch.kernels.flash_attn import ops as flash_ops
-    from repro_torch.kernels.quant8 import ops as quant8_ops
-    from repro_torch.kernels.wkv6 import ops as wkv_ops
     from repro_torch.launch.train import SDFLMQTrainer
     from repro_torch.models import moe
 
@@ -665,24 +692,12 @@ def phase_train(torch, dev, phase, arch, n_layers, schedule="tree",
         live[0].start()
     else:
         tr.on_round_end = check_slots
-    fedavg_ops.launches = 0
-    fedavg_ops.qagg_launches = 0
-    flash_ops.launches = 0
-    quant8_ops.quantize_launches = 0
-    quant8_ops.dequantize_launches = 0
-    wkv_ops.launches_u = 0
-    wkv_ops.launches_ssd = 0
+    reset_launches()
     moe.reset_stats()
     metrics = tr.run()
     torch.cuda.synchronize()
     routing = moe.read_stats()
-    launches = {"fedavg": fedavg_ops.launches,
-                "qagg": fedavg_ops.qagg_launches,
-                "flash_fwd": flash_ops.launches,
-                "quantize": quant8_ops.quantize_launches,
-                "dequantize": quant8_ops.dequantize_launches,
-                "wkv6": wkv_ops.launches_u,
-                "ssm_scan": wkv_ops.launches_ssd}
+    launches = read_launches()
     for m in metrics:
         emit({"phase": f"{phase}_round", "round": m["round"], "loss": m["loss"],
               "time_s": m["time_s"], "tokens_per_s": m["tokens_per_s"],
@@ -777,6 +792,135 @@ def phase_train(torch, dev, phase, arch, n_layers, schedule="tree",
         raise AssertionError(f"quant8 launched in the round, which no path "
                              f"of the round should do: {launches}")
     del tr
+    return launches
+
+
+# phase, arch, depth (None: all layers), batch a client, seq: the
+# encoder-decoder and VLM rounds at published widths.  whisper-small at
+# full depth (0.279 B a client; 448 decoder tokens, Whisper's text context,
+# and 1500 frames from the seed); internvl2-2b cut to 16 of 24 layers
+# (1.39 B a client; the K = 4 bank and its AdamW moments come to about
+# 42 B a parameter, so 24 layers, 1.89 B, do not fit 80 GB)
+FRONTEND_TRAIN_CELLS = [
+    ("train_whisper", "whisper-small", None, 4, 448),
+    ("train_internvl2", "internvl2-2b", 16, 1, 2048),
+]
+# a two-level cluster tree over the K = 4 clients (level groups, heads)
+FRONTEND_TREE = ((((0, 1), (2, 3)), ((0, 1, 2, 3),)), ((1, 0, 1, 0),))
+
+
+def phase_train_frontend(torch, dev, phase, arch, n_layers, bpc, seq,
+                         profile=False):
+    """Two ``tree`` + fedavg rounds of an encoder-decoder or VLM cell
+    (adamw, K = 4, client weights 1..4) through ``fl_step.init_state`` and
+    ``build_fl_round_step``, each round's batch from ``inputs.make_batch``
+    (tokens, and frames or patches, from the seed), as the reference's
+    ``scripts/smoke_flstep.py`` drives its round step: the trainer feeds
+    tokens only.  A round is timed on the host clock from its batch to
+    ``float(loss)``, its aggregation between the round step's CUDA events;
+    with ``profile`` each round runs under ``torch.profiler``.  The launch
+    counters are set to 0 just before the rounds and read just after."""
+    import numpy as np
+    from repro_torch import tree as T
+    from repro_torch.configs.base import ShapeConfig, get_arch
+    from repro_torch.core.fl_step import build_fl_round_step, init_state
+    from repro_torch.core.topology import AggSchedule
+    from repro_torch.models import inputs
+
+    cfg = get_arch(arch)
+    reduced = []
+    if n_layers is not None:
+        reduced = [f"depth {n_layers} of {cfg.n_layers}"]
+        cfg = cfg.replace(n_layers=n_layers)
+    K, rounds = K_CLIENTS, ROUNDS
+    shape = ShapeConfig(phase, seq, K * bpc, "train")
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    state = init_state(cfg, K, seed=0, device=dev, total_steps=rounds)
+    step = build_fl_round_step(cfg, K, AggSchedule("tree", K, *FRONTEND_TREE),
+                               dev, total_steps=rounds)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    weights = np.arange(1.0, K + 1.0, dtype=np.float32)
+    n_leaves = len(T.leaves(state["params"]))
+    n_params = sum(t[0].numel() for t in T.leaves(state["params"]))
+    reset_launches()
+    metrics, identical, profiles = [], [], []
+    for r in range(rounds):
+        torch.cuda.synchronize()
+        prof = torch.profiler.profile(activities=[
+            torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]) if profile else None
+        if prof is not None:
+            prof.start()
+        t = time.perf_counter()
+        batch = inputs.make_batch(cfg, shape, r, clients=K, device=dev)
+        state, m = step(state, batch, weights)
+        loss = float(m["loss"])              # waits for the device
+        dt = time.perf_counter() - t
+        if prof is not None:
+            prof.stop()
+            profiles.append(summarize_profile(torch, prof, r, phase))
+        metrics.append({
+            "round": r, "loss": loss, "time_s": dt,
+            "tokens_per_s": K * bpc * seq * cfg.fl.local_steps / dt,
+            **{f"{k}_ms": a.elapsed_time(b)
+               for k, (a, b) in m["spans"].items()},
+            "max_memory_allocated": torch.cuda.max_memory_allocated(dev)})
+        identical.append(all(torch.equal(t_[k], t_[0])
+                             for t_ in T.leaves(state["params"])
+                             for k in range(1, K)))
+        del batch
+    torch.cuda.synchronize()
+    launches = read_launches()
+    for m in metrics:
+        emit({"phase": f"{phase}_round", **m})
+    fe = cfg.frontend
+    attn_layers = cfg.n_layers + cfg.n_enc_layers * (cfg.family == "encdec")
+    row = {"phase": phase, "schedule": "tree", "strategy": "fedavg",
+           "arch": cfg.name, "family": cfg.family, "n_layers": cfg.n_layers,
+           "n_enc_layers": cfg.n_enc_layers, "reduced": reduced,
+           "d_model": cfg.d_model, "n_heads": cfg.n_heads,
+           "n_kv_heads": cfg.n_kv_heads, "head_dim": cfg.head_dim,
+           "d_ff": cfg.d_ff, "vocab": cfg.vocab,
+           "frontend": {"kind": fe.kind, "n_tokens": fe.n_tokens,
+                        "feat_dim": fe.feat_dim},
+           "remat": cfg.remat, "optimizer": cfg.optimizer, "clients": K,
+           "batch_per_client": bpc, "seq": seq, "rounds": rounds,
+           "params_per_client": n_params, "leaves": n_leaves,
+           "init_s": init_s, "launches": launches,
+           "slots_identical_each_round": identical,
+           "peak_memory_allocated": torch.cuda.max_memory_allocated(dev)}
+    emit(row)
+    for prof, m in zip(profiles, metrics):
+        emit({"phase": f"{phase}_profile", "round": m["round"],
+              "round_s_profiled": m["time_s"],
+              "device_busy_share": prof["device_busy_s"] / m["time_s"],
+              **prof})
+    del state, step
+    losses = [m["loss"] for m in metrics]
+    if not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"{phase}: non-finite loss: {losses}")
+    if [sorted(k for k in m if k.endswith("_ms")) for m in metrics] \
+            != [["aggregate_ms"]] * rounds:
+        raise AssertionError(f"{phase}: spans {metrics}")
+    if identical != [True] * rounds:
+        raise AssertionError(f"{phase}: client slots differ: {identical}")
+    if row["peak_memory_allocated"] >= CARD_BYTES:
+        raise AssertionError(f"{phase}: peak {row['peak_memory_allocated']}")
+    # a flash launch an attention layer over more than 1024 keys (the
+    # encoder and the cross-attention over 1500 frames; internvl2's 2048
+    # tokens), client and round, the recompute under remat on top;
+    # fedavg a leaf a round; nothing else
+    floor = attn_layers * K * rounds
+    if launches["flash_fwd"] < floor or launches["fedavg"] != \
+            n_leaves * rounds or any(
+                n for k, n in launches.items()
+                if k not in ("flash_fwd", "fedavg")):
+        raise AssertionError(f"{phase}: launches {launches}; want flash >= "
+                             f"{floor}, fedavg {n_leaves * rounds}")
     return launches
 
 
@@ -984,12 +1128,20 @@ def phase_resume_full(torch, dev):
 
 
 # the kernel cases serving adds: the flash forward at batch 4 in each
-# model's head layout, the WKV with u and the SSD at T = 1 (chunk 1) with
-# a cached state (a decode step), and both at batch 4 over a prompt
-SERVE_FLASH_CASES = [  # name, B, S, H, Kv, hd, window
-    ("qwen2", 4, 2048, 28, 4, 128, None),
-    ("hymba", 4, 2048, 25, 5, 64, 1024),
-    ("mixtral", 4, 2048, 48, 8, 128, 4096),
+# model's head layout (whisper-small's encoder, cross-attention over its
+# 1500 frames in training and prefill, and at one query in a decode step:
+# non-causal, a key length ragged against the 64-key tile; internvl2-2b at
+# batch 1 and 4), the WKV with u and the SSD at T = 1 (chunk 1) with a
+# cached state (a decode step), and both at batch 4 over a prompt
+SERVE_FLASH_CASES = [  # name, B, Sq, Sk, H, Kv, hd, causal, window
+    ("qwen2", 4, 2048, 2048, 28, 4, 128, True, None),
+    ("hymba", 4, 2048, 2048, 25, 5, 64, True, 1024),
+    ("mixtral", 4, 2048, 2048, 48, 8, 128, True, 4096),
+    ("whisper_encoder", 4, 1500, 1500, 12, 12, 64, False, None),
+    ("whisper_cross", 4, 448, 1500, 12, 12, 64, False, None),
+    ("whisper_decode_cross", 4, 1, 1500, 12, 12, 64, False, None),
+    ("internvl2_b1", 1, 2048, 2048, 16, 8, 128, True, None),
+    ("internvl2", 4, 2048, 2048, 16, 8, 128, True, None),
 ]
 SERVE_WKV_CASES = [
     ("decode_rwkv6", 4, 1, 64, 64, 64, 1, True, False, True, "bfloat16"),
@@ -1002,41 +1154,45 @@ SERVE_WKV_CASES = [
 
 
 def phase_serve_kernels(torch, dev):
-    """The kernel cases that serving adds, each against its plain version
-    on the card and timed beside it, its bound and, for flash,
-    ``scaled_dot_product_attention``: flash at B = 4 and S = 2048 in the
-    three head layouts (bf16 tolerance as ``phase_flash``), and the WKV
-    kernel at serving's shapes (``phase_wkv``'s tolerance)."""
+    """The kernel cases that serving and the encoder-decoder and VLM
+    families add, each against its plain version on the card and timed
+    beside it, its bound and, for flash, ``scaled_dot_product_attention``:
+    flash at ``SERVE_FLASH_CASES`` (bf16 tolerance as ``phase_flash``), and
+    the WKV kernel at serving's shapes (``phase_wkv``'s tolerance)."""
     import torch.nn.functional as F
     from repro_torch.kernels.flash_attn import ops
     from repro_torch.kernels.flash_attn.ref import attention_ref
     gen = torch.Generator(device=dev).manual_seed(7)
     flash = {}
-    for name, B, S, H, Kv, hd, window in SERVE_FLASH_CASES:
+    for name, B, Sq, Sk, H, Kv, hd, causal, window in SERVE_FLASH_CASES:
         mk = lambda *s: torch.randn(s, generator=gen, device=dev,
                                     dtype=torch.bfloat16)
-        q, k, v = mk(B, S, H, hd), mk(B, S, Kv, hd), mk(B, S, Kv, hd)
-        o, lse = ops.flash_fwd(q, k, v, True, window)
-        o_ref, lse_ref = attention_ref(q, k, v, True, window)
+        q, k, v = mk(B, Sq, H, hd), mk(B, Sk, Kv, hd), mk(B, Sk, Kv, hd)
+        o, lse = ops.flash_fwd(q, k, v, causal, window)
+        o_ref, lse_ref = attention_ref(q, k, v, causal, window)
         torch.cuda.synchronize()
         o_err = float((o.float() - o_ref.float()).abs().max())
         lse_err = float((lse - lse_ref).abs().max())
-        flops = _flash_flops(B, S, S, H, hd, True, window)
+        flops = _flash_flops(B, Sq, Sk, H, hd, causal, window)
         nbytes = (q.numel() + k.numel() + v.numel() + o.numel()) * 2 \
             + lse.numel() * 4
         bound_ms = max(flops / PEAK_BF16_FLOP_S, nbytes / PEAK_BYTES_S) * 1e3
         qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
-        pos = torch.arange(S, device=dev)
-        keep = (pos[:, None] >= pos[None, :]) & (
-            (pos[:, None] - pos[None, :] < window) if window
-            else torch.ones((), dtype=torch.bool, device=dev))
-        ms = time_ms(torch, lambda: ops.flash_fwd(q, k, v, True, window), 10)
-        row = {"case": f"flash_{name}", "shape_q": [B, S, H, hd],
-               "shape_kv": [B, S, Kv, hd], "window": window,
+        keep = None
+        if causal:
+            qp, kp = torch.arange(Sq, device=dev), torch.arange(Sk, device=dev)
+            keep = (qp[:, None] >= kp[None, :]) & (
+                (qp[:, None] - kp[None, :] < window) if window
+                else torch.ones((), dtype=torch.bool, device=dev))
+        ms = time_ms(torch, lambda: ops.flash_fwd(q, k, v, causal, window),
+                     10)
+        row = {"case": f"flash_{name}", "shape_q": [B, Sq, H, hd],
+               "shape_kv": [B, Sk, Kv, hd], "causal": causal,
+               "window": window,
                "o_max_abs_err": o_err, "lse_max_abs_err": lse_err,
                "o_tol": 2e-2, "lse_tol": 1e-3, "kernel_ms": ms,
                "plain_ms": time_ms(
-                   torch, lambda: attention_ref(q, k, v, True, window), 2),
+                   torch, lambda: attention_ref(q, k, v, causal, window), 2),
                "library_ms": time_ms(
                    torch, lambda: F.scaled_dot_product_attention(
                        qt, kt, vt, attn_mask=keep, enable_gqa=True), 10),
@@ -1046,7 +1202,7 @@ def phase_serve_kernels(torch, dev):
                "bound_share": bound_ms / ms}
         emit({"phase": "serve_flash", **row})
         if o_err > 2e-2 or lse_err > 1e-3:
-            raise AssertionError(f"flash kernel disagrees at batch 4: {row}")
+            raise AssertionError(f"flash kernel disagrees: {row}")
         flash[name] = row
         del q, k, v, o, lse, o_ref, lse_ref, qt, kt, vt
         torch.cuda.empty_cache()
@@ -1054,16 +1210,19 @@ def phase_serve_kernels(torch, dev):
     return flash, wkv
 
 
-# phase, arch, layers: published widths and depth, but mixtral-8x22b, cut
-# to 4 of its 56 layers (all 56 hold 281 GB of bf16 weights)
-SERVE_CELLS = [
-    ("serve_qwen2", "qwen2-7b", None),
-    ("serve_rwkv6", "rwkv6-7b", None),
-    ("serve_hymba", "hymba-1.5b", None),
-    ("serve_mixtral", "mixtral-8x22b", 4),
-]
 SERVE_REQUESTS, SERVE_BATCH, SERVE_MAX_NEW = 8, 4, 32
 SERVE_PROMPT = (1536, 2048)        # prompt lengths, drawn from the seed
+# phase, arch, layers, prompt lengths, max_seq: published widths and
+# depth, but mixtral-8x22b, cut to 4 of its 56 layers (all 56 hold 281 GB
+# of bf16 weights); whisper-small's prompts fit its 448-token text context
+SERVE_CELLS = [
+    ("serve_qwen2", "qwen2-7b", None, SERVE_PROMPT, None),
+    ("serve_rwkv6", "rwkv6-7b", None, SERVE_PROMPT, None),
+    ("serve_hymba", "hymba-1.5b", None, SERVE_PROMPT, None),
+    ("serve_mixtral", "mixtral-8x22b", 4, SERVE_PROMPT, None),
+    ("serve_whisper", "whisper-small", None, (4, 224), 448),
+    ("serve_internvl2", "internvl2-2b", None, SERVE_PROMPT, None),
+]
 SERVE_PROFILE_STEPS = 8
 # The bf16 check of the cache path against the parallel path, in relative
 # L2 of a logit row, ||a - b|| / ||b||: at 28-32 layers of random weights
@@ -1085,10 +1244,11 @@ def _logit_err(torch, got, want):
 
 
 def _serve_check(torch, dev, cfg, params, params32, prompt, layouts,
-                 fault=None):
-    """One request through prefill on the card, then one decode step from
-    each cache layout in ``layouts`` ({name: fn(cache, S) -> cache}, each
-    given its own copy of the prefilled cache).  -> {"prefill": prefill's
+                 fault=None, extra=None):
+    """One request through prefill on the card (with the frontend inputs
+    in ``extra``, if any), then one decode step from each cache layout in
+    ``layouts`` ({name: fn(cache, S) -> cache}, each given its own copy of
+    the prefilled cache).  -> {"prefill": prefill's
     logits against bf16 ``forward`` over the same S tokens, "noise": bf16
     ``forward`` over S + 1 tokens against the f32 one at position S,
     "decode": {name: the step against the f32 ``forward``}, "held": every
@@ -1098,8 +1258,9 @@ def _serve_check(torch, dev, cfg, params, params32, prompt, layouts,
     with torch.inference_mode():
         toks = torch.from_numpy(prompt[None].astype("int32")).to(dev)
         S = toks.shape[1]
-        plog, cache = mod.prefill(cfg, params, {"tokens": toks})
-        flog = mod.forward(cfg, params, {"tokens": toks})[0][:, -1]
+        extra = extra or {}
+        plog, cache = mod.prefill(cfg, params, {"tokens": toks, **extra})
+        flog = mod.forward(cfg, params, {"tokens": toks, **extra})[0][:, -1]
         pre = _logit_err(torch, plog, flog)
         del flog
         tok = plog.argmax(-1).to(torch.int32)[:, None]
@@ -1111,7 +1272,7 @@ def _serve_check(torch, dev, cfg, params, params32, prompt, layouts,
             decoded[name] = mod.decode_step(cfg, params, copy, batch)[0]
             del copy
         del cache
-        ext = {"tokens": torch.cat([toks, tok], dim=1)}
+        ext = {"tokens": torch.cat([toks, tok], dim=1), **extra}
         f16 = mod.forward(cfg, params, ext)[0][:, -1]
         f32 = mod.forward(cfg, params32, ext)[0][:, -1]
     noise = _logit_err(torch, f16, f32)
@@ -1177,7 +1338,8 @@ def _profile_decode(torch, dev, engine, prompts):
         toks[i, S - len(p):] = p
     with torch.inference_mode():
         logits, cache = mod.prefill(cfg, engine.params,
-                                    {"tokens": torch.from_numpy(toks).to(dev)})
+                                    {"tokens": torch.from_numpy(toks).to(dev),
+                                     **engine._extra_inputs(B, S)})
         if cfg.window is None and cfg.family != "rwkv":
             cache = kvc.pad_cache(cache, S + SERVE_PROFILE_STEPS + 2)
         cur = logits.argmax(-1).to(torch.int32)
@@ -1209,12 +1371,14 @@ def _profile_decode(torch, dev, engine, prompts):
                                for e in top]}
 
 
-def phase_serve(torch, dev, phase, arch, n_layers):
-    """Eight requests (prompts of 1536-2048 tokens from the seed, 32 new
-    tokens each) through ``ServeEngine`` at batch 4, two batches, on bf16
-    weights at published widths from a seed.  ``max_seq`` holds the
-    longest prompt and its new tokens, so a full-attention cache is grown
-    and never wraps.  The launch counters are set to 0 just before the
+def phase_serve(torch, dev, phase, arch, n_layers, prompt_lens=SERVE_PROMPT,
+                max_seq=None):
+    """Eight requests (prompts of ``prompt_lens`` tokens from the seed, 32
+    new tokens each) through ``ServeEngine`` at batch 4, two batches, on
+    bf16 weights at published widths from a seed; whisper-small and
+    internvl2-2b get the engine's stub inputs (zero frames or patches, as
+    the reference's engine).  ``max_seq`` (by default the longest prompt
+    and its new tokens) keeps a full-attention cache from wrapping.  The launch counters are set to 0 just before the
     engine runs and read just after; then the decode steps are profiled,
     and one request is checked through prefill and one decode step against
     ``forward`` (``_serve_check``; the tolerance is SERVE_NOISE_FACTOR
@@ -1227,13 +1391,14 @@ def phase_serve(torch, dev, phase, arch, n_layers):
     f32 (``_fault_size``).  mixtral is checked with a capacity factor of
     E / top_k (no assignment dropped, as at decode: forward's drops would
     differ from decode's), padded; R4's size is the step from the
-    unpadded cache the engine leaves against the padded one."""
+    unpadded cache the engine leaves against the padded one.  whisper and
+    internvl2 are checked with random frames or patches from the seed (zero
+    ones project to exactly 0 at zero-initialised biases and would leave
+    the encoder, the cross-attention and the injection unchecked)."""
     import dataclasses
     import numpy as np
     from repro_torch import tree as T
     from repro_torch.configs.base import get_arch
-    from repro_torch.kernels.flash_attn import ops as flash_ops
-    from repro_torch.kernels.wkv6 import ops as wkv_ops
     from repro_torch.models import model_api, moe
     from repro_torch.serve.engine import ServeEngine
 
@@ -1251,16 +1416,23 @@ def phase_serve(torch, dev, phase, arch, n_layers):
     init_s = time.perf_counter() - t0
     weights = T.leaves(params)
     weight_bytes = sum(t.numel() * t.element_size() for t in weights)
+    # what a decode step reads: every weight but the encoder's and the
+    # patch projection, and (encoder-decoder) the batch's cross cache
+    nbytes = lambda t: t.numel() * t.element_size()
+    step_bytes = sum(nbytes(t) for path, t in T.leaves_with_path(params)
+                     if path[0] not in ("enc_in", "enc_layers", "enc_norm",
+                                        "vis_proj"))
+    if cfg.family == "encdec":
+        step_bytes += 2 * 2 * cfg.n_layers * SERVE_BATCH \
+            * cfg.frontend.n_tokens * cfg.n_kv_heads * cfg.head_dim
     rng = np.random.default_rng(0)
-    lens = rng.integers(SERVE_PROMPT[0], SERVE_PROMPT[1] + 1, SERVE_REQUESTS)
+    lens = rng.integers(prompt_lens[0], prompt_lens[1] + 1, SERVE_REQUESTS)
     prompts = [rng.integers(0, cfg.vocab, int(n)).astype(np.int32)
                for n in lens]
     engine = ServeEngine(cfg, params, batch_size=SERVE_BATCH,
-                         max_seq=SERVE_PROMPT[1] + SERVE_MAX_NEW + 1,
+                         max_seq=max_seq or prompt_lens[1] + SERVE_MAX_NEW + 1,
                          device=dev)
-    flash_ops.launches = 0
-    wkv_ops.launches_u = 0
-    wkv_ops.launches_ssd = 0
+    reset_launches()
     moe.reset_stats()
     batches, done = [], []
     for b in range(0, SERVE_REQUESTS, SERVE_BATCH):
@@ -1272,12 +1444,11 @@ def phase_serve(torch, dev, phase, arch, n_layers):
                         ("prefill_tokens", "prefill_s", "decode_steps",
                          "decode_s")})
     torch.cuda.synchronize()
-    launches = {"flash_fwd": flash_ops.launches, "wkv6": wkv_ops.launches_u,
-                "ssm_scan": wkv_ops.launches_ssd}
+    launches = read_launches(("flash_fwd", "wkv6", "ssm_scan"))
     moe_calls = moe.read_stats()["calls"]
     peak = torch.cuda.max_memory_allocated(dev)
     st = engine.stats
-    bound_ms = weight_bytes / PEAK_BYTES_S * 1e3
+    bound_ms = step_bytes / PEAK_BYTES_S * 1e3
     decode_ms = st["decode_s"] / st["decode_steps"] * 1e3
     profile = _profile_decode(torch, dev, engine, prompts[:SERVE_BATCH])
 
@@ -1308,6 +1479,15 @@ def phase_serve(torch, dev, phase, arch, n_layers):
                        "bf16": _logit_err(torch, dec["as_is"], dec["padded"]),
                        "f32": _fault_size(torch, dev, nodrop, params32,
                                           prompts[0], _padded)}
+    elif cfg.frontend is not None:
+        fe, gen = cfg.frontend, torch.Generator(device=dev).manual_seed(9)
+        name, n = (("frames", fe.n_tokens) if cfg.family == "encdec"
+                   else ("patches", min(fe.n_tokens, len(prompts[0]))))
+        extra = {name: torch.randn((1, n, fe.feat_dim), generator=gen,
+                                   device=dev).to(torch.bfloat16)}
+        checks["request0"], _ = _serve_check(
+            torch, dev, cfg, params, params32, prompts[0],
+            {"engine": _padded}, extra=extra)
     else:
         layout = _as_is if cfg.family == "rwkv" else _padded
         checks["request0"], _ = _serve_check(
@@ -1319,8 +1499,13 @@ def phase_serve(torch, dev, phase, arch, n_layers):
     L = cfg.n_layers
     steps_per_batch = SERVE_MAX_NEW
     n_batches = len(batches)
-    attn_layers = L if cfg.family in ("dense", "moe", "hybrid") else 0
-    want = {"flash_fwd": attn_layers * n_batches,
+    # a flash launch a layer over more than 1024 keys: every prefill
+    # layer; whisper's encoder and cross layers (1500 frames) at prefill
+    # and its cross layers at each decode step, its decoder's
+    # self-attention (at most 257 keys) being quadratic
+    flash = {"dense": L, "moe": L, "hybrid": L, "vlm": L,
+             "encdec": cfg.n_enc_layers + L * (1 + steps_per_batch)}
+    want = {"flash_fwd": flash.get(cfg.family, 0) * n_batches,
             "wkv6": L * (1 + steps_per_batch) * n_batches
             if cfg.family == "rwkv" else 0,
             "ssm_scan": L * (1 + steps_per_batch) * n_batches
@@ -1330,7 +1515,7 @@ def phase_serve(torch, dev, phase, arch, n_layers):
     row = {"phase": phase, "arch": cfg.name, "family": cfg.family,
            "n_layers": L, "reduced": reduced, "d_model": cfg.d_model,
            "vocab": cfg.vocab, "window": cfg.window,
-           "requests": SERVE_REQUESTS, "batch": SERVE_BATCH,
+           "max_seq": engine.max_seq, "requests": SERVE_REQUESTS, "batch": SERVE_BATCH,
            "max_new": SERVE_MAX_NEW, "prompt_lens": [int(n) for n in lens],
            "params": sum(t.numel() for t in weights),
            "weight_bytes": weight_bytes, "init_s": init_s,
@@ -1341,7 +1526,7 @@ def phase_serve(torch, dev, phase, arch, n_layers):
                b["decode_s"] / b["decode_steps"] * 1e3 for b in batches],
            "decode_tokens_s": SERVE_BATCH * st["decode_steps"]
            / st["decode_s"],
-           "decode_bound_ms": bound_ms,
+           "decode_bound_ms": bound_ms, "decode_step_bytes": step_bytes,
            "decode_bound_share": bound_ms / decode_ms,
            "peak_memory_allocated": peak, "launches": launches,
            "moe_calls": moe_calls, "stats": st,
@@ -1452,11 +1637,15 @@ def main(argv=None) -> int:
         for k, n in phase_train(torch, dev, phase, arch, n_layers, schedule,
                                 strategy, fail_at, args.profile).items():
             launches[k] = launches.get(k, 0) + n
+    for cell in FRONTEND_TRAIN_CELLS:
+        for k, n in phase_train_frontend(torch, dev, *cell,
+                                         args.profile).items():
+            launches[k] = launches.get(k, 0) + n
     phase_resume(torch, dev)
     phase_resume_full(torch, dev)
     phase_serve_kernels(torch, dev)
-    for phase, arch, n_layers in SERVE_CELLS:
-        for k, n in phase_serve(torch, dev, phase, arch, n_layers).items():
+    for cell in SERVE_CELLS:
+        for k, n in phase_serve(torch, dev, *cell).items():
             launches[k] = launches.get(k, 0) + n
     emit({"kernels": kernel_rows(fed, flash, qagg, quant8, wkv, launches)})
     print(smi, flush=True)

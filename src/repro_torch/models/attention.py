@@ -48,17 +48,17 @@ def attention_decl(d_model: int, n_heads: int, n_kv: int, head_dim: int,
     return d
 
 
-def _proj(x, w):
-    """x (B,S,D) @ w (D,H,hd) -> (B,S,H,hd)."""
+def project_heads(x, w):
+    """x (B,S,D) @ w (D,H,hd) -> (B,S,H,hd), no bias and no RoPE."""
     D, H, hd = w.shape
     return (x @ w.reshape(D, H * hd)).reshape(*x.shape[:-1], H, hd)
 
 
 def project_qkv(params, x, positions, theta: float, *, apply_rope: bool = True):
     """x: (B, S, D) -> q (B,S,H,hd), k/v (B,S,K,hd)."""
-    q = _proj(x, params["wq"])
-    k = _proj(x, params["wk"])
-    v = _proj(x, params["wv"])
+    q = project_heads(x, params["wq"])
+    k = project_heads(x, params["wk"])
+    v = project_heads(x, params["wv"])
     if "bq" in params:
         q = q + params["bq"].to(q.dtype)
         k = k + params["bk"].to(k.dtype)

@@ -1,6 +1,8 @@
-"""Decoder-only backbone, dense and MoE families: optional leading dense
-layers (Kimi-K2 ``first_k_dense``), GQA attention with optional sliding
-window and QKV bias, RoPE, SwiGLU or MoE FFN, vocab-parallel logits.
+"""Decoder-only backbone, dense, MoE and VLM families: optional leading
+dense layers (Kimi-K2 ``first_k_dense``), optional visual token injection
+(InternVL2: projected patch embeddings fill the leading positions), GQA
+attention with optional sliding window and QKV bias, RoPE, SwiGLU or MoE
+FFN, vocab-parallel logits.
 
 Three entry points: ``forward`` (train), ``prefill`` (last-token logits
 and a filled KV cache) and ``decode_step`` (one token against the cache,
@@ -9,8 +11,6 @@ which it updates in place).
 The reference's ``lax.scan`` over stacked layer parameters becomes a loop
 over the layer index on views of the stacked ``(L, ...)`` leaves, and
 ``cfg.remat`` becomes ``torch.utils.checkpoint`` per layer in training.
-
-VLM layers wait for a later slice.
 """
 from __future__ import annotations
 
@@ -19,20 +19,13 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch import tree as T
 from repro_torch.configs.base import ArchConfig
-from repro_torch.dist.sharding import stack
+from repro_torch.dist.sharding import decl, stack
 from repro_torch.models import attention as attn
 from repro_torch.models import kvcache as kvc
 from repro_torch.models.layers import (embed_decl, embed_lookup, logits_out,
                                        rmsnorm, rmsnorm_decl, swiglu,
                                        swiglu_decl)
 from repro_torch.models.moe import moe_apply, moe_decl
-
-
-def _check_family(cfg: ArchConfig):
-    if cfg.family not in ("dense", "moe"):
-        raise NotImplementedError(
-            f"family {cfg.family!r} is not ported yet: the decoder takes the "
-            "dense and MoE families (see ROADMAP.md)")
 
 
 # --------------------------------------------------------------------------
@@ -60,7 +53,6 @@ def n_dense_layers(cfg: ArchConfig) -> int:
 
 
 def param_decls(cfg: ArchConfig):
-    _check_family(cfg)
     decls = {
         "embed": embed_decl(cfg.vocab, cfg.d_model),
         "final_norm": rmsnorm_decl(cfg.d_model),
@@ -70,6 +62,12 @@ def param_decls(cfg: ArchConfig):
         decls["dense_layers"] = stack(_layer_decl(cfg, "dense"), nd)
     kind = "moe" if cfg.moe else "dense"
     decls["layers"] = stack(_layer_decl(cfg, kind), cfg.n_layers - nd)
+    if cfg.family == "vlm":
+        fe = cfg.frontend
+        decls["vis_proj"] = {
+            "w": decl((fe.feat_dim, cfg.d_model), ("mlp", "embed")),
+            "norm": rmsnorm_decl(fe.feat_dim),
+        }
     return decls
 
 
@@ -120,6 +118,28 @@ def _apply_layer_decode(cfg: ArchConfig, lp, x, k_l, v_l, kv_pos, pos,
     return x + y
 
 
+# --------------------------------------------------------------------------
+# Embedding (with optional modality injection)
+# --------------------------------------------------------------------------
+
+def _embed_inputs(cfg: ArchConfig, params, batch):
+    """Token embeddings; for the VLM family the RMS-normed, projected
+    ``patches`` (B, n, feat_dim) replace the first n positions.  The
+    projection runs in the weight's dtype (the reference's einsum promotes
+    bf16 patches against f32 weights) and lands in the embedding's."""
+    x = embed_lookup(params["embed"], batch["tokens"])
+    if cfg.family == "vlm" and "patches" in batch:
+        vp = params["vis_proj"]
+        vis = rmsnorm(vp["norm"], batch["patches"], cfg.norm_eps)
+        vis = (vis.to(vp["w"].dtype) @ vp["w"]).to(x.dtype)
+        x = torch.cat([vis, x[:, vis.shape[1]:]], dim=1)
+    return x
+
+
+# --------------------------------------------------------------------------
+# Entry points
+# --------------------------------------------------------------------------
+
 def _stacks(cfg: ArchConfig, params):
     """[(stacked layer params, kind)] in layer order: Kimi's leading dense
     layers, then the uniform stack."""
@@ -127,7 +147,7 @@ def _stacks(cfg: ArchConfig, params):
     return out + [(params["layers"], "moe" if cfg.moe else "dense")]
 
 
-def _layer_views(stacked):
+def layer_views(stacked):
     """Each layer's parameters, as views of the stacked leaves."""
     for i in range(T.leaves(stacked)[0].shape[0]):
         yield T.tree_map(lambda a: a[i], stacked)
@@ -136,7 +156,7 @@ def _layer_views(stacked):
 def _layers(cfg: ArchConfig, params):
     """(layer params, kind) of every layer in order."""
     for stacked, kind in _stacks(cfg, params):
-        for lp in _layer_views(stacked):
+        for lp in layer_views(stacked):
             yield lp, kind
 
 
@@ -144,7 +164,7 @@ def _run_layers(cfg: ArchConfig, stacked, x, positions, kind: str):
     """The layers of one stack in order -> (x, their auxiliary losses
     summed from 0, in layer order, as the reference's scan carries it)."""
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    for lp in _layer_views(stacked):
+    for lp in layer_views(stacked):
         if cfg.remat:
             x, a = checkpoint(_apply_layer, cfg, lp, x, positions, kind,
                               use_reentrant=False)
@@ -156,8 +176,7 @@ def _run_layers(cfg: ArchConfig, stacked, x, positions, kind: str):
 
 def forward(cfg: ArchConfig, params, batch):
     """Full-sequence forward -> (logits (B,S,V), aux_loss)."""
-    _check_family(cfg)
-    x = embed_lookup(params["embed"], batch["tokens"])
+    x = _embed_inputs(cfg, params, batch)
     positions = torch.arange(x.shape[1], dtype=torch.int32, device=x.device)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for stacked, kind in _stacks(cfg, params):
@@ -169,8 +188,7 @@ def forward(cfg: ArchConfig, params, batch):
 
 def prefill(cfg: ArchConfig, params, batch):
     """-> (last-token logits (B,V), cache {k, v (L,B,S,K,hd), kv_pos})."""
-    _check_family(cfg)
-    x = embed_lookup(params["embed"], batch["tokens"])
+    x = _embed_inputs(cfg, params, batch)
     B, S = x.shape[0], x.shape[1]
     positions = torch.arange(S, dtype=torch.int32, device=x.device)
     shape = (cfg.n_layers, B, S, cfg.n_kv_heads, cfg.head_dim)
@@ -187,7 +205,6 @@ def prefill(cfg: ArchConfig, params, batch):
 def decode_step(cfg: ArchConfig, params, cache, batch):
     """batch: {"token": (B,1) int32, "pos": (B,) int32} -> (logits (B,V),
     cache).  The cache's tensors are updated in place and returned."""
-    _check_family(cfg)
     token, pos = batch["token"], batch["pos"]
     x = embed_lookup(params["embed"], token)
     cache_len = cache["k"].shape[2]

@@ -1,7 +1,4 @@
-"""Shared neural-net building blocks (plain PyTorch, decl-based params).
-
-The GELU MLP waits for the encoder-decoder slice.
-"""
+"""Shared neural-net building blocks (plain PyTorch, decl-based params)."""
 from __future__ import annotations
 
 import torch
@@ -77,6 +74,23 @@ def swiglu(params, x):
     u = x @ params["w_up"]
     h = torch.nn.functional.silu(g.float()).to(x.dtype) * u
     return h @ params["w_down"]
+
+
+def gelu_mlp_decl(d_model: int, d_ff: int):
+    return {
+        "w_in": decl((d_model, d_ff), ("embed", "mlp")),
+        "b_in": decl((d_ff,), ("mlp",), init="zeros", dtype=torch.float32),
+        "w_out": decl((d_ff, d_model), ("mlp", "embed")),
+        "b_out": decl((d_model,), (None,), init="zeros", dtype=torch.float32),
+    }
+
+
+def gelu_mlp(params, x):
+    """``jax.nn.gelu``'s default is the tanh approximation (PyTorch's is
+    erf), computed in f32; the f32 biases are cast to x's dtype."""
+    h = x @ params["w_in"] + params["b_in"].to(x.dtype)
+    h = torch.nn.functional.gelu(h.float(), approximate="tanh").to(x.dtype)
+    return h @ params["w_out"] + params["b_out"].to(x.dtype)
 
 
 # --------------------------------------------------------------------------

@@ -7,8 +7,8 @@ Every family module exposes:
     decode_step(cfg, params, cache, batch) -> (logits (B,V), cache), the
         cache updated in place
     cache_decl(cfg, batch, cache_len) -> ParamDecl tree
-Ported: the decoder (``dense`` and ``moe``), RWKV6 (``rwkv``) and the
-Hymba hybrid (``hybrid``); VLM and encoder-decoder wait for their slices.
+The decoder takes the ``dense``, ``moe`` and ``vlm`` families; ``encdec``
+is the encoder-decoder, ``rwkv`` RWKV6 and ``hybrid`` Hymba.
 """
 from __future__ import annotations
 
@@ -16,16 +16,19 @@ import torch
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.dist import sharding as shd
-from repro_torch.models import decoder, hybrid, rwkv6
+from repro_torch.models import decoder, encdec, hybrid, rwkv6
 
-_FAMILY = {"dense": decoder, "moe": decoder, "rwkv": rwkv6,
-           "hybrid": hybrid}
+_FAMILY = {
+    "dense": decoder,
+    "moe": decoder,
+    "vlm": decoder,
+    "encdec": encdec,
+    "rwkv": rwkv6,
+    "hybrid": hybrid,
+}
 
 
 def get_model(cfg: ArchConfig):
-    if cfg.family not in _FAMILY:
-        raise NotImplementedError(
-            f"family {cfg.family!r} is not ported yet (see ROADMAP.md)")
     return _FAMILY[cfg.family]
 
 

@@ -62,10 +62,18 @@ class ServeEngine:
         return r
 
     def _extra_inputs(self, B, S):
-        if self.cfg.family in ("encdec", "vlm"):
-            raise NotImplementedError(
-                f"family {self.cfg.family!r} is not ported yet: its frontend "
-                "inputs wait for the encoder-decoder and VLM slice")
+        """The frontend stub's inputs, zeros in bf16 as in the reference:
+        frames for the encoder-decoder, patches filling up to S positions
+        for the VLM."""
+        fe = self.cfg.frontend
+
+        def zeros(*shape):
+            return torch.zeros(shape, dtype=torch.bfloat16,
+                               device=self.device)
+        if self.cfg.family == "encdec":
+            return {"frames": zeros(B, fe.n_tokens, fe.feat_dim)}
+        if self.cfg.family == "vlm":
+            return {"patches": zeros(B, min(fe.n_tokens, S), fe.feat_dim)}
         return {}
 
     def run(self) -> list[Request]:

@@ -83,3 +83,22 @@ def assert_within_bf16_ulp(got, want, n=1):
     bad = err > n * bf16_ulp(want)
     assert not bad.any(), (f"{bad.sum()} elements beyond {n} bf16 ulp; "
                            f"max err {err.max()}")
+
+
+def bf16_normal(shape, seed):
+    """Standard normal f32 values rounded to bf16 (exact in both packages'
+    bf16): the frontend stub's frames and patches."""
+    x = np.random.default_rng(seed).standard_normal(shape).astype(np.float32)
+    return np.asarray(jnp.asarray(x, jnp.bfloat16), np.float32)
+
+
+def as_jax(batch):
+    """numpy batch -> jax arrays; frontend embeddings as bf16."""
+    return {k: jnp.asarray(v, jnp.bfloat16 if v.dtype == np.float32
+                           else None) for k, v in batch.items()}
+
+
+def as_torch(batch):
+    """numpy batch -> CPU tensors; frontend embeddings as bf16."""
+    return {k: torch.from_numpy(v).to(torch.bfloat16 if v.dtype == np.float32
+                                      else None) for k, v in batch.items()}

@@ -640,11 +640,13 @@ class _Recording:
 
 
 @pytest.mark.parametrize("arch", ["qwen2-7b", "mixtral-8x22b", "rwkv6-7b",
-                                  "hymba-1.5b"])
+                                  "hymba-1.5b", "whisper-small",
+                                  "internvl2-2b"])
 def test_serve_engine_on_card_matches_cpu(card, arch):
     """Five requests (prompts 40-80 tokens: the flash path above the smoke
     threshold, hymba's window ring) at the smoke config in f32 through
-    ``ServeEngine`` on the card and on the CPU: the same tokens (f32
+    ``ServeEngine`` (whisper-small and internvl2-2b with the engine's
+    zero frames or patches) on the card and on the CPU: the same tokens (f32
     products in another order; a near-tie under 1e-3 would be allowed to
     flip, and ends the comparison), logits within 1e-4, equal stats
     counts, and the card's path through the kernels."""
@@ -677,7 +679,10 @@ def test_serve_engine_on_card_matches_cpu(card, arch):
     flash = L * sum(max(len(p) for p in prompts[b:b + 4])
                     > cfg.attn_chunk_threshold for b in (0, 4))
     wkv = L * 5 * 2
+    # (whisper's 8 smoke frames and its decode steps stay quadratic: only
+    # its decoder's self-attention at prefill is over the threshold)
     want_launch = {"dense": [flash, 0, 0], "moe": [flash, 0, 0],
+                   "vlm": [flash, 0, 0], "encdec": [flash, 0, 0],
                    "rwkv": [0, wkv, 0],
                    "hybrid": [flash, 0, wkv]}[cfg.family]
     assert launched == want_launch
@@ -694,3 +699,94 @@ def test_serve_engine_on_card_matches_cpu(card, arch):
     if same:
         for a, b in zip(lg1, lg0):
             torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-4)
+
+
+# the encoder-decoder and VLM families' shapes: whisper-small's encoder
+# (non-causal, 1500 keys: ragged against the 64-key tile), cross-attention
+# over the 1500 frames from 448 decoder tokens and from one (a decode
+# step), and internvl2-2b's causal GQA 16/8 at hd 128 over 2048 tokens
+FRONTEND_FLASH_CASES = [  # (B, Sq, Sk, H, Kv, hd, causal)
+    (4, 1500, 1500, 12, 12, 64, False),
+    (4, 448, 1500, 12, 12, 64, False),
+    (4, 1, 1500, 12, 12, 64, False),
+    (1, 2048, 2048, 16, 8, 128, True),
+    (4, 2048, 2048, 16, 8, 128, True),
+]
+
+
+@pytest.mark.parametrize("B,Sq,Sk,H,Kv,hd,causal", FRONTEND_FLASH_CASES)
+def test_flash_kernel_at_encdec_and_vlm_shapes_matches_plain(
+        card, B, Sq, Sk, H, Kv, hd, causal):
+    rng = np.random.default_rng(Sq + Sk + H)
+    q = _normal(rng, (B, Sq, H, hd), torch.bfloat16, card)
+    k = _normal(rng, (B, Sk, Kv, hd), torch.bfloat16, card)
+    v = _normal(rng, (B, Sk, Kv, hd), torch.bfloat16, card)
+    before = flash_ops.launches
+    o, lse = flash_ops.flash_fwd(q, k, v, causal, None)
+    assert flash_ops.launches == before + 1
+    o_ref, lse_ref = attention_ref(q, k, v, causal, None)
+    torch.testing.assert_close(o.float(), o_ref.float(), rtol=0, atol=2e-2)
+    torch.testing.assert_close(lse, lse_ref, rtol=0, atol=1e-3)
+
+
+def test_flash_noncausal_gradient_over_1500_keys_matches_full_attention(card):
+    """Cross-attention's gradient at whisper's key length: the kernel's
+    forward and the plain backward in kv chunks of 1024 + 476, against
+    autograd through the quadratic path, f32."""
+    rng = np.random.default_rng(4)
+    B, Sq, Sk, H, hd = 1, 96, 1500, 4, 64
+    q = _normal(rng, (B, Sq, H, hd), torch.float32, card).requires_grad_()
+    k = _normal(rng, (B, Sk, H, hd), torch.float32, card).requires_grad_()
+    v = _normal(rng, (B, Sk, H, hd), torch.float32, card).requires_grad_()
+    cot = _normal(rng, (B, Sq, H, hd), torch.float32, card)
+    qp, kp = torch.arange(Sq, device=card), torch.arange(Sk, device=card)
+    grads = []
+    for fn in (lambda: flash_attention(q, k, v, False, None, 1024),
+               lambda: full_attention(q, k, v, qp, kp, causal=False)):
+        q.grad = k.grad = v.grad = None
+        (fn() * cot).sum().backward()
+        grads.append([t.grad.clone() for t in (q, k, v)])
+    for a, b in zip(*grads):
+        torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("arch", ["whisper-small", "internvl2-2b"])
+def test_frontend_round_on_card_matches_cpu(card, arch):
+    """One tree round of the smoke config in f32, with the attention
+    threshold under the 8 frames and 12 tokens (every attention through
+    the flash kernel on the card), from the same state and batch
+    (``inputs.make_batch``) on the card and on the CPU: the same loss and
+    parameters (f32 sums in another order; Adam moves a weight by O(lr)
+    where its gradient is at rounding level, so atol is lr / 3), a fedavg
+    launch a leaf, and flash launches."""
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.core.fl_step import (build_fl_round_step,
+                                          init_opt_state, init_state)
+    from repro_torch.models import inputs
+    from repro_torch.optim.api import make_optimizer
+    cfg = smoke_config(get_arch(arch)).replace(attn_chunk_threshold=6,
+                                               attn_chunk=5)
+    K = 4
+    p0 = T.tree_map(lambda t: t.float(),
+                    init_state(cfg, K, seed=0, device="cpu")["params"])
+    batch = inputs.make_batch(cfg, ShapeConfig("t", 12, 2 * K, "train"), 1,
+                              clients=K, device="cpu")
+    sched = AggSchedule("tree", K, (((0, 1), (2, 3)), ((0, 1, 2, 3),)),
+                        ((1, 0, 1, 0),))
+    w = np.array([3.0, 1.0, 2.0, 4.0], np.float32)
+    out = []
+    for dev in ("cpu", card):
+        params = T.tree_map(lambda t: t.clone().to(dev), p0)
+        state = {"params": params, "opt": init_opt_state(
+            make_optimizer(cfg, total_steps=2), params, K), "step": 0}
+        step = build_fl_round_step(cfg, K, sched, dev, total_steps=2)
+        before = (fedavg_ops.launches, flash_ops.launches)
+        state, m = step(state, {k: v.to(dev) for k, v in batch.items()}, w)
+        out.append((float(m["loss"]), state["params"],
+                    fedavg_ops.launches - before[0],
+                    flash_ops.launches - before[1]))
+    (l0, p_cpu, _, _), (l1, p_card, fed, flash) = out
+    assert fed == len(T.leaves(p_card)) and flash > 0
+    np.testing.assert_allclose(l1, l0, rtol=1e-5)
+    for a, b in zip(T.leaves(p_card), T.leaves(p_cpu)):
+        torch.testing.assert_close(a.cpu(), b, rtol=1e-4, atol=1e-4)

@@ -5,7 +5,9 @@ declarations, prefill (logits and every cache leaf), three teacher-forced
 decode steps with caches crossing both ways, the serve engine's tokens
 and stats, the reference's prefill/decode consistency test run on the
 port, the CLIs, and the two reference faults on this path (ROADMAP R3 and
-R4), pinned as matched behaviour.
+R4), pinned as matched behaviour.  The encoder-decoder and VLM families'
+prefill takes the frontend stub's inputs (random frames and patches,
+rounded to bf16, from a seed); their decode steps take none.
 
 Tolerances: both packages compute in f32 and sum in other orders (XLA's
 CPU dot against PyTorch's), so logits and states agree to rtol 1e-4 and
@@ -30,26 +32,28 @@ from repro.models import linear_attn as ref_la
 from repro.models import model_api as ref_model_api
 from repro.serve.engine import ServeEngine as RefServeEngine
 from repro_torch import tree as T
-from repro_torch.configs.base import get_arch, list_archs, smoke_config
+from repro_torch.configs.base import ShapeConfig, get_arch, list_archs, \
+    smoke_config
 from repro_torch.dist import sharding as shd
 from repro_torch.models import attention as attn
 from repro_torch.models import kvcache as kvc
 from repro_torch.models import linear_attn as la
-from repro_torch.models import model_api
+from repro_torch.models import inputs, model_api
 from repro_torch.serve.engine import ServeEngine
-from test_torch_common import assert_trees_close, np_f32, port_params, \
-    ref_params
+from test_torch_common import as_jax, as_torch, assert_trees_close, \
+    bf16_normal, np_f32, port_params, ref_params
 from test_torch_train import _env
 
 ARCHS = ["qwen2-7b", "mixtral-8x22b", "kimi-k2-1t-a32b", "rwkv6-7b",
-         "hymba-1.5b"]
+         "hymba-1.5b", "whisper-small", "internvl2-2b"]
 RTOL, ATOL = 1e-4, 1e-5
 # prompt lengths a family: one at or under the smoke threshold of 64 (the
 # quadratic path) and one over it (the flash path; for hymba, 72 also
 # wraps its window of 32 at a length that is not a multiple of it)
 SEQS = {"qwen2-7b": [24, 80], "mixtral-8x22b": [12, 72],
         "kimi-k2-1t-a32b": [20, 70], "rwkv6-7b": [30, 67],
-        "hymba-1.5b": [40, 72]}
+        "hymba-1.5b": [40, 72], "whisper-small": [20, 70],
+        "internvl2-2b": [24, 80]}
 
 
 def _cfgs(arch, **kw):
@@ -69,6 +73,21 @@ def _models(arch, **kw):
 def _prompt(B, S, vocab, seed):
     return np.random.default_rng(seed).integers(0, vocab, (B, S)) \
         .astype(np.int32)
+
+
+def _prefill_batch(cfg, toks, seed):
+    """numpy prefill batch: the tokens and the frontend stub's inputs, as
+    the engine shapes them (frames of every frame; patches up to S)."""
+    batch = {"tokens": toks}
+    fe = cfg.frontend
+    if cfg.family == "encdec":
+        batch["frames"] = bf16_normal((toks.shape[0], fe.n_tokens,
+                                       fe.feat_dim), seed)
+    elif cfg.family == "vlm":
+        batch["patches"] = bf16_normal(
+            (toks.shape[0], min(fe.n_tokens, toks.shape[1]), fe.feat_dim),
+            seed)
+    return batch
 
 
 def _port_cache(np_cache, cfg, B, cache_len):
@@ -242,13 +261,11 @@ def test_cache_decls_match_reference(arch):
 def test_prefill_logits_and_cache_match_reference(arch, which):
     ref_cfg, cfg, rmod, pmod, rp, params = _models(arch)
     S = SEQS[arch][which]
-    toks = _prompt(2, S, cfg.vocab, seed=S)
+    batch = _prefill_batch(cfg, _prompt(2, S, cfg.vocab, seed=S), seed=S)
     want_logits, want_cache = jax.jit(
-        lambda p, b: rmod.prefill(ref_cfg, p, b))(
-            rp, {"tokens": jnp.asarray(toks)})
+        lambda p, b: rmod.prefill(ref_cfg, p, b))(rp, as_jax(batch))
     with torch.inference_mode():
-        logits, cache = pmod.prefill(cfg, params,
-                                     {"tokens": torch.from_numpy(toks)})
+        logits, cache = pmod.prefill(cfg, params, as_torch(batch))
     np.testing.assert_allclose(logits.numpy(), np.asarray(want_logits),
                                rtol=RTOL, atol=ATOL)
     assert_trees_close(cache, np_f32(want_cache), rtol=RTOL, atol=ATOL)
@@ -257,7 +274,8 @@ def test_prefill_logits_and_cache_match_reference(arch, which):
         np.testing.assert_array_equal(cache["kv_pos"].numpy(),
                                       np.asarray(want_cache["kv_pos"]))
     want_keys = {"rwkv": ["S", "x_cm", "x_tm"],
-                 "hybrid": ["conv", "k", "kv_pos", "ssm_S", "v"]}.get(
+                 "hybrid": ["conv", "k", "kv_pos", "ssm_S", "v"],
+                 "encdec": ["cross_k", "cross_v", "k", "kv_pos", "v"]}.get(
         cfg.family, ["k", "kv_pos", "v"])
     assert sorted(cache) == want_keys
 
@@ -272,16 +290,16 @@ def test_three_decode_steps_match_reference(arch):
     the reference's ``decode_step`` gives the port's first step."""
     ref_cfg, cfg, rmod, pmod, rp, params = _models(arch)
     B, S = 2, SEQS[arch][1]
-    toks = _prompt(B, S, cfg.vocab, seed=7)
+    batch = _prefill_batch(cfg, _prompt(B, S, cfg.vocab, seed=7), seed=9)
     feed = _prompt(B, 3, cfg.vocab, seed=8)
     pad = cfg.window is None and cfg.family != "rwkv"   # the engine's rule
     _, rc = jax.jit(lambda p, b: rmod.prefill(ref_cfg, p, b))(
-        rp, {"tokens": jnp.asarray(toks)})
+        rp, as_jax(batch))
     if pad:
         rc = ref_kvc.pad_cache(rc, S + 8)
     rdec = jax.jit(lambda p, c, b: rmod.decode_step(ref_cfg, p, c, b))
     with torch.inference_mode():
-        _, own = pmod.prefill(cfg, params, {"tokens": torch.from_numpy(toks)})
+        _, own = pmod.prefill(cfg, params, as_torch(batch))
         if pad:
             own = kvc.pad_cache(own, S + 8)
         # the port's prefilled cache through the reference's first step
@@ -312,26 +330,24 @@ def test_three_decode_steps_match_reference(arch):
     assert_trees_close(own, np_f32(rc), rtol=RTOL, atol=ATOL)
 
 
-PORTED_ARCHS = [a for a in list_archs()
-                if smoke_config(get_arch(a)).family
-                in ("dense", "moe", "rwkv", "hybrid")]
-
-
-@pytest.mark.parametrize("arch", PORTED_ARCHS)
+@pytest.mark.parametrize("arch", list_archs())
 def test_arch_prefill_decode_consistency_on_the_port(arch):
     """The reference's ``test_arch_prefill_decode_consistency`` run on the
     port (tests/test_models.py): bf16 smoke parameters from the port's own
-    seed, batch 4, prompt 32; prefill's logits equal forward's last
+    seed, 4 prompts of 32 tokens from a numpy seed (and frames or patches
+    from ``inputs.make_batch``); prefill's logits equal forward's last
     position and one decode step after prefill equals forward on S + 1
     tokens, at the reference test's rtol/atol of 5e-2."""
     cfg = smoke_config(get_arch(arch))
     params = model_api.init_params(cfg, 0, "cpu")
     mod = model_api.get_model(cfg)
-    toks = torch.from_numpy(_prompt(4, 32, cfg.vocab, seed=0))
+    batch = inputs.make_batch(cfg, ShapeConfig("pre", 32, 4, "prefill"), 0,
+                              device="cpu")
+    toks = batch["tokens"] = torch.from_numpy(_prompt(4, 32, cfg.vocab, 0))
     S = toks.shape[1]
     with torch.inference_mode():
-        plog, cache = mod.prefill(cfg, params, {"tokens": toks})
-        flog, _ = mod.forward(cfg, params, {"tokens": toks})
+        plog, cache = mod.prefill(cfg, params, batch)
+        flog, _ = mod.forward(cfg, params, batch)
         torch.testing.assert_close(plog.float(), flog[:, -1].float(),
                                    rtol=5e-2, atol=5e-2)
         if cfg.window is None and cfg.family != "rwkv":
@@ -342,7 +358,7 @@ def test_arch_prefill_decode_consistency_on_the_port(arch):
                                    "pos": torch.full((4,), S,
                                                      dtype=torch.int32)})
         flog2, _ = mod.forward(cfg, params,
-                               {"tokens": torch.cat([toks, tok], dim=1)})
+                               {**batch, "tokens": torch.cat([toks, tok], 1)})
     torch.testing.assert_close(dlog.float(), flog2[:, -1].float(), rtol=5e-2,
                                atol=5e-2)
 
@@ -398,8 +414,12 @@ def test_serve_engine_tokens_and_stats_match_reference(arch):
 
 
 def test_engine_rejects_unported_families_and_missing_card():
-    with pytest.raises(NotImplementedError):
-        ServeEngine(smoke_config(get_arch("whisper-small")), {}, device="cpu")
+    """Every family of the reference is served (whisper-small and
+    internvl2-2b among ``ARCHS``); a family no package has is rejected,
+    and the default device raises without a card."""
+    cfg = smoke_config(get_arch("qwen2-7b"))
+    with pytest.raises(KeyError):
+        ServeEngine(cfg.replace(family="no-such-family"), {}, device="cpu")
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="cuda"):
             ServeEngine(smoke_config(get_arch("qwen2-7b")), {})
@@ -409,7 +429,11 @@ def test_engine_rejects_unported_families_and_missing_card():
     ("repro_torch.launch.serve", "qwen2-7b"),
     ("repro_torch.launch.serve", "rwkv6-7b"),
     ("repro_torch.examples.serve_lm", "hymba-1.5b"),
-    ("repro_torch.examples.serve_lm", "mixtral-8x22b")])
+    ("repro_torch.examples.serve_lm", "mixtral-8x22b"),
+    ("repro_torch.launch.serve", "whisper-small"),
+    ("repro_torch.launch.serve", "internvl2-2b"),
+    ("repro_torch.examples.serve_lm", "whisper-small"),
+    ("repro_torch.examples.serve_lm", "internvl2-2b")])
 def test_serve_clis_on_cpu(module, arch):
     out = subprocess.run(
         [sys.executable, "-m", module, "--device", "cpu", "--arch", arch,

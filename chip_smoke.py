@@ -29,11 +29,18 @@ and resumes qwen2-7b's smoke config on the card, ``resume_full`` saves
 and restores a hymba-1.5b state at published widths (depth cut to 2
 layers), and six serving cells (qwen2-7b, rwkv6-7b, hymba-1.5b,
 mixtral-8x22b at 4 layers, whisper-small, internvl2-2b) each serve 8
-requests through ``ServeEngine``.
+requests through ``ServeEngine``.  Last, the ``dist`` phase runs the rank
+path (one client a card, NCCL) over every card of the host: on one card
+two qwen2-7b rounds through the process group against the single-card
+K = 1 round, bit for bit; on several, one round of each schedule and
+strategy against the single-card round, and the schedules' time at 12
+of 28 layers.
 Each phase prints JSON lines; then one line lists every kernel, one line
 gives the card's name and power limit as nvidia-smi reports them, and the
 last line is ``{"ok": true, "device": ...}``.  Any failure raises and
 exits non-zero; nothing runs on the CPU but the strategies' references.
+The ranks start with the ``spawn`` method and import this file again, so
+its work stays under ``if __name__ == "__main__":``.
 """
 from __future__ import annotations
 
@@ -1548,6 +1555,424 @@ def phase_serve(torch, dev, phase, arch, n_layers, prompt_lens=SERVE_PROMPT,
     return launches
 
 
+# --------------------------------------------------------------------------
+# the rank path: one client a card, NCCL between the cards
+# --------------------------------------------------------------------------
+
+DIST_ARCH, DIST_SEQ = "qwen2-7b", 2048
+# leg (a), at one layer and K = the cards: (schedule, strategy, failures),
+# each held against the single-card K-client round on card 0
+DIST_AGREE = [
+    ("tree", "fedavg", {}), ("flat", "fedavg", {}), ("rs_ag", "fedavg", {}),
+    ("compressed", "fedavg", {}), ("tree", "fedprox", {}),
+    ("tree", "trimmed_mean", {0: ["c3"]}), ("tree", "multi_krum", {0: ["c3"]})]
+# leg (b): the schedules' time at 12 of qwen2-7b's 28 layers (3.89 B
+# parameters a client).  A rank holds its slot and AdamW moments (10 B a
+# parameter) and, during the optimizer, every gradient, the updates made so
+# far and three f32 temporaries of the stacked MLP leaf (L x 67.9 M
+# elements): about 15.3 + 4.1 L GB, so 12 layers take about 64 GB and 16
+# would take about 80.5 GB
+DIST_TIME_LAYERS = 12
+DIST_TIME_SCHEDULES = ("tree", "flat", "rs_ag", "compressed")
+NVLINK4_LINK_BYTES_S = 25e9     # one NVLink 4 link, one direction
+DIST_TIMEOUT_S = 900
+EXACT_STRATEGIES = {"trimmed_mean", "multi_krum"}
+
+
+def _slot_compare(torch, got, want) -> dict:
+    """Leaf by leaf and chunk by chunk, two slots on one card: elements
+    that differ; elements more than one bf16 ulp (of ``want``) apart, the
+    largest such difference and the largest ``|want|`` among them; and
+    elements beyond the sum's tolerance, the larger of one bf16 ulp and 4
+    f32 ulps of the leaf's largest ``|want|`` (four f32 terms summed in
+    another order differ by a few roundings of the terms, which a value
+    near 0, after cancellation, turns into many of its own ulps)."""
+    from repro_torch import tree as T
+    diff = beyond = beyond_tol = 0
+    err = beyond_err = beyond_at = 0.0
+    finite = True
+    step = 1 << 26
+    for a, b in zip(T.leaves(got), T.leaves(want)):
+        a, b = a.reshape(-1), b.reshape(-1)
+        top = max(float(b[c0:c0 + step].float().abs().max())
+                  for c0 in range(0, b.numel(), step))
+        for c0 in range(0, a.numel(), step):
+            x = a[c0:c0 + step].float()
+            y = b[c0:c0 + step].float()
+            finite &= bool(torch.isfinite(x).all() and torch.isfinite(y).all())
+            d = (x - y).abs()
+            ulp = torch.exp2(torch.floor(torch.log2(
+                y.abs().clamp_min(2.0 ** -126))) - 7)
+            far = d > ulp
+            err = max(err, float(d.max()))
+            diff += int((d > 0).sum())
+            beyond += int(far.sum())
+            beyond_tol += int((d > ulp.clamp_min(4 * 2.0 ** -23 * top)).sum())
+            if far.any():
+                beyond_err = max(beyond_err, float(d[far].max()))
+                beyond_at = max(beyond_at, float(y[far].abs().max()))
+    return {"exact": diff == 0 and finite, "finite": finite,
+            "max_abs_err": err, "elements_differing": diff,
+            "beyond_1_bf16_ulp": beyond,
+            "beyond_1_bf16_ulp_max_err": beyond_err,
+            "beyond_1_bf16_ulp_max_abs_value": beyond_at,
+            "beyond_sum_tolerance": beyond_tol}
+
+
+def _checksum(torch, tree) -> list:
+    """Two integer sums of each leaf's bits (plain and position-weighted):
+    equal slots give equal checksums."""
+    from repro_torch import tree as T
+    out = []
+    for t in T.leaves(tree):
+        bits = t.reshape(-1).view({2: torch.int16, 4: torch.int32}[
+            t.element_size()])
+        s0 = s1 = 0
+        for c0 in range(0, bits.numel(), 1 << 26):
+            v = bits[c0:c0 + (1 << 26)].to(torch.int64)
+            pos = torch.arange(c0, c0 + v.numel(), device=v.device) % 65521
+            s0 += int(v.sum())
+            s1 += int((v * (pos + 1)).sum())
+        out.append([s0, s1])
+    return out
+
+
+def _dist_world1(torch, mesh) -> dict:
+    """One card: two rounds of the rank path (qwen2-7b, one layer, K = 1,
+    through the NCCL process group) against two rounds of the single-card
+    trainer at K = 1, bit for bit (every parameter and moment); then the
+    across-ranks aggregation of the trained slot under each schedule
+    against the single-card ``aggregate_params`` at K = 1."""
+    from repro_torch import tree as T
+    from repro_torch.configs.base import get_arch
+    from repro_torch.core import aggregation
+    from repro_torch.core.topology import AggSchedule
+    from repro_torch.launch.train import SDFLMQTrainer
+
+    cfg = get_arch(DIST_ARCH).replace(n_layers=1)
+    dev = mesh.device
+    torch.cuda.reset_peak_memory_stats(dev)
+    reset_launches()
+    tr = SDFLMQTrainer(cfg, 1, ROUNDS, BATCH_PER_CLIENT, DIST_SEQ, seed=0,
+                       mesh=mesh)
+    ms = tr.run()
+    torch.cuda.synchronize(dev)
+    launches = read_launches()
+    peak = torch.cuda.max_memory_allocated(dev)
+    state = tr.state
+    del tr
+    one = SDFLMQTrainer(cfg, 1, ROUNDS, BATCH_PER_CLIENT, DIST_SEQ, seed=0,
+                        device=dev)
+    ms1 = one.run()
+    equal = state["step"] == one.state["step"] and all(
+        torch.equal(a, b) for a, b in zip(
+            T.leaves({"o": state["opt"], "p": state["params"]}),
+            T.leaves({"o": one.state["opt"], "p": one.state["params"]})))
+    del one
+    aggregate = {}
+    w = torch.full((1,), 3.0, device=dev)        # not a unit weight
+    for kind in ("tree", "flat", "rs_ag", "compressed"):
+        sched = AggSchedule(kind, 1, (((0,),),) if kind == "tree" else ())
+        mine = T.tree_map(lambda t: t.unsqueeze(0).clone(), state["params"])
+        bank = T.tree_map(lambda t: t.unsqueeze(0).clone(), state["params"])
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        aggregation.aggregate_params(mine, w, sched, "fedavg", mesh=mesh)
+        end.record()
+        aggregation.aggregate_params(bank, w, sched, "fedavg")
+        end.synchronize()
+        aggregate[kind] = {
+            "equal": all(torch.equal(a, b) for a, b in zip(
+                T.leaves(mine), T.leaves(bank))),
+            "ms": start.elapsed_time(end)}
+        del mine, bank
+    return {"losses": [m["loss"] for m in ms],
+            "single_device_losses": [m["loss"] for m in ms1],
+            "round_s": [m["time_s"] for m in ms], "state_equal": equal,
+            "aggregate": aggregate, "launches": launches, "peak": peak}
+
+
+def _dist_agree(torch, mesh) -> list:
+    """Leg (a): one round of each ``DIST_AGREE`` case on the ranks against
+    the single-card K-client round that rank 0 runs on its card first, from
+    the same seed (bank) and batches."""
+    import torch.distributed as dist
+    from repro_torch import tree as T
+    from repro_torch.configs.base import get_arch
+    from repro_torch.ft.failures import FailurePlan
+    from repro_torch.launch.train import SDFLMQTrainer
+
+    cfg = get_arch(DIST_ARCH).replace(n_layers=1)
+    K, dev = mesh.world, mesh.device
+    rows = []
+    for sched, strat, fail in DIST_AGREE:
+        kw = dict(seed=0, schedule_kind=sched, strategy=strat)
+        want = None
+        if mesh.rank == 0:
+            gc.collect()
+            torch.cuda.empty_cache()
+            one = SDFLMQTrainer(cfg, K, 1, BATCH_PER_CLIENT, DIST_SEQ,
+                                device=dev, failure_plan=FailurePlan(
+                                    fail_at=dict(fail)), **kw)
+            m1 = one.run()[0]
+            want = (m1, T.tree_map(lambda t: t[0].clone(),
+                                   one.state["params"]))
+            del one
+        dist.barrier()
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+        reset_launches()
+        tr = SDFLMQTrainer(cfg, K, 1, BATCH_PER_CLIENT, DIST_SEQ, mesh=mesh,
+                           failure_plan=FailurePlan(fail_at=dict(fail)), **kw)
+        m = tr.run()[0]
+        torch.cuda.synchronize(dev)
+        row = {"schedule": sched, "strategy": strat,
+               "fail_at": {str(r): c for r, c in fail.items()},
+               "loss": m["loss"], "level_groups": m["level_groups"],
+               "n_clients": m["n_clients"], "time_s": m["time_s"],
+               "aggregate_ms": m.get("aggregate_ms"),
+               "rank_ms": m["rank_ms"], "launches": read_launches(),
+               "peak": torch.cuda.max_memory_allocated(dev),
+               "leaves": len(T.leaves(tr.state["params"])),
+               "checksum": _checksum(torch, tr.state["params"])}
+        if want is not None:
+            row.update(single_loss=want[0]["loss"],
+                       single_level_groups=want[0]["level_groups"],
+                       **_slot_compare(torch, T.tree_map(
+                           lambda t: t[0], tr.state["params"]), want[1]))
+        rows.append(row)
+        del tr, want
+    return rows
+
+
+def _bytes_sent(kind, level_groups, rank, K, n, n_rows) -> int:
+    """Bytes a rank sends in one aggregation of ``n`` f32 contributions
+    (``n_rows`` quantization rows), reckoned for ring collectives: an
+    all-reduce over g ranks sends 2 (g - 1) / g of the buffer, an
+    all-gather (g - 1) times the rank's part."""
+    if kind == "compressed":
+        return (K - 1) * (n + 4 * n_rows)
+    if kind == "tree":
+        sizes = [next(len(g) for g in lvl if rank in g)
+                 for lvl in level_groups]
+    else:
+        sizes = [K]
+    return int(sum(2 * (g - 1) / g * 4 * n for g in sizes if g > 1))
+
+
+def _dist_time(torch, mesh) -> list:
+    """Leg (b): two rounds of each ``DIST_TIME_SCHEDULES`` schedule at
+    ``DIST_TIME_LAYERS`` layers, one trainer a schedule."""
+    from repro_torch import tree as T
+    from repro_torch.configs.base import get_arch
+    from repro_torch.launch.train import SDFLMQTrainer
+
+    cfg = get_arch(DIST_ARCH).replace(n_layers=DIST_TIME_LAYERS)
+    K, dev = mesh.world, mesh.device
+    rows = []
+    for sched in DIST_TIME_SCHEDULES:
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+        t0 = time.perf_counter()
+        tr = SDFLMQTrainer(cfg, K, ROUNDS, BATCH_PER_CLIENT, DIST_SEQ,
+                           seed=0, mesh=mesh, schedule_kind=sched)
+        torch.cuda.synchronize(dev)
+        init_s = time.perf_counter() - t0
+        reset_launches()
+        ms = tr.run()
+        torch.cuda.synchronize(dev)
+        shapes = [t.shape[1:] for t in T.leaves(tr.state["params"])]
+        n = sum(math.prod(sh) for sh in shapes)
+        n_rows = sum(math.prod(sh[:-1]) for sh in shapes)
+        rows.append({
+            "schedule": sched, "level_groups": ms[-1]["level_groups"],
+            "params_per_client": n, "init_s": init_s,
+            "round_s": [m["time_s"] for m in ms],
+            "losses": [m["loss"] for m in ms],
+            "aggregate_ms_rank": [m["rank_ms"].get("aggregate_ms")
+                                  for m in ms],
+            "aggregate_ms_max": [m.get("aggregate_ms") for m in ms],
+            "bytes_sent": _bytes_sent(sched, ms[-1]["level_groups"],
+                                      mesh.rank, K, n, n_rows),
+            "peak": torch.cuda.max_memory_allocated(dev),
+            "launches": read_launches(),
+            "checksum": _checksum(torch, tr.state["params"])})
+        del tr
+    return rows
+
+
+def _dist_rank(mesh, legs):
+    """One rank of ``phase_dist`` (a spawned process): the legs it is
+    given, with the matmul settings of ``main``."""
+    import torch
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    out = {"rank": mesh.rank, "backend": mesh.backend,
+           "device": torch.cuda.get_device_name(mesh.device)}
+    legs_of = {"world1": _dist_world1, "agree": _dist_agree,
+               "time": _dist_time}
+    for leg in legs:
+        out[leg] = legs_of[leg](torch, mesh)
+    return out
+
+
+def _nvlink() -> dict:
+    """The link between card 0 and card 1 as ``nvidia-smi topo -m`` reports
+    it (``NV<n>``: n NVLink 4 links), and card 0's NVLink ports and their
+    rates from ``nvidia-smi nvlink -s``; ``bytes_s`` is the per-direction
+    rate to take, or None where neither reports it.  Both outputs go to
+    chiprun_out/; a query the machine refuses is recorded, not raised."""
+    import re
+    runs = {}
+    for args in (["topo", "-m"], ["nvlink", "-s", "-i", "0"]):
+        out = subprocess.run(["nvidia-smi", *args], capture_output=True,
+                             text=True, timeout=60)
+        runs[" ".join(args)] = out
+    OUT.mkdir(exist_ok=True)
+    (OUT / "nvidia_smi_topo.txt").write_text("\n".join(
+        f"$ nvidia-smi {k} (rc {v.returncode})\n{v.stdout}{v.stderr}"
+        for k, v in runs.items()))
+    topo, links = runs["topo -m"], runs["nvlink -s -i 0"]
+    entry = None
+    for line in topo.stdout.splitlines() if topo.returncode == 0 else []:
+        cells = line.split()
+        if len(cells) > 2 and cells[0] == "GPU0":
+            entry = cells[2]
+    rates = [float(x) for x in re.findall(r"Link \d+: ([\d.]+) GB/s",
+                                          links.stdout)] \
+        if links.returncode == 0 else []
+    m = re.fullmatch(r"NV(\d+)", entry or "")
+    bytes_s = (sum(rates) * 1e9 if rates
+               else int(m.group(1)) * NVLINK4_LINK_BYTES_S if m else None)
+    return {"topo_entry": entry, "topo_rc": topo.returncode,
+            "nvlink_ports": len(rates), "nvlink_port_gb_s": rates[:1],
+            "bytes_s": bytes_s}
+
+
+def phase_dist(torch, dev) -> dict:
+    """The rank path over every card of the host, one client a card and
+    NCCL between them (``launch.mesh.spawn``; a rank's failure or a run
+    past ``DIST_TIMEOUT_S`` raises here).  One card: ``_dist_world1``.
+    More: leg (a) ``_dist_agree`` and leg (b) ``_dist_time``.  Returns
+    the main path's launches, summed over the ranks."""
+    from repro_torch.launch import mesh as mesh_lib
+
+    world = torch.cuda.device_count()
+    gc.collect()
+    torch.cuda.empty_cache()
+    legs = ("world1",) if world == 1 else ("agree", "time")
+    t0 = time.perf_counter()
+    ranks = mesh_lib.spawn(_dist_rank, world, (legs,), device="cuda",
+                           timeout_s=DIST_TIMEOUT_S)
+    wall_s = time.perf_counter() - t0
+    launches = {}
+
+    def add(got):
+        for k, v in got.items():
+            launches[k] = launches.get(k, 0) + v
+
+    if world == 1:
+        w1 = ranks[0]["world1"]
+        add(w1["launches"])
+        emit({"phase": "dist", "dist": {
+            "world": 1, "backend": ranks[0]["backend"], "arch": DIST_ARCH,
+            "n_layers": 1, "clients": 1, "rounds": ROUNDS, "seq": DIST_SEQ,
+            "wall_s": wall_s, **w1}})
+        if not w1["state_equal"] or w1["losses"] != \
+                w1["single_device_losses"]:
+            raise AssertionError(f"dist: the rank path at world 1 differs "
+                                 f"from the single-device round: {w1}")
+        if not all(a["equal"] for a in w1["aggregate"].values()):
+            raise AssertionError(f"dist: aggregation at world 1: {w1}")
+        if w1["launches"]["flash_fwd"] < ROUNDS or any(
+                n for k, n in w1["launches"].items() if k != "flash_fwd"):
+            raise AssertionError(f"dist: launches {w1['launches']}")
+        return launches
+
+    link = _nvlink()
+    faults = []
+    for i, (sched, strat, fail) in enumerate(DIST_AGREE):
+        rows = [r["agree"][i] for r in ranks]
+        lead = rows[0]
+        for r in rows:
+            add(r["launches"])
+        same = all(r["checksum"] == lead["checksum"] for r in rows)
+        rel = abs(lead["loss"] - lead["single_loss"]) / abs(
+            lead["single_loss"])
+        emit({"phase": "dist_agree", "world": world, "schedule": sched,
+              "strategy": strat, "fail_at": lead["fail_at"],
+              "level_groups": lead["level_groups"],
+              "n_clients": lead["n_clients"], "loss": lead["loss"],
+              "single_card_loss": lead["single_loss"], "loss_rel_err": rel,
+              "exact": lead["exact"], "max_abs_err": lead["max_abs_err"],
+              "elements_differing": lead["elements_differing"],
+              "beyond_1_bf16_ulp": lead["beyond_1_bf16_ulp"],
+              "beyond_1_bf16_ulp_max_err": lead["beyond_1_bf16_ulp_max_err"],
+              "beyond_1_bf16_ulp_max_abs_value": lead[
+                  "beyond_1_bf16_ulp_max_abs_value"],
+              "beyond_sum_tolerance": lead["beyond_sum_tolerance"],
+              "slots_identical_across_ranks": same,
+              "time_s": lead["time_s"], "aggregate_ms_max": lead[
+                  "aggregate_ms"],
+              "aggregate_ms_rank": [r["rank_ms"].get("aggregate_ms")
+                                    for r in rows],
+              "peak_rank": [r["peak"] for r in rows],
+              "launches_rank": [r["launches"] for r in rows]})
+        must_be_exact = sched == "compressed" or strat in EXACT_STRATEGIES
+        if (not lead["finite"] or not same or rel > 1e-6
+                or lead["level_groups"] != lead["single_level_groups"]
+                or (must_be_exact and not lead["exact"])
+                or lead["beyond_sum_tolerance"]):
+            faults.append(f"dist_agree {sched}/{strat}: {lead}")
+        want_qagg = lead["leaves"] if sched == "compressed" else 0
+        for r in rows:
+            got = r["launches"]
+            if (got["flash_fwd"] < 1 or got["qagg"] != want_qagg
+                    or got["fedavg"] or got["quantize"]
+                    or got["dequantize"]):
+                faults.append(f"dist_agree {sched}/{strat}: rank launches "
+                              f"{got}")
+    for i, sched in enumerate(DIST_TIME_SCHEDULES):
+        rows = [r["time"][i] for r in ranks]
+        lead = rows[0]
+        for r in rows:
+            add(r["launches"])
+        sent = max(r["bytes_sent"] for r in rows)
+        same = all(r["checksum"] == lead["checksum"] for r in rows)
+        emit({"phase": "dist_time", "world": world, "schedule": sched,
+              "arch": DIST_ARCH, "n_layers": DIST_TIME_LAYERS,
+              "reduced": [f"depth {DIST_TIME_LAYERS} of 28"],
+              "clients": world, "batch_per_client": BATCH_PER_CLIENT,
+              "seq": DIST_SEQ, "rounds": ROUNDS,
+              "params_per_client": lead["params_per_client"],
+              "level_groups": lead["level_groups"],
+              "init_s_rank": [r["init_s"] for r in rows],
+              "round_s": lead["round_s"], "losses": lead["losses"],
+              "aggregate_ms_rank": [r["aggregate_ms_rank"] for r in rows],
+              "aggregate_ms_max": lead["aggregate_ms_max"],
+              "bytes_sent_rank": [r["bytes_sent"] for r in rows],
+              "link": link,
+              "link_bound_ms": (sent / link["bytes_s"] * 1e3
+                                if link["bytes_s"] else None),
+              "peak_rank": [r["peak"] for r in rows],
+              "flash_rank": [r["launches"]["flash_fwd"] for r in rows],
+              "qagg_rank": [r["launches"]["qagg"] for r in rows],
+              "slots_identical_across_ranks": same})
+        if not all(math.isfinite(x) for x in lead["losses"]) or not same \
+                or max(r["peak"] for r in rows) >= CARD_BYTES:
+            faults.append(f"dist_time {sched}: {rows}")
+    emit({"phase": "dist", "dist": {"world": world,
+                                    "backend": ranks[0]["backend"],
+                                    "cards": [r["device"] for r in ranks],
+                                    "link": link, "wall_s": wall_s}})
+    if faults:
+        raise AssertionError("\n".join(faults))
+    return launches
+
+
 def kernel_rows(fed, flash, qagg, quant8, wkv, launches):
     """The ``kernels`` line: every kernel with its launches summed over the
     train cells (quant8 is on none: its launches there are read, and are
@@ -1647,6 +2072,8 @@ def main(argv=None) -> int:
     for cell in SERVE_CELLS:
         for k, n in phase_serve(torch, dev, *cell).items():
             launches[k] = launches.get(k, 0) + n
+    for k, n in phase_dist(torch, dev).items():
+        launches[k] = launches.get(k, 0) + n
     emit({"kernels": kernel_rows(fed, flash, qagg, quant8, wkv, launches)})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

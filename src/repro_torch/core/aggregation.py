@@ -1,4 +1,4 @@
-"""Aggregation data plane on one device.
+"""Aggregation data plane, on one device or across the ranks of a mesh.
 
 The reference runs aggregation as compiled collectives over a client mesh
 axis (one grouped psum per cluster level for ``tree``).  On one GPU the K
@@ -6,8 +6,9 @@ clients share the card, so for a ``sum`` strategy the ``tree``, ``flat``
 and ``rs_ag`` schedules compute the same weighted K-way mean: ``tree``'s
 per-level partial sums add up to the flat sum (``fedavg_tree_ref`` ==
 ``fedavg_ref``).  The mean is written back into every client slot, as the
-reference's broadcast does.  ``level_groups``/``head_masks`` matter again
-only when clients sit on different GPUs (the multi-GPU slice).
+reference's broadcast does.  Across ranks (``mesh=``, one client a rank,
+see "Across ranks" below) the schedules are collectives, as in the
+reference.
 
 ``sum`` strategies:
 
@@ -46,13 +47,49 @@ norms and K x K Gram accumulate chunk by chunk in full f32, the selection
 runs once, then the selected rows are averaged chunk by chunk.  These
 combines are plain PyTorch: the reference computes them outside any Pallas
 kernel.
+
+Across ranks (``aggregate_params(..., mesh=mesh)``), each rank passes its
+own slot (leading dim 1) and the (K,) weights; the reference's
+``shard_map`` body is the per-rank code.  The work goes per leaf and per
+chunk of at most ``CHUNK`` elements, so no rank holds an f32 copy of its
+whole slot (the reference's ``_weighted`` upcasts the whole tree).
+
+* ``sum`` strategies: the rank's f32 contribution (premapped against its
+  own pre-round slot where the strategy needs a ref) times its weight,
+  then ``tree``: at level l > 0 times ``head_masks[l-1][rank]``, then an
+  ``all_reduce`` in the rank's level-l group (``Mesh.subgroups``); ``flat``:
+  one ``all_reduce``; ``rs_ag``: ``reduce_scatter_tensor`` +
+  ``all_gather_into_tensor`` over the flattened chunk, padded to a
+  multiple of the world size (the sum is elementwise, so this is the same
+  sum as the reference's scatter along the largest divisible dim), with an
+  ``all_reduce`` below ``4 x world`` elements.  The weight total goes
+  through the same collectives; the sum is divided by it (a tensor, not a
+  Python scalar) and cast.  Four terms summed in another order than the
+  fedavg kernel's k = 0..K-1: within one rounding of the f32 sum.
+* ``compressed``: the rank's weighted contribution is quantized per row
+  (``quantize_int8``, plain, as in the reference), the int8 rows and their
+  scales are all-gathered into a (K, rows, cols) block, one qagg launch a
+  leaf with unit weights sums it, and the all-reduced weight total
+  divides it: the single-card computation, bit for bit (for weights whose
+  total is exact in f32, as sample counts are).
+* ``stack`` strategies: each chunk (premapped locally) is all-gathered
+  into a (K, chunk) block and the single-card combine runs on it; krum's
+  Gram accumulates chunk by chunk over the gathered blocks.  Every rank
+  computes the same combine, as the reference's replicated combine does,
+  bit for bit the single card's.
+
+A dead client's rank stays in every collective with weight 0, as its
+mesh row does in the reference.  Collectives inside a client (the
+``model`` axis) are ROADMAP item 5b.
 """
 from __future__ import annotations
 
+import warnings
 from contextlib import contextmanager
 from typing import Union
 
 import torch
+import torch.distributed as dist
 
 from repro_torch import tree as T
 from repro_torch.api.strategies import (AggregationStrategy,
@@ -94,7 +131,7 @@ def check_strategy(strategy: Union[str, AggregationStrategy]):
 
 def aggregate_params(bank, weights: torch.Tensor, schedule: AggSchedule,
                      strategy: Union[str, AggregationStrategy] = "fedavg",
-                     ref=None):
+                     ref=None, mesh=None):
     """bank: client-stacked tree (leading dim = n_clients); weights:
     (n_clients,) f32 on the bank's device.  Every client slot is
     overwritten in place with the strategy's aggregate; returns ``bank``.
@@ -103,7 +140,11 @@ def aggregate_params(bank, weights: torch.Tensor, schedule: AggSchedule,
     strategies with ``needs_ref``: each leaf's leading dim is n_clients
     (client k premaps against its own slot) or 1 (one model for all).  It
     may live on another device (a pinned host copy); chunks are brought to
-    the bank's device as they are needed."""
+    the bank's device as they are needed.
+
+    With ``mesh`` (a ``launch.mesh.Mesh``), ``bank`` is this rank's slot
+    (leading dim 1) and the aggregate runs across the ranks; every rank
+    calls it with the same weights and schedule."""
     strat = check_strategy(strategy)
     if schedule.kind not in ("tree", "flat", "rs_ag", "compressed"):
         raise NotImplementedError(
@@ -112,11 +153,14 @@ def aggregate_params(bank, weights: torch.Tensor, schedule: AggSchedule,
     refs = T.leaves(ref) if strat.needs_ref and ref is not None else None
     with torch.no_grad():
         values = _premap(strat, leaves, refs) if refs is not None else None
-        if strat.reduction == "stack":
+        if mesh is not None:
+            _across_ranks(strat, leaves, weights, schedule, mesh, values)
+        elif strat.reduction == "stack":
+            rows = values or (lambda i, c0, c1: _flat(leaves[i])[:, c0:c1])
             if isinstance(strat, MultiKrum):
-                _krum(strat, leaves, weights, values)
+                _krum(strat, leaves, weights, rows)
             else:
-                _stack(strat, leaves, weights, values)
+                _stack(strat, leaves, weights, rows)
         elif schedule.kind == "compressed":
             for i, leaf in enumerate(leaves):
                 cols = (lambda c0, c1, i=i: values(i, c0, c1)) \
@@ -197,15 +241,16 @@ def _premap(strat, leaves, refs):
     return values
 
 
-def _stack(strat, leaves, weights, values):
-    """The per-coordinate masked combine, chunk by chunk."""
+def _stack(strat, leaves, weights, rows):
+    """The per-coordinate masked combine, chunk by chunk, of the (K, chunk)
+    blocks ``rows(i, c0, c1)``, written into every slot of ``leaves``."""
     xp = TorchXP(leaves[0].device)
     w = xp.asarray(weights)
     for i, leaf in enumerate(leaves):
         flat = _flat(leaf)
         for c0, c1 in _chunks(flat.shape[1]):
-            s = values(i, c0, c1) if values else flat[:, c0:c1]
-            out = strat.combine_masked({"x": xp.asarray(s)}, w, xp)["x"]
+            out = strat.combine_masked({"x": xp.asarray(rows(i, c0, c1))},
+                                       w, xp)["x"]
             flat[:, c0:c1].copy_(out.to(leaf.dtype))
 
 
@@ -220,21 +265,20 @@ def _full_f32_matmul():
         torch.set_float32_matmul_precision(old)
 
 
-def _krum(strat: MultiKrum, leaves, weights, values):
+def _krum(strat: MultiKrum, leaves, weights, rows):
     """krum / multi_krum: ``MultiKrum.combine_masked`` with its flat rows'
-    squared norms and Gram accumulated leaf by leaf and chunk by chunk
-    (concatenating the rows would copy the whole bank in f32)."""
+    squared norms and Gram accumulated leaf by leaf and chunk by chunk over
+    the (K, chunk) blocks ``rows(i, c0, c1)`` (concatenating the rows would
+    copy the whole bank in f32)."""
     dev = leaves[0].device
     xp = TorchXP(dev)
-    n = leaves[0].shape[0]
-    rows = lambda i, c0, c1: (values(i, c0, c1) if values
-                              else _flat(leaves[i])[:, c0:c1].float())
+    n = weights.shape[0]
     sq = torch.zeros((n,), dtype=torch.float32, device=dev)
     gram = torch.zeros((n, n), dtype=torch.float32, device=dev)
     with _full_f32_matmul():
         for i, leaf in enumerate(leaves):
             for c0, c1 in _chunks(leaf[0].numel()):
-                X = rows(i, c0, c1)
+                X = rows(i, c0, c1).float()
                 sq += (X * X).sum(dim=1)
                 gram += X @ X.T
     # the selection, as MultiKrum.combine_masked writes it
@@ -256,7 +300,7 @@ def _krum(strat: MultiKrum, leaves, weights, values):
     for i, leaf in enumerate(leaves):
         flat = _flat(leaf)
         for c0, c1 in _chunks(flat.shape[1]):
-            s = xp.asarray(rows(i, c0, c1))
+            s = xp.asarray(rows(i, c0, c1).float())
             out = xp.sum(xp.where(sel, s, xp.float32(0.0)), axis=0) / qf
             out = xp.where(m_live > 0, out, xp.zeros_like(out))
             flat[:, c0:c1].copy_(out.to(leaf.dtype))
@@ -290,5 +334,116 @@ def _compressed_mean(leaf: torch.Tensor, weights: torch.Tensor, values=None):
     for k in range(1, K):
         total = total + weights[k]
     summed = qagg(q, s, torch.ones_like(weights))
+    del q, s
+    return summed.div_(total)
+
+
+# --------------------------------------------------------------------------
+# across the ranks of a mesh
+# --------------------------------------------------------------------------
+
+def _gather_into(out: torch.Tensor, x: torch.Tensor):
+    """``out`` (world * x.numel() elements) <- every rank's ``x``, in rank
+    order.  ``all_gather_into_tensor`` is in every torch this port runs
+    on; newer ones warn that it is deprecated."""
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", FutureWarning)
+        dist.all_gather_into_tensor(out, x.contiguous())
+
+
+def _rs_ag(x: torch.Tensor, world: int):
+    """In-place sum of the contiguous f32 ``x`` over all ranks as a
+    reduce-scatter and an all-gather of the flattened tensor, padded to a
+    multiple of ``world``; an all-reduce below ``4 x world`` elements."""
+    n = x.numel()
+    if n < 4 * world:
+        dist.all_reduce(x)
+        return
+    m = -(-n // world)
+    flat = x.view(-1)
+    buf = flat if m * world == n else torch.cat(
+        [flat, flat.new_zeros(m * world - n)])
+    part = buf.new_empty(m)
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", FutureWarning)
+        dist.reduce_scatter_tensor(part, buf)
+    _gather_into(buf, part)
+    if buf is not flat:
+        flat.copy_(buf[:n])
+
+
+def _sum(x: torch.Tensor, schedule: AggSchedule, mesh) -> torch.Tensor:
+    """``x`` (contiguous f32) summed in place over the ranks as
+    ``schedule`` lays the collectives out; returns ``x``."""
+    if schedule.kind == "tree":
+        for lvl, group in enumerate(mesh.subgroups(schedule.level_groups)):
+            if lvl > 0:          # above level 0 only the heads contribute
+                x.mul_(float(schedule.head_masks[lvl - 1][mesh.rank]))
+            if group is not None:
+                dist.all_reduce(x, group=group)
+    elif schedule.kind == "rs_ag":
+        _rs_ag(x, mesh.world)
+    else:                        # flat; compressed's weight total
+        dist.all_reduce(x)
+    return x
+
+
+def _gathered_rows(x: torch.Tensor, world: int) -> torch.Tensor:
+    """Every rank's (1, n) ``x`` stacked in rank order: (world, n)."""
+    out = x.new_empty((world, x.shape[1]))
+    _gather_into(out, x)
+    return out
+
+
+def _across_ranks(strat, leaves, weights, schedule, mesh, values):
+    """``aggregate_params`` on this rank's slot (see the module's "Across
+    ranks")."""
+    K = mesh.world
+    if weights.shape != (K,):
+        raise ValueError(f"weights {tuple(weights.shape)} on a mesh of {K}")
+    if strat.reduction == "stack":
+        local = values or (lambda i, c0, c1: _flat(leaves[i])[:, c0:c1])
+        rows = lambda i, c0, c1: _gathered_rows(local(i, c0, c1), K)
+        if isinstance(strat, MultiKrum):
+            _krum(strat, leaves, weights, rows)
+        else:
+            _stack(strat, leaves, weights, rows)
+        return
+    w = weights[mesh.rank:mesh.rank + 1].float()
+    total = _sum(w.clone(), schedule, mesh)
+    for i, leaf in enumerate(leaves):
+        cols = (lambda c0, c1, i=i: values(i, c0, c1)) if values else None
+        if schedule.kind == "compressed":
+            _write(leaf, _gathered_mean(leaf, w, total, K, cols))
+            continue
+        flat = _flat(leaf)
+        for c0, c1 in _chunks(flat.shape[1]):
+            v = cols(c0, c1) if cols else flat[:, c0:c1].float()
+            flat[:, c0:c1].copy_(_sum(v * w, schedule, mesh).div_(total))
+
+
+def _gathered_mean(leaf: torch.Tensor, w: torch.Tensor, total: torch.Tensor,
+                   K: int, cols=None) -> torch.Tensor:
+    """``_compressed_mean`` across ranks: this rank's weighted
+    contribution quantized per row, the int8 rows and scales of all ranks
+    gathered into (K, rows, cols), one qagg launch with unit weights,
+    divided by the weight total."""
+    G = leaf.shape[-1] if leaf.dim() > 1 else 1
+    flat = _flat(leaf)
+    R = flat.shape[1] // G
+    q = torch.empty((K, R, G), dtype=torch.int8, device=leaf.device)
+    s = torch.empty((K, R, 1), dtype=torch.float32, device=leaf.device)
+    for c0, c1 in _chunks(R * G, max(1, CHUNK // G) * G):
+        v = cols(c0, c1) if cols else flat[:, c0:c1].float()
+        qr, sr = quantize_int8(v.view(1, -1, G) * w)
+        rows = slice(c0 // G, c1 // G)
+        if rows.stop - rows.start == R:          # the leaf in one chunk
+            _gather_into(q, qr)
+            _gather_into(s, sr)
+        else:
+            q[:, rows] = _gathered_rows(qr.view(1, -1), K).view(K, -1, G)
+            s[:, rows] = _gathered_rows(sr.view(1, -1), K).view(K, -1, 1)
+    summed = qagg(q, s, torch.ones((K,), dtype=torch.float32,
+                                   device=leaf.device))
     del q, s
     return summed.div_(total)

@@ -1,4 +1,5 @@
-"""The FL round step on one device — SDFLMQ's data plane.
+"""The FL round step, on one device or one rank of a client mesh —
+SDFLMQ's data plane.
 
 One call = one federated round over all clients:
   1. per-client local training step(s),
@@ -14,7 +15,15 @@ activations and gradients are alive at a time, and no client's weights are
 copied.  Client k owns index k of the bank; the coordinator's
 ``tree.client_order`` must be in the same order (launch/train.py keeps it).
 
-``AdapterSpec`` and ``abstract_state`` wait for later slices.
+On a mesh (``launch.mesh``: one client a ``torch.distributed`` rank, the
+reference's ``data`` axis), each rank holds its client's slot of the bank
+(leading dim 1) and its optimizer state; the round trains that client,
+averages the loss over the ranks with one ``all_reduce``, and aggregates
+across the ranks (``aggregation.aggregate_params(..., mesh=)``).  The spec
+functions (``param_specs``, ``state_specs``, ...) are the reference's, as
+tuples of mesh-axis names; ``abstract_state`` builds the whole state on the
+meta device.  ``AdapterSpec`` waits for a later slice, and so do a
+``model`` axis inside a client and the ``shared`` mode (ROADMAP item 5b).
 """
 from __future__ import annotations
 
@@ -25,6 +34,7 @@ from typing import Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 from torch.profiler import record_function
 
 from repro_torch import tree as T
@@ -104,14 +114,83 @@ class ParamFilter:
 
 
 # --------------------------------------------------------------------------
-# State
+# Meshes and specs
 # --------------------------------------------------------------------------
+
+def _is_count(n) -> bool:
+    return isinstance(n, (int, np.integer))
+
+
+def client_axis_for(cfg: ArchConfig, mesh) -> Optional[str]:
+    ax = "data" if cfg.fl.mode == "replica" else "pod"
+    return ax if ax in shd.mesh_shape(mesh) else None
+
+
+def n_clients_for(cfg: ArchConfig, mesh) -> int:
+    ax = client_axis_for(cfg, mesh)
+    return int(shd.mesh_shape(mesh)[ax]) if ax else 1
+
 
 def fl_param_decls(cfg: ArchConfig, n_clients: int):
     decls = model_api.param_decls(cfg)
     if n_clients > 1:
         decls = shd.prepend_axis(decls, n_clients, "clients")
     return decls
+
+
+def fl_rules(cfg: ArchConfig, client_axis: Optional[str]):
+    rules = shd.rules_for(cfg.fl.mode)
+    rules["clients"] = client_axis
+    return rules
+
+
+def param_specs(cfg: ArchConfig, mesh):
+    n = n_clients_for(cfg, mesh)
+    return shd.specs_for(fl_param_decls(cfg, n),
+                         fl_rules(cfg, client_axis_for(cfg, mesh)), mesh)
+
+
+def opt_state_specs(cfg: ArchConfig, mesh, opt_name: str):
+    """The optimizer state's specs; Adafactor factors each client's leaf,
+    so its row and column factors take the spec of the per-client dims."""
+    pspecs = param_specs(cfg, mesh)
+    if opt_name == "sgdm":
+        return {"mu": pspecs}
+    if opt_name == "adamw":
+        return {"m": pspecs, "v": pspecs}
+    n = n_clients_for(cfg, mesh)
+    lead = 1 if n > 1 else 0
+
+    def f(d, s):
+        parts = list(s) + [None] * (len(d.shape) - len(s))
+        if len(d.shape) - lead >= 2:
+            return {"vr": tuple(parts[:-1]),
+                    "vc": tuple(parts[:-2] + [parts[-1]])}
+        return {"v": tuple(parts)}
+    return {"f": T.tree_map(f, fl_param_decls(cfg, n), pspecs)}
+
+
+def state_specs(cfg: ArchConfig, mesh, opt_name: str):
+    return {"params": param_specs(cfg, mesh),
+            "opt": opt_state_specs(cfg, mesh, opt_name), "step": ()}
+
+
+def abstract_state(cfg: ArchConfig, mesh):
+    """The whole train state (every client's slot) as meta tensors: shapes
+    and dtypes, no storage.  ``state_specs`` says how a mesh splits it;
+    ``mesh`` may also be a client count."""
+    n = mesh if _is_count(mesh) else n_clients_for(cfg, mesh)
+    params = T.tree_map(lambda d: torch.empty(d.shape, dtype=d.dtype,
+                                              device="meta"),
+                        fl_param_decls(cfg, n))
+    opt = make_optimizer(cfg)
+    return {"params": params, "opt": init_opt_state(opt, params, n),
+            "step": 0}
+
+
+# --------------------------------------------------------------------------
+# State
+# --------------------------------------------------------------------------
 
 
 def _frozen_mask(cfg: ArchConfig, update_filter):
@@ -137,31 +216,70 @@ def init_opt_state(opt, params, n_clients: int):
     optimizer's state starts at zeros."""
     if n_clients == 1:
         return opt.init(params)
+    return _per_client_opt_state(opt, params)
+
+
+def _per_client_opt_state(opt, params):
+    """Each client's own state, stacked on the leading client axis of
+    ``params`` (K clients, or a rank's one slot)."""
     one = opt.init(T.tree_map(lambda t: torch.empty(
         t.shape[1:], dtype=t.dtype, device="meta"), params))
+    lead = T.leaves(params)[0].shape[0]
     dev = T.leaves(params)[0].device
     return T.tree_map(lambda s: torch.zeros(
-        (n_clients,) + tuple(s.shape), dtype=s.dtype, device=dev), one)
+        (lead,) + tuple(s.shape), dtype=s.dtype, device=dev), one)
 
 
-def init_state(cfg: ArchConfig, n_clients: int, seed: int = 0,
+def init_state(cfg: ArchConfig, n_clients, seed: int = 0,
                device="cuda", total_steps: int = 10000, update_filter=None):
     """Concrete train state on ``device``: the client-stacked parameter bank
     (each client drawn independently, as the reference does), each
     client's optimizer state (``init_opt_state``), and the step count.
 
     With ``update_filter`` set, frozen (non-matching) leaves are broadcast
-    from client 0 so every client starts from the SAME frozen base."""
-    dev = resolve(device)
+    from client 0 so every client starts from the SAME frozen base.
+
+    ``n_clients`` may be a mesh (``launch.mesh.Mesh``): then the state is
+    this rank's on the mesh's device, its client's slot of the bank that
+    ``init_state(cfg, K, seed)`` draws (leading dim 1 when K > 1; each
+    leaf drawn whole and the slot kept) and that client's optimizer
+    state."""
     opt = make_optimizer(cfg, total_steps=total_steps)
-    params = shd.materialize(fl_param_decls(cfg, n_clients), seed, dev)
     frozen = _frozen_mask(cfg, update_filter)
+    if not _is_count(n_clients):
+        return _init_rank_state(cfg, n_clients, seed, opt, frozen)
+    dev = resolve(device)
+    params = shd.materialize(fl_param_decls(cfg, n_clients), seed, dev)
     if frozen is not None and n_clients > 1:
         for p, f in zip(T.leaves(params), T.leaves(frozen)):
             if f:
                 p.copy_(p[0:1].expand_as(p))
     return {"params": params, "opt": init_opt_state(opt, params, n_clients),
             "step": 0}
+
+
+def _rank_clients(cfg: ArchConfig, mesh) -> int:
+    """K on a mesh of ranks, one client a rank (``replica`` mode)."""
+    if cfg.fl.mode != "replica":
+        raise NotImplementedError(
+            f"FL mode {cfg.fl.mode!r} on a mesh of ranks: the shared mode "
+            "(FSDP, one client a pod) is ROADMAP item 5b")
+    return n_clients_for(cfg, mesh)
+
+
+def _init_rank_state(cfg: ArchConfig, mesh, seed: int, opt, frozen):
+    n = _rank_clients(cfg, mesh)
+    specs = T.leaves(param_specs(cfg, mesh))
+    fro = T.leaves(frozen) if frozen is not None and n > 1 else None
+
+    def block(i, x):             # a frozen leaf: every rank takes slot 0
+        return x[0:1] if fro and fro[i] else \
+            shd.local_block(x, specs[i], mesh)
+    params = shd.materialize(fl_param_decls(cfg, n), seed, mesh.device,
+                             block)
+    return {"params": params,
+            "opt": (_per_client_opt_state(opt, params) if n > 1
+                    else opt.init(params)), "step": 0}
 
 
 # --------------------------------------------------------------------------
@@ -230,6 +348,20 @@ def _local_round(client_fn, state, batch, n: int):
     losses = [client_fn(_slot(state["params"], k), _slot(state["opt"], k),
                         state["step"], _slot(batch, k)) for k in range(n)]
     return torch.stack(losses).mean()
+
+
+def _rank_round(client_fn, state, batch, n: int):
+    """This rank's client's local steps on its slot -> the mean loss over
+    the ``n`` ranks (one ``all_reduce``, as the reference's
+    ``jnp.mean(losses)``)."""
+    if n == 1:
+        loss = client_fn(state["params"], state["opt"], state["step"], batch)
+    else:
+        loss = client_fn(_slot(state["params"], 0), _slot(state["opt"], 0),
+                         state["step"], batch)
+    total = loss.detach().float().reshape(1).clone()
+    dist.all_reduce(total)
+    return total[0] / n
 
 
 def _on(x, dev, dtype=None):
@@ -310,7 +442,7 @@ def _span(spans: dict, name: str, dev: torch.device):
     spans[name] = (start, end)
 
 
-def build_fl_round_step(cfg: ArchConfig, n_clients: int,
+def build_fl_round_step(cfg: ArchConfig, n_clients,
                         schedule: AggSchedule, device="cuda",
                         total_steps: int = 10000,
                         local_steps: Optional[int] = None,
@@ -328,9 +460,22 @@ def build_fl_round_step(cfg: ArchConfig, n_clients: int,
 
     A ``needs_ref`` strategy (fedprox, norm_clip, ...) premaps each client
     against the pre-round parameters, as the reference passes them
-    (``pre_round_ref``)."""
+    (``pre_round_ref``).
+
+    ``n_clients`` may be a mesh (``launch.mesh.Mesh``): the step is then
+    this rank's, on the mesh's device, for a state from ``init_state(cfg,
+    mesh, ...)``; ``batch`` is this rank's client's (no client dim),
+    ``weights`` all K clients'; the loss is the mean over the ranks.  Every
+    rank builds the step, in the same order: a ``tree`` schedule's process
+    groups are made here."""
     strat = check_strategy(strategy)
-    dev = resolve(device)
+    mesh = None if _is_count(n_clients) else n_clients
+    if mesh is not None:
+        dev, n_clients = mesh.device, _rank_clients(cfg, mesh)
+        if n_clients > 1 and schedule.kind == "tree":
+            mesh.subgroups(schedule.level_groups)
+    else:
+        dev = resolve(device)
     opt = make_optimizer(cfg, total_steps=total_steps)
     E = local_steps if local_steps is not None else cfg.fl.local_steps
     frozen_mask = _frozen_mask(cfg, update_filter)
@@ -350,14 +495,20 @@ def build_fl_round_step(cfg: ArchConfig, n_clients: int,
         ref = None
         if n_clients > 1 and strat.needs_ref:
             with record_function("fl/ref"), _span(spans, "ref", dev):
-                ref = pre_round_ref(_trainable(state["params"]))
-        loss = _local_round(client_fn, state, _to_device(batch, dev), n_clients)
+                ref = (pre_round_ref(_trainable(state["params"]))
+                       if mesh is None else      # the rank's own slot
+                       T.tree_map(torch.clone, _trainable(state["params"])))
+        batch = _to_device(batch, dev)
+        if mesh is None:
+            loss = _local_round(client_fn, state, batch, n_clients)
+        else:
+            loss = _rank_round(client_fn, state, batch, n_clients)
         if n_clients > 1:
             with record_function("fl/aggregate"), \
                     _span(spans, "aggregate", dev):
                 aggregate_params(_trainable(state["params"]),
                                  _on(weights, dev, torch.float32), schedule,
-                                 strat, ref=ref)
+                                 strat, ref=ref, mesh=mesh)
         state["step"] = state["step"] + E
         return state, {"loss": loss, "spans": spans}
 

@@ -10,9 +10,10 @@ pinned on the dispatch buffers, which apply only when a mesh with a
   * ``tp_local`` — intra-expert tensor parallelism: the (E, cap, F) expert
                    activations sharded over ``model`` on the d_ff dim.
 
-The port runs on one device, where the reference also runs the math
+The port runs each client on one device (a rank of the client mesh has a
+``model`` axis of 1), where the reference also runs the math
 unconstrained, so each variant is ``moe_apply_dense``.  The constraints
-come with the multi-GPU slice.
+come with the ``model`` axis, ROADMAP item 5b.
 """
 from __future__ import annotations
 

@@ -1,12 +1,21 @@
-"""Logical-axis parameter declarations and their initialization.
+"""Logical-axis parameter declarations, their initialization, and the
+resolver from logical axes to mesh axes.
 
 Models declare parameters as ``decl(shape, logical_axes)`` trees instead of
 concrete tensors.  Stacked axes ("layers" from ``stack``, "clients" from
 ``prepend_axis``) are excluded from fan-in when initializing, so a stacked
 layer initializes exactly like an unstacked one.
 
-Mesh rules and ``specs_for`` wait for the multi-GPU slice; on one device
-every leaf lives whole on the card.
+``rules_for``/``specs_for`` are the reference's resolver as pure functions
+of the decls and a mesh shape (``{"data": 4, "model": 1}``, or a
+``launch.mesh.Mesh``): a spec is a tuple of mesh-axis names (None where a
+dim is whole), equal to the reference's ``PartitionSpec``.  The reference's
+``shardings_for`` has no counterpart: torch has no ``NamedSharding``.  A
+rank takes its block of a tensor with ``local_block``; on the mesh the port
+runs today (``replica`` mode, a ``model`` axis of 1) that is its client's
+slot along the axis the ``clients`` spec names.  Placing the ``model``
+axis's blocks (tensor and expert parallelism) and the ``shared`` mode's
+FSDP blocks is ROADMAP item 5b.
 """
 from __future__ import annotations
 
@@ -80,15 +89,15 @@ def _fan_in(d: ParamDecl) -> int:
     return max(f, 1)
 
 
-def _init_leaf(d: ParamDecl, gen: torch.Generator, device):
-    if d.init == "zeros":
-        return torch.zeros(d.shape, dtype=d.dtype, device=device)
-    if d.init == "ones":
-        return torch.ones(d.shape, dtype=d.dtype, device=device)
-    if d.init == "neg_ones":
-        return torch.full(d.shape, -1, dtype=d.dtype, device=device)
-    if d.init == "const":
-        return torch.full(d.shape, d.scale, dtype=d.dtype, device=device)
+def _init_leaf(d: ParamDecl, gen: torch.Generator, device, block=None):
+    """Leaf ``d`` drawn whole from ``gen``; ``block``, when given, maps
+    the whole tensor to the part to keep (a view), taken before any
+    elementwise step so the part's bits are the whole's."""
+    if d.init in ("zeros", "ones", "neg_ones", "const"):
+        shape = d.shape if block is None else \
+            block(torch.empty(d.shape, device="meta")).shape
+        fill = {"zeros": 0, "ones": 1, "neg_ones": -1}.get(d.init, d.scale)
+        return torch.full(shape, fill, dtype=d.dtype, device=device)
     if d.init == "embed":
         std = 0.02 * d.scale
     elif d.init == "normal":
@@ -97,19 +106,26 @@ def _init_leaf(d: ParamDecl, gen: torch.Generator, device):
         raise ValueError(f"unknown init {d.init!r}")
     x = torch.randn(d.shape, generator=gen, dtype=torch.float32,
                     device=device)
-    return x.mul_(std).to(d.dtype)
+    if block is None:
+        return x.mul_(std).to(d.dtype)
+    return block(x).mul_(std).to(d.dtype, copy=True)   # drops the whole
 
 
-def materialize(tree, seed: int, device):
+def materialize(tree, seed: int, device, block=None):
     """Concrete tensors for a decl tree.  Deterministic: leaf ``i`` draws
     from its own ``torch.Generator`` seeded with ``(seed, i)``.  The draws
-    differ from ``jax.random``'s; the statistics are the same."""
+    differ from ``jax.random``'s; the statistics are the same.
+
+    ``block(i, t)``, when given, keeps a part of leaf i (a rank's block):
+    the leaf is drawn whole, one leaf at a time, and only the part is
+    kept, so the part equals that of the whole tree."""
     device = torch.device(device)
     out = []
     for i, d in enumerate(T.leaves(tree)):
         gen = torch.Generator(device=device)
         gen.manual_seed(seed * 1_000_003 + i)
-        out.append(_init_leaf(d, gen, device))
+        keep = (lambda x, i=i: block(i, x)) if block else None
+        out.append(_init_leaf(d, gen, device, keep))
     return T.unflatten_like(tree, out)
 
 
@@ -126,3 +142,61 @@ def from_reference(np_tree, decls, device, dtype=None):
         t = torch.from_numpy(np.array(x, dtype=np.float32))
         return t.to(device=device, dtype=dtype or d.dtype)
     return T.tree_map(one, np_tree, decls)
+
+
+# --------------------------------------------------------------------------
+# Logical-axis resolution
+# --------------------------------------------------------------------------
+
+def rules_for(mode: str) -> dict:
+    """Logical axis -> mesh axis for an FL deployment mode.  The caller may
+    override entries (fl_step sets rules["clients"])."""
+    common = {
+        "vocab": "model", "heads": "model", "kv_heads": "model",
+        "mlp": "model", "experts": "model", "expert_mlp": "model",
+        "layers": None, "clients": None,
+        "batch": "data", "cache_seq": "model",
+    }
+    if mode == "shared":      # FSDP over data + TP over model
+        return {**common, "embed": "data", "embed_tp": "data"}
+    if mode == "replica":     # per-client replicas; TP over model only
+        return {**common, "embed": None, "embed_tp": None}
+    raise ValueError(f"unknown FL mode {mode!r}")
+
+
+def mesh_shape(mesh) -> dict:
+    """Axis name -> size, for a shape dict or a mesh object."""
+    return mesh if isinstance(mesh, dict) else mesh.shape
+
+
+def _spec_for(d: ParamDecl, rules: dict, mesh) -> tuple:
+    """Scans dims left to right; a dim takes its rule's mesh axis when the
+    axis exists, is not yet claimed by this tensor, and divides the dim."""
+    sizes = mesh_shape(mesh)
+    used: set = set()
+    parts = []
+    for dim, ax in zip(d.shape, d.axes):
+        m = rules.get(ax) if ax is not None else None
+        if (m is not None and m in sizes and m not in used
+                and dim >= sizes[m] and dim % sizes[m] == 0):
+            parts.append(m)
+            used.add(m)
+        else:
+            parts.append(None)
+    return tuple(parts)
+
+
+def specs_for(tree, rules: dict, mesh):
+    """Spec tree (tuples of mesh-axis names) for a decl tree."""
+    return T.tree_map(lambda d: _spec_for(d, rules, mesh), tree)
+
+
+def local_block(t: torch.Tensor, spec: tuple, mesh) -> torch.Tensor:
+    """This rank's block of the whole tensor ``t`` under ``spec``: along
+    each dim that names ``data``, the rank's 1/world of it (a view).  Dims
+    on the ``model`` axis stay whole: the mesh's ``model`` axis is 1."""
+    for dim, ax in enumerate(spec):
+        if ax == "data":
+            n = t.shape[dim] // mesh.world
+            t = t.narrow(dim, mesh.rank * n, n)
+    return t

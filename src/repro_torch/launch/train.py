@@ -1,4 +1,5 @@
-"""End-to-end SDFLMQ trainer on one device.
+"""End-to-end SDFLMQ trainer, on one device or over a client mesh of
+ranks.
 
 Wires the whole stack together:
   control plane — SimBroker + Coordinator + SDFLMQClients + ParameterServer
@@ -16,29 +17,49 @@ Wires the whole stack together:
 Round steps are cached per schedule signature, as the reference caches its
 compiled steps.
 
+On a mesh (``mesh=``, ``--data-mesh N``: one client a rank, rank r on
+``cuda:r``) rank 0 alone runs the control plane, since its stats (the
+round's wall-clock time among them) drive the role optimizer, and each
+round broadcasts the schedule and the weights to the other ranks.  Rank r
+trains on ``FederatedTokens.client_batch(r, ...)``, row r of the global
+batch.  Checkpoints keep the single-device format: rank 0 gathers every
+client's slot on save, and scatters slot r to rank r on restore.
+
 Usage:
     PYTHONPATH=src python -m repro_torch.launch.train --arch qwen2-7b \
         --smoke --rounds 8 --local-steps 2 [--device cpu]
+    # 2 ranks on this host (gloo on the CPU, NCCL on two cards)
+    PYTHONPATH=src python -m repro_torch.launch.train --smoke --data-mesh 2 \
+        [--device cpu]
+    # or one process a rank under torchrun
+    PYTHONPATH=src torchrun --nproc-per-node 4 -m repro_torch.launch.train \
+        --data-mesh 4
 """
 from __future__ import annotations
 
 import argparse
+import os
 import time
 
 import numpy as np
 import torch
+import torch.distributed as dist
 from torch.profiler import record_function
 
+from repro_torch import tree as T
 from repro_torch.api.federation import Federation
 from repro_torch.ckpt.checkpoint import check_leaf_sizes
 from repro_torch.ckpt.manager import CheckpointManager
 from repro_torch.configs.base import get_arch, smoke_config
-from repro_torch.core.fl_step import build_fl_round_step, init_state
+from repro_torch.core.aggregation import _chunks
+from repro_torch.core.fl_step import (abstract_state, build_fl_round_step,
+                                      init_state)
 from repro_torch.core.stats import StatsSimulator
 from repro_torch.core.topology import AggSchedule, compile_tree
 from repro_torch.data.federated import FederatedTokens
 from repro_torch.device import resolve
 from repro_torch.ft.failures import FailurePlan
+from repro_torch.launch import mesh as mesh_lib
 
 
 class SDFLMQTrainer:
@@ -47,8 +68,13 @@ class SDFLMQTrainer:
                  schedule_kind: str = "tree", seed: int = 0,
                  failure_plan: FailurePlan | None = None,
                  strategy: str = "fedavg",
-                 update_filter=None, device="cuda"):
-        self.device = resolve(device)
+                 update_filter=None, device="cuda", mesh=None):
+        if mesh is not None and n_clients != mesh.world:
+            raise ValueError(f"{n_clients} clients on a mesh of {mesh.world} "
+                             "ranks: one client a rank")
+        self.mesh = mesh
+        self.lead = mesh is None or mesh.rank == 0   # runs the control plane
+        self.device = mesh.device if mesh is not None else resolve(device)
         self.cfg, self.rounds = cfg, rounds
         self.n = n_clients
         self.batch_per_client, self.seq = batch_per_client, seq
@@ -58,6 +84,35 @@ class SDFLMQTrainer:
         self.failures = failure_plan or FailurePlan()
 
         # ---- control plane (via the repro_torch.api facade) ------------
+        if self.lead:
+            self._control_plane(cfg, n_clients, rounds, seed, strategy)
+
+        # ---- data plane ----------------------------------------------
+        self.data = FederatedTokens(cfg.vocab, n_clients, seed=seed)
+        self.state = init_state(cfg, mesh or n_clients, seed, self.device,
+                                total_steps=rounds * cfg.fl.local_steps,
+                                update_filter=update_filter)
+        self._steps = {}
+        self.ckpt = CheckpointManager(ckpt_dir, keep=2) if ckpt_dir else None
+        self.start_round = 0
+        if self.ckpt:
+            # raise before round 0 (a mesh's checkpoint holds every slot)
+            check_leaf_sizes(self.state if mesh is None
+                             else abstract_state(cfg, mesh))
+            if mesh is not None:
+                self.start_round = self._restore_mesh()
+            else:
+                restored, meta = self.ckpt.restore_latest(self.state)
+                if restored is not None:
+                    self.start_round = int(meta["step"])
+        self.metrics: list[dict] = []
+        self.latencies: dict[str, float] = {}
+        self.weights: np.ndarray | None = None
+        # optional hook: on_round_end(round_idx, state) after each round
+        # (after its checkpoint is saved)
+        self.on_round_end = None
+
+    def _control_plane(self, cfg, n_clients, rounds, seed, strategy):
         self.fed = Federation(role_policy=cfg.fl.role_policy,
                               aggregator_ratio=cfg.fl.aggregator_ratio,
                               levels=cfg.fl.levels)
@@ -77,25 +132,70 @@ class SDFLMQTrainer:
         self.clients = self.session.participants
         assert self.session.state == "running"
 
-        # ---- data plane ----------------------------------------------
-        self.data = FederatedTokens(cfg.vocab, n_clients, seed=seed)
-        self.state = init_state(cfg, n_clients, seed, self.device,
-                                total_steps=rounds * cfg.fl.local_steps,
-                                update_filter=update_filter)
-        self._steps = {}
-        self.ckpt = CheckpointManager(ckpt_dir, keep=2) if ckpt_dir else None
-        self.start_round = 0
-        if self.ckpt:
-            check_leaf_sizes(self.state)      # raise before round 0
-            restored, meta = self.ckpt.restore_latest(self.state)
-            if restored is not None:
-                self.start_round = int(meta["step"])
-        self.metrics: list[dict] = []
-        self.latencies: dict[str, float] = {}
-        self.weights: np.ndarray | None = None
-        # optional hook: on_round_end(round_idx, state) after each round
-        # (after its checkpoint is saved)
-        self.on_round_end = None
+    # ---- checkpoints on a mesh: every slot through rank 0 ---------------
+    def _slot_pieces(self, t):
+        """(1, n) view of a rank's leaf and its chunks."""
+        flat = t.reshape(1, -1)
+        return flat, _chunks(flat.shape[1])
+
+    def _gathered_state(self):
+        """On rank 0, the single-device state on the host (every client's
+        slot, gathered chunk by chunk); None on the others."""
+        K, lead = self.n, self.mesh.rank == 0
+        out = []
+        for t in T.leaves(self.state):
+            if not torch.is_tensor(t):
+                out.append(t)
+                continue
+            flat, chunks = self._slot_pieces(t)
+            host = torch.empty((K, flat.shape[1]), dtype=t.dtype) \
+                if lead else None
+            for c0, c1 in chunks:
+                piece = flat[:, c0:c1].contiguous()
+                parts = [torch.empty_like(piece) for _ in range(K)] \
+                    if lead else None
+                dist.gather(piece, parts, dst=0)
+                if lead:
+                    for k, p in enumerate(parts):
+                        host[k, c0:c1].copy_(p[0])
+            out.append(host.view((K,) + tuple(t.shape[1:]) if K > 1
+                                 else t.shape) if lead else None)
+        return T.unflatten_like(self.state, out) if lead else None
+
+    def _restore_mesh(self) -> int:
+        """Rank 0 reads the newest checkpoint and scatters slot r to rank
+        r; returns the round to start from."""
+        mesh, K = self.mesh, self.n
+        host = found = None
+        if mesh.rank == 0:
+            host = T.tree_map(lambda t: torch.empty(t.shape, dtype=t.dtype)
+                              if torch.is_tensor(t) else t,
+                              abstract_state(self.cfg, K))
+            restored, meta = self.ckpt.restore_latest(host)
+            found = (meta, host["step"]) if restored is not None else None
+        found = mesh.broadcast(found)
+        if found is None:
+            return 0
+        meta, self.state["step"] = found
+        src = T.leaves(host) if mesh.rank == 0 else None
+        for i, t in enumerate(T.leaves(self.state)):
+            if not torch.is_tensor(t):
+                continue
+            flat, chunks = self._slot_pieces(t)
+            whole = src[i].reshape(K, -1) if src else None
+            for c0, c1 in chunks:
+                piece = torch.empty_like(flat[:, c0:c1])
+                parts = [whole[k:k + 1, c0:c1].to(t.device)
+                         for k in range(K)] if src else None
+                dist.scatter(piece, parts, src=0)
+                flat[:, c0:c1].copy_(piece)
+        return int(meta["step"])
+
+    def _save(self, step: int, loss: float):
+        state = self._gathered_state() if self.mesh is not None \
+            else self.state
+        if self.lead:
+            self.ckpt.save(step, state, {"loss": loss})
 
     # ------------------------------------------------------------------
     def _schedule(self):
@@ -110,37 +210,57 @@ class SDFLMQTrainer:
         key = schedule.signature()
         if key not in self._steps:
             self._steps[key] = build_fl_round_step(
-                self.cfg, self.n, schedule, self.device,
+                self.cfg, self.mesh or self.n, schedule, self.device,
                 total_steps=self.rounds * self.cfg.fl.local_steps,
                 strategy=self.strategy, update_filter=self.update_filter)
         return self._steps[key]
 
     def run(self) -> list[dict]:
-        sid = self.sid
+        sid = self.sid if self.lead else None
         weights_np = np.array(
             [self.clients[f"c{i}"].stats.samples or 1.0
-             for i in range(self.n)], np.float32)
+             for i in range(self.n)], np.float32) if self.lead else None
         self.weights = weights_np
         cuda = self.device.type == "cuda"
+        mesh = self.mesh
         for r in range(self.start_round, self.rounds):
             t0 = time.perf_counter()
-            # failure injection -> LWT -> coordinator rearranges; the dead
-            # client's bank row gets zero FedAvg weight (sums unaffected)
-            for dead in self.failures.fail_at.get(r, []):
-                if dead in self.clients:
-                    self.session.fail(dead)
-                    weights_np[int(dead[1:])] = 0.0
-            schedule = self._schedule()
+            schedule = n_alive = None
+            if self.lead:
+                # failure injection -> LWT -> coordinator rearranges; the
+                # dead client's row gets zero FedAvg weight (sums unaffected)
+                for dead in self.failures.fail_at.get(r, []):
+                    if dead in self.clients:
+                        self.session.fail(dead)
+                        weights_np[int(dead[1:])] = 0.0
+                schedule = self._schedule()
+                n_alive = len(self.clients)
+            if mesh is not None:
+                schedule, self.weights, n_alive = mesh.broadcast(
+                    (schedule, self.weights, n_alive))
             step = self._step_for(schedule)
             with record_function("train/batch"):
+                # one client on this device (a rank, or K = 1): its own
+                # batch, with no client dim, as its state has none
+                who = mesh.rank if mesh is not None else (
+                    0 if self.n == 1 else None)
                 batch = self.data.global_batch(
-                    self.n, self.batch_per_client, self.seq, r)
-            self.state, m = step(self.state, batch, weights_np)
+                    self.n, self.batch_per_client, self.seq, r) \
+                    if who is None else self.data.client_batch(
+                        who, self.batch_per_client, self.seq, r)
+            self.state, m = step(self.state, batch, self.weights)
             loss = float(m["loss"])          # waits for the device
             dt = time.perf_counter() - t0
-            # device ms of the round's spans (aggregate, ref), card only
+            # device ms of the round's spans (aggregate, ref), card only;
+            # on a mesh the most any rank took, and its peak memory
             span_ms = {f"{k}_ms": a.elapsed_time(b)
-                       for k, (a, b) in m["spans"].items()}
+                       for k, (a, b) in sorted(m["spans"].items())}
+            peak = torch.cuda.max_memory_allocated(self.device) \
+                if cuda else None
+            rank_ms = span_ms
+            if mesh is not None and cuda:
+                span_ms = {k: mesh.all_max(v) for k, v in span_ms.items()}
+                peak = int(mesh.all_max(peak))
             tokens = self.n * self.batch_per_client * self.seq \
                 * self.cfg.fl.local_steps
             self.metrics.append({
@@ -148,13 +268,15 @@ class SDFLMQTrainer:
                 "tokens_per_s": tokens / dt,
                 "schedule": schedule.signature(),
                 "level_groups": schedule.level_groups,
-                "n_clients": len(self.clients), **span_ms,
-                "max_memory_allocated": (torch.cuda.max_memory_allocated(
-                    self.device) if cuda else None)})
+                "n_clients": n_alive, **span_ms,
+                "max_memory_allocated": peak,
+                **({"rank_ms": rank_ms} if mesh is not None else {})})
             if self.ckpt and self.ckpt.should_save(r + 1):
-                self.ckpt.save(r + 1, self.state, {"loss": loss})
+                self._save(r + 1, loss)
             if self.on_round_end is not None:
                 self.on_round_end(r, self.state)
+            if not self.lead:
+                continue
             # round-status updates: stats + readiness -> role optimization
             slow = self.failures.straggle_at.get(r, {})
             for cid, cl in list(self.clients.items()):
@@ -172,7 +294,9 @@ def main(argv=None):
     ap.add_argument("--smoke", action="store_true",
                     help="reduced config (CPU-sized)")
     ap.add_argument("--rounds", type=int, default=8)
-    ap.add_argument("--clients", type=int, default=4)
+    ap.add_argument("--clients", type=int, default=None,
+                    help="FL clients (default 4; one a rank with "
+                         "--data-mesh, which sets it)")
     ap.add_argument("--batch-per-client", type=int, default=4)
     ap.add_argument("--seq", type=int, default=64)
     ap.add_argument("--local-steps", type=int, default=1)
@@ -187,8 +311,36 @@ def main(argv=None):
     ap.add_argument("--ckpt-dir", default=None)
     ap.add_argument("--device", default="cuda",
                     help="torch device: cuda (kernels) or cpu (plain versions)")
+    ap.add_argument("--data-mesh", type=int, default=0,
+                    help="ranks on the mesh's data axis, one client each, "
+                         "rank r on cuda:r (gloo with --device cpu); 0 "
+                         "keeps every client on one device")
+    ap.add_argument("--model-mesh", type=int, default=1,
+                    help="the model axis: 1 (tensor parallelism inside a "
+                         "client is ROADMAP item 5b)")
     args = ap.parse_args(argv)
+    mesh_lib.check_axes(args.model_mesh)
+    if args.data_mesh or mesh_lib.in_torchrun():
+        world = int(os.environ.get("WORLD_SIZE", args.data_mesh))
+        if args.clients not in (None, world) or args.data_mesh not in (
+                0, world):
+            raise ValueError(f"--clients {args.clients} and --data-mesh "
+                             f"{args.data_mesh} on {world} ranks: one "
+                             "client a rank")
+        args.clients = world
+        if mesh_lib.in_torchrun():
+            mesh = mesh_lib.mesh_from_env(device=args.device)
+            _run(mesh, args)
+            mesh.close()
+        else:
+            mesh_lib.spawn(_run, world, (args,), device=args.device)
+        return
+    args.clients = args.clients or 4
+    _run(None, args)
 
+
+def _run(mesh, args):
+    """The CLI's trainer, on one device or as one rank; rank 0 prints."""
     cfg = get_arch(args.arch)
     if args.smoke:
         cfg = smoke_config(cfg)
@@ -202,8 +354,11 @@ def main(argv=None):
                             schedule_kind=args.schedule,
                             strategy=args.strategy,
                             update_filter=args.update_filter,
-                            device=args.device)
-    for m in trainer.run():
+                            device=args.device, mesh=mesh)
+    metrics = trainer.run()
+    if mesh is not None and mesh.rank:
+        return
+    for m in metrics:
         print(f"round {m['round']:3d} loss {m['loss']:.4f} "
               f"{m['time_s']:.2f}s sched={m['schedule']} "
               f"clients={m['n_clients']}")

@@ -6,10 +6,14 @@ Modality frontends are stubs, as in the reference: whisper gets
 precomputed frame embeddings (``frames``), internvl2 precomputed patch
 embeddings (``patches``) that fill the leading sequence positions.
 
-The reference's ``batch_specs`` (the batch's PartitionSpecs) waits for the
-multi-GPU slice.
+``batch_specs`` is the reference's: the batch's specs as tuples of mesh-axis
+names, equal to its PartitionSpecs.  On the mesh the port runs (a ``model``
+axis of 1) only the clients dim is split, one client a rank; sequence
+parallelism over ``model`` is ROADMAP item 5b.
 """
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 
@@ -47,6 +51,36 @@ def batch_struct(cfg: ArchConfig, shape: ShapeConfig, clients: int = 0):
             b[name] = _struct(shp(gb, fe.n_tokens, fe.feat_dim),
                               torch.bfloat16)
     return b
+
+
+def batch_specs(cfg: ArchConfig, shape: ShapeConfig, clients: int = 0,
+                client_axis: Optional[str] = None, data_axis: str = "data",
+                seq_axis: Optional[str] = "model",
+                axis_sizes: Optional[dict] = None):
+    """Specs matching ``batch_struct``.  The sequence dim shards over the
+    ``model`` axis (sequence parallelism).  Dims that don't divide their
+    mesh axis stay whole (e.g. global_batch=1 for long_500k)."""
+    sizes = axis_sizes or {"data": 16, "model": 16, "pod": 2}
+
+    def ok(dim, ax):
+        return ax is not None and dim % sizes.get(ax, 1) == 0
+
+    def sp(shp, has_seq):
+        parts = []
+        if clients:
+            parts.append(client_axis if ok(shp[0], client_axis) else None)
+            ax = data_axis if client_axis != data_axis else None
+            parts.append(ax if len(shp) > 1 and ok(shp[1], ax) else None)
+        else:
+            parts.append(data_axis if ok(shp[0], data_axis) else None)
+        if has_seq and len(shp) > len(parts):
+            parts.append(seq_axis if ok(shp[len(parts)], seq_axis) else None)
+        parts += [None] * (len(shp) - len(parts))
+        return tuple(parts[:len(shp)])
+
+    return {k: sp(v.shape, k in ("tokens", "labels")
+                  and shape.kind != "decode")
+            for k, v in batch_struct(cfg, shape, clients).items()}
 
 
 def make_batch(cfg: ArchConfig, shape: ShapeConfig, seed: int,

@@ -19,7 +19,8 @@ package's chunked form returns it.  Serving's decode step is T = 1 with
 the cached state as ``s0``, through the same kernel, as the reference's
 families call ``chunked`` with ``chunk=1``.
 
-The reference's mesh pinning waits for multi-GPU.
+The reference's mesh pinning (over a ``model`` axis) is ROADMAP item 5b:
+a client of the port's mesh sits whole on its card.
 """
 from __future__ import annotations
 

@@ -790,3 +790,76 @@ def test_frontend_round_on_card_matches_cpu(card, arch):
     np.testing.assert_allclose(l1, l0, rtol=1e-5)
     for a, b in zip(T.leaves(p_card), T.leaves(p_cpu)):
         torch.testing.assert_close(a.cpu(), b, rtol=1e-4, atol=1e-4)
+
+
+# ---------------------------------------------------------------------------
+# the rank path: one client a card, NCCL
+# ---------------------------------------------------------------------------
+
+def _rank_rounds(mesh, cases, rounds):
+    """Each (schedule, strategy) case through the trainer on this rank
+    (qwen2-7b's smoke config, one client a card) -> {case: (losses, this
+    rank's slot on the host)}."""
+    cfg = smoke_config(get_arch("qwen2-7b"))
+    torch.backends.cuda.matmul.allow_tf32 = False
+    out = {}
+    for kind, strat in cases:
+        tr = SDFLMQTrainer(cfg, mesh.world, rounds, 2, 32, seed=0, mesh=mesh,
+                           schedule_kind=kind, strategy=strat)
+        ms = tr.run()
+        slot = (lambda t: t[0]) if mesh.world > 1 else (lambda t: t)
+        out[(kind, strat)] = ([m["loss"] for m in ms], T.tree_map(
+            lambda t: slot(t).cpu(), tr.state["params"]))
+    return out
+
+
+def _single_rounds(card, K, kind, strat, rounds):
+    cfg = smoke_config(get_arch("qwen2-7b"))
+    tr = SDFLMQTrainer(cfg, K, rounds, 2, 32, seed=0, device=card,
+                       schedule_kind=kind, strategy=strat)
+    ms = tr.run()
+    slot = (lambda t: t[0]) if K > 1 else (lambda t: t)
+    return [m["loss"] for m in ms], T.tree_map(lambda t: slot(t).cpu(),
+                                               tr.state["params"])
+
+
+def test_rank_path_at_world_1_equals_single_device(card):
+    """One NCCL rank (K = 1): two rounds equal the single-card K = 1
+    trainer's, losses and parameters, bit for bit."""
+    from repro_torch.launch import mesh as mesh_lib
+    cases = [("tree", "fedavg"), ("compressed", "fedavg")]
+    got = mesh_lib.spawn(_rank_rounds, 1, (cases, 2), device="cuda",
+                         timeout_s=600)[0]
+    for kind, strat in cases:
+        losses, params = _single_rounds(card, 1, kind, strat, 2)
+        assert got[(kind, strat)][0] == losses
+        for a, b in zip(T.leaves(got[(kind, strat)][1]), T.leaves(params)):
+            assert torch.equal(a, b)
+
+
+def test_rank_path_over_every_card_matches_one_card(card):
+    """K = the host's cards, one a rank: one round against the single-card
+    K-client round on card 0 -- bit for bit under ``compressed`` and
+    ``trimmed_mean``, within one bf16 ulp under ``flat`` and ``tree``; the
+    loss within 1e-6 relative."""
+    from repro_torch.launch import mesh as mesh_lib
+    K = torch.cuda.device_count()
+    if K < 2:
+        pytest.skip(f"needs two or more cards, this host has {K}")
+    cases = [("flat", "fedavg"), ("tree", "fedavg"),
+             ("compressed", "fedavg"), ("flat", "trimmed_mean")]
+    ranks = mesh_lib.spawn(_rank_rounds, K, (cases, 1), device="cuda",
+                           timeout_s=600)
+    for kind, strat in cases:
+        losses, want = _single_rounds(card, K, kind, strat, 1)
+        for got in ranks:
+            g_losses, g_params = got[(kind, strat)]
+            assert abs(g_losses[0] - losses[0]) <= 1e-6 * abs(losses[0])
+            for a, b in zip(T.leaves(g_params), T.leaves(want)):
+                if kind == "compressed" or strat == "trimmed_mean":
+                    assert torch.equal(a, b)
+                else:
+                    b32 = b.float()
+                    ulp = torch.exp2(torch.floor(torch.log2(
+                        b32.abs().clamp_min(2.0 ** -126))) - 7)
+                    assert ((a.float() - b32).abs() <= ulp).all()

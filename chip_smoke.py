@@ -32,9 +32,12 @@ mixtral-8x22b at 4 layers, whisper-small, internvl2-2b) each serve 8
 requests through ``ServeEngine``.  Last, the ``dist`` phase runs the rank
 path (one client a card, NCCL) over every card of the host: on one card
 two qwen2-7b rounds through the process group against the single-card
-K = 1 round, bit for bit; on several, one round of each schedule and
-strategy against the single-card round, and the schedules' time at 12
-of 28 layers.
+K = 1 round, bit for bit (a (1, 1) mesh: no model axis); on several,
+one round of each schedule and strategy against the single-card round,
+and the schedules' time at 12 of 28 layers; on four, also the ``model``
+axis (``phase_tp``: a client split over cards): one round of each
+schedule and strategy on a (2, 2) mesh against the single-card K = 2
+round, and qwen2-7b at all 28 layers on a (1, 4) and a (2, 2) mesh.
 Each phase prints JSON lines; then one line lists every kernel, one line
 gives the card's name and power limit as nvidia-smi reports them, and the
 last line is ``{"ok": true, "device": ...}``.  Any failure raises and
@@ -200,8 +203,9 @@ def phase_flash(torch, dev):
     """The flash kernel against its plain version (``attention_ref``) at
     the paths' shapes (qwen2: causal; hymba: window 1024; mixtral: 48 q and
     8 kv heads, window 4096) and at odd ones, then the gradient through
-    it.  The path shapes are timed beside the plain version and
-    ``scaled_dot_product_attention``; ``bound_share`` is the bound over the
+    it.  The path shapes, and qwen2-7b's local heads on a model axis of 4
+    and of 2 (7 q heads and 1 kv head, 14 and 2), are timed beside the
+    plain version and ``scaled_dot_product_attention``; ``bound_share`` is the bound over the
     kernel's time."""
     import torch.nn.functional as F
     from repro_torch.kernels.flash_attn import ops
@@ -221,6 +225,11 @@ def phase_flash(torch, dev):
          1024, 0),
         ("mixtral_window", 1, 2048, 2048, 48, 8, 128, torch.bfloat16, True,
          4096, 0),
+        # qwen2-7b's local heads on a model axis of 4 and of 2
+        ("tp_local_heads_m4", 1, 2048, 2048, 7, 1, 128, torch.bfloat16, True,
+         None, 0),
+        ("tp_local_heads_m2", 1, 2048, 2048, 14, 2, 128, torch.bfloat16,
+         True, None, 0),
     ]
     path_row = None
     for name, B, Sq, Sk, H, Kv, hd, dtype, causal, window, qo in cases:
@@ -238,7 +247,8 @@ def phase_flash(torch, dev):
                "causal": causal, "window": window, "q_offset": qo,
                "o_max_abs_err": o_err, "lse_max_abs_err": lse_err,
                "o_tol": o_tol, "lse_tol": lse_tol}
-        if name in ("path", "hymba_window", "mixtral_window"):
+        if name in ("path", "hymba_window", "mixtral_window",
+                    "tp_local_heads_m4", "tp_local_heads_m2"):
             flops = _flash_flops(B, Sq, Sk, H, hd, causal, window)
             nbytes = (q.numel() + k.numel() + v.numel() + o.numel()) \
                 * q.element_size() + lse.numel() * 4
@@ -1649,8 +1659,13 @@ def _dist_world1(torch, mesh) -> dict:
     from repro_torch.core.topology import AggSchedule
     from repro_torch.launch.train import SDFLMQTrainer
 
+    from repro_torch.dist import tensor_parallel as tpar
+
     cfg = get_arch(DIST_ARCH).replace(n_layers=1)
     dev = mesh.device
+    # a (1, 1) mesh: no model axis, so the plain model code runs
+    shape_ok = mesh.shape == {"data": 1, "model": 1} \
+        and tpar.axis_for(cfg, mesh) is None
     torch.cuda.reset_peak_memory_stats(dev)
     reset_launches()
     tr = SDFLMQTrainer(cfg, 1, ROUNDS, BATCH_PER_CLIENT, DIST_SEQ, seed=0,
@@ -1687,7 +1702,8 @@ def _dist_world1(torch, mesh) -> dict:
                 T.leaves(mine), T.leaves(bank))),
             "ms": start.elapsed_time(end)}
         del mine, bank
-    return {"losses": [m["loss"] for m in ms],
+    return {"mesh_shape": mesh.shape, "no_model_axis": shape_ok,
+            "losses": [m["loss"] for m in ms],
             "single_device_losses": [m["loss"] for m in ms1],
             "round_s": [m["time_s"] for m in ms], "state_equal": equal,
             "aggregate": aggregate, "launches": launches, "peak": peak}
@@ -1803,6 +1819,324 @@ def _dist_time(torch, mesh) -> list:
         del tr
     return rows
 
+# ---- the model axis (tensor parallelism inside a client) -----------------
+# leg (c): at one layer on a (2, 2) mesh, K = 2 clients of 2 ranks each,
+# one round of each case against the single-card K = 2 round on card 0
+TP_AGREE = [("tree", "fedavg"), ("flat", "fedavg"), ("rs_ag", "fedavg"),
+            ("compressed", "fedavg"), ("tree", "trimmed_mean"),
+            ("tree", "multi_krum")]
+TP_AGREE_WEIGHTS = (3.0, 5.0)      # the aggregation leg's sample counts
+# the whole round's loss against the single card: the row-parallel sums
+# round once in f32 where one GEMM rounds once; bf16 activations
+TP_LOSS_RTOL = 1e-3
+# leg (d): qwen2-7b at all 28 layers; (mesh, schedule) runs of 2 rounds
+TP_TIME = [((1, 4), "tree"), ((2, 2), "flat"), ((2, 2), "compressed")]
+TP_TIME_LAYERS = 28
+
+
+def _steps_beyond(torch, got, want) -> int:
+    """Elements of ``got`` more than one bf16 ulp and one int8
+    quantization step of their row (2 x the row's largest ``|want|`` /
+    127) from ``want``: ``compressed`` quantizes the model block's rows,
+    where the single card quantizes whole rows."""
+    from repro_torch import tree as T
+    n = 0
+    for a, b in zip(T.leaves(got), T.leaves(want)):
+        G = b.shape[-1] if b.dim() else 1
+        a, b = a.reshape(-1, G), b.reshape(-1, G)
+        step = max(1, (1 << 26) // G)
+        for r0 in range(0, b.shape[0], step):
+            x, y = a[r0:r0 + step].float(), b[r0:r0 + step].float()
+            ulp = torch.exp2(torch.floor(torch.log2(
+                y.abs().clamp_min(2.0 ** -126))) - 7)
+            q = 2 * y.abs().amax(dim=1, keepdim=True) / 127
+            n += int(((x - y).abs() > ulp + q).sum())
+    return n
+
+
+def _tp_agree(torch, mesh) -> list:
+    """Leg (c) on a (2, 2) mesh: one round of each ``TP_AGREE`` case
+    against the single-card K = 2 round that rank 0 runs on its card
+    first (its slot 0 broadcast to every rank, which compares its block);
+    then the aggregation alone, on the ranks' blocks of one bank, against
+    the single-card ``aggregate_params`` on the gathered block."""
+    import torch.distributed as dist
+    from repro_torch import tree as T
+    from repro_torch.configs.base import get_arch
+    from repro_torch.core import aggregation, fl_step
+    from repro_torch.core.clustering import build_tree
+    from repro_torch.core.topology import AggSchedule, compile_tree
+    from repro_torch.dist.sharding import local_block
+    from repro_torch.launch.train import SDFLMQTrainer
+
+    cfg = get_arch(DIST_ARCH).replace(n_layers=1)
+    K, M, dev = mesh.shape["data"], mesh.shape["model"], mesh.device
+    specs = T.leaves(fl_step.param_specs(cfg, {"data": 1, "model": M}))
+    shapes = [t.shape for t in T.leaves(
+        fl_step.abstract_state(cfg, 1)["params"])]
+    named = lambda ts: {f"{i:03d}": t for i, t in enumerate(ts)}
+    rows = []
+    for sched, strat in TP_AGREE:
+        kw = dict(seed=0, schedule_kind=sched, strategy=strat)
+        want = single = None
+        if mesh.rank == 0:
+            gc.collect()
+            torch.cuda.empty_cache()
+            one = SDFLMQTrainer(cfg, K, 1, BATCH_PER_CLIENT, DIST_SEQ,
+                                device=dev, **kw)
+            single = one.run()[0]
+            want = [t[0].clone() for t in T.leaves(one.state["params"])]
+            del one
+        single = mesh.broadcast(single and {
+            k: single[k] for k in ("loss", "level_groups")})
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+        reset_launches()
+        tr = SDFLMQTrainer(cfg, K, 1, BATCH_PER_CLIENT, DIST_SEQ, mesh=mesh,
+                           **kw)
+        m = tr.run()[0]
+        torch.cuda.synchronize(dev)
+        launches = read_launches()
+        got = named(t[0] for t in T.leaves(tr.state["params"]))
+        blocks = []
+        for i, (g, spec) in enumerate(zip(got.values(), specs)):
+            w = want[i] if want else torch.empty(shapes[i], dtype=g.dtype,
+                                                 device=dev)
+            dist.broadcast(w, src=0)
+            blocks.append(local_block(w, spec, mesh))
+        blocks = named(blocks)
+        row = {"schedule": sched, "strategy": strat, "loss": m["loss"],
+               "single_loss": single["loss"],
+               "level_groups": m["level_groups"],
+               "single_level_groups": single["level_groups"],
+               "time_s": m["time_s"], "aggregate_ms": m.get("aggregate_ms"),
+               "rank_ms": m["rank_ms"], "launches": launches,
+               "peak": torch.cuda.max_memory_allocated(dev),
+               "leaves": len(got), "checksum": _checksum(torch, got),
+               **_slot_compare(torch, got, blocks)}
+        if sched == "compressed":
+            row["beyond_ulp_and_step"] = _steps_beyond(torch, got, blocks)
+        rows.append(row)
+        del tr, want, got, blocks
+    # the aggregation alone: each rank's block of one bank (two clients
+    # drawn apart) against aggregate_params on the column's gathered block
+    gc.collect()
+    torch.cuda.empty_cache()
+    bank = fl_step.init_state(cfg, mesh, seed=1)["params"]
+    w = torch.tensor(TP_AGREE_WEIGHTS, device=dev)
+    clients = [f"c{i}" for i in range(K)]
+    tree = compile_tree(build_tree("s", clients, clients,
+                                   aggregator_ratio=0.5, levels=3))
+    for row, (sched, strat) in zip(rows, TP_AGREE):
+        schedule = tree if sched == "tree" else AggSchedule(sched, K)
+        mine = T.tree_map(torch.clone, bank)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        aggregation.aggregate_params(mine, w, schedule, strat, mesh=mesh)
+        end.record()
+        whole = T.tree_map(lambda t: aggregation._gathered_rows(
+            t.reshape(1, -1), K, mesh.data_group).view((K,) + t.shape[1:]),
+            bank)
+        aggregation.aggregate_params(whole, w, schedule, strat)
+        end.synchronize()
+        cmp = _slot_compare(torch, T.tree_map(lambda t: t[0], mine),
+                            T.tree_map(lambda t: t[0], whole))
+        row["aggregation_alone"] = {
+            "ms": start.elapsed_time(end), "exact": cmp["exact"],
+            "elements_differing": cmp["elements_differing"],
+            "beyond_sum_tolerance": cmp["beyond_sum_tolerance"],
+            "checksum": _checksum(torch, mine)}
+        del mine, whole
+    return rows
+
+
+def _tp_time(torch, mesh, sched) -> dict:
+    """Leg (d): two rounds of qwen2-7b at ``TP_TIME_LAYERS`` layers on
+    this mesh under ``sched``."""
+    from repro_torch import tree as T
+    from repro_torch.configs.base import get_arch
+    from repro_torch.launch.train import SDFLMQTrainer
+
+    cfg = get_arch(DIST_ARCH).replace(n_layers=TP_TIME_LAYERS)
+    K, dev = mesh.shape["data"], mesh.device
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    tr = SDFLMQTrainer(cfg, K, ROUNDS, BATCH_PER_CLIENT, DIST_SEQ, seed=0,
+                       mesh=mesh, schedule_kind=sched)
+    torch.cuda.synchronize(dev)
+    init_s = time.perf_counter() - t0
+    init_peak = torch.cuda.max_memory_allocated(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    reset_launches()
+    ms = tr.run()
+    torch.cuda.synchronize(dev)
+    leaves = T.leaves(tr.state["params"])
+    out = {"schedule": sched, "mesh": mesh.shape, "init_s": init_s,
+           "init_peak": init_peak,
+           "params_per_rank": sum(t.numel() for t in leaves),
+           "leaves": len(leaves),
+           "round_s": [m["time_s"] for m in ms],
+           "tokens_per_s": [m["tokens_per_s"] for m in ms],
+           "losses": [m["loss"] for m in ms],
+           "aggregate_ms_rank": [m["rank_ms"].get("aggregate_ms")
+                                 for m in ms],
+           "aggregate_ms_max": [m.get("aggregate_ms") for m in ms],
+           "model_collectives_ms_rank": [
+               m["rank_ms"].get("model_collectives_ms") for m in ms],
+           "model_collectives_ms_max": [m.get("model_collectives_ms")
+                                        for m in ms],
+           "peak": torch.cuda.max_memory_allocated(dev),
+           "launches": read_launches(),
+           "checksum": _checksum(torch, tr.state["params"])}
+    del tr
+    return out
+
+
+def _tp_rank(mesh, legs):
+    """One rank of the model-axis legs (a spawned process), with the
+    matmul settings of ``main``: ``tp_agree`` and each ``tp_time:<sched>``
+    in ``legs``."""
+    import torch
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    out = {"rank": mesh.rank, "shape": mesh.shape,
+           "device": torch.cuda.get_device_name(mesh.device)}
+    for leg in legs:
+        if leg == "tp_agree":
+            out[leg] = _tp_agree(torch, mesh)
+        else:
+            out[leg] = _tp_time(torch, mesh, leg.split(":")[1])
+    return out
+
+
+def _emit_tp_agree(ranks, add, faults):
+    """The ``tp_agree`` lines of a (2, 2) run and their checks."""
+    for i, (sched, strat) in enumerate(TP_AGREE):
+        rows = [r["tp_agree"][i] for r in ranks]
+        for r in rows:
+            add(r["launches"])
+        lead = rows[0]
+        # rank r = 2 d + m: the ranks of a model column hold one block
+        same = all(rows[r]["checksum"] == rows[r % 2]["checksum"]
+                   for r in range(4))
+        agg = [r["aggregation_alone"] for r in rows]
+        agg_same = all(agg[r]["checksum"] == agg[r % 2]["checksum"]
+                       for r in range(4))
+        rel = abs(lead["loss"] - lead["single_loss"]) / abs(
+            lead["single_loss"])
+        keys = ("exact", "max_abs_err", "elements_differing",
+                "beyond_1_bf16_ulp", "beyond_sum_tolerance",
+                "beyond_ulp_and_step", "finite")
+        emit({"phase": "tp_agree", "mesh": [2, 2], "schedule": sched,
+              "strategy": strat, "n_layers": 1,
+              "loss": lead["loss"], "single_card_loss": lead["single_loss"],
+              "loss_rel_err": rel, "level_groups": lead["level_groups"],
+              "rank": [{k: r.get(k) for k in keys} for r in rows],
+              "slots_identical_across_column": same,
+              "aggregation_alone": [{k: v for k, v in a.items()
+                                     if k != "checksum"} for a in agg],
+              "aggregation_alone_identical_across_column": agg_same,
+              "time_s": lead["time_s"], "aggregate_ms_max": lead[
+                  "aggregate_ms"],
+              "peak_rank": [r["peak"] for r in rows],
+              "launches_rank": [r["launches"] for r in rows]})
+        exact = sched != "compressed" and strat != "fedavg"
+        for r in rows:
+            a = r["aggregation_alone"]
+            if (not r["finite"] or rel > TP_LOSS_RTOL
+                    or lead["level_groups"] != lead["single_level_groups"]
+                    or (exact and not r["exact"])
+                    or (sched != "compressed" and r["beyond_sum_tolerance"])
+                    or r.get("beyond_ulp_and_step")
+                    or ((sched == "compressed" or exact)
+                        and not a["exact"])
+                    or a["beyond_sum_tolerance"]):
+                faults.append(f"tp_agree {sched}/{strat} rank: {r}")
+            want_qagg = r["leaves"] if sched == "compressed" else 0
+            got = r["launches"]
+            if (got["flash_fwd"] != 2 or got["qagg"] != want_qagg
+                    or got["fedavg"] or got["quantize"]
+                    or got["dequantize"]):
+                faults.append(f"tp_agree {sched}/{strat}: launches {got}")
+        if not same or not agg_same:
+            faults.append(f"tp_agree {sched}/{strat}: column blocks differ")
+
+
+def _emit_tp_time(shape, sched, rows, add, faults):
+    """A ``tp_time`` line and its checks."""
+    for r in rows:
+        add(r["launches"])
+    lead = rows[0]
+    M = shape[1]
+    same = all(rows[r]["checksum"] == rows[r % M]["checksum"]
+               for r in range(len(rows)))
+    emit({"phase": "tp_time", "mesh": list(shape), "schedule": sched,
+          "arch": DIST_ARCH, "n_layers": TP_TIME_LAYERS, "reduced": [],
+          "clients": shape[0], "batch_per_client": BATCH_PER_CLIENT,
+          "seq": DIST_SEQ, "rounds": ROUNDS,
+          "params_per_rank": [r["params_per_rank"] for r in rows],
+          "init_s_rank": [r["init_s"] for r in rows],
+          "init_peak_rank": [r["init_peak"] for r in rows],
+          "round_s": lead["round_s"], "tokens_per_s": lead["tokens_per_s"],
+          "losses": lead["losses"],
+          "aggregate_ms_rank": [r["aggregate_ms_rank"] for r in rows],
+          "aggregate_ms_max": lead["aggregate_ms_max"],
+          "model_collectives_ms_rank": [r["model_collectives_ms_rank"]
+                                        for r in rows],
+          "model_collectives_ms_max": lead["model_collectives_ms_max"],
+          "peak_rank": [r["peak"] for r in rows],
+          "flash_rank": [r["launches"]["flash_fwd"] for r in rows],
+          "qagg_rank": [r["launches"]["qagg"] for r in rows],
+          "slots_identical_across_column": same})
+    # forward and the remat recompute: 2 flash launches a layer a round
+    want_flash = 2 * TP_TIME_LAYERS * ROUNDS
+    want_qagg = lead["leaves"] * ROUNDS if sched == "compressed" else 0
+    if (not all(math.isfinite(x) for x in lead["losses"]) or not same
+            or max(r["peak"] for r in rows) >= CARD_BYTES
+            or any(r["launches"]["flash_fwd"] != want_flash
+                   or r["launches"]["qagg"] != want_qagg
+                   or r["launches"]["fedavg"] for r in rows)):
+        faults.append(f"tp_time {shape} {sched}: {rows}")
+
+
+def phase_tp(torch, dev) -> dict:
+    """The model axis over four cards: leg (d) ``tp_time`` on a (1, 4)
+    mesh, then on a (2, 2) one leg (c) ``tp_agree`` and leg (d).  Each
+    mesh's lines are printed as soon as it ends, before any check fails
+    the phase; returns the legs' launches, summed over the ranks."""
+    from repro_torch.launch import mesh as mesh_lib
+
+    launches, faults = {}, []
+
+    def add(got):
+        for k, v in got.items():
+            launches[k] = launches.get(k, 0) + v
+
+    for shape in ((1, 4), (2, 2)):
+        legs = [f"tp_time:{sched}" for sh, sched in TP_TIME if sh == shape]
+        if shape == (2, 2):
+            legs.insert(0, "tp_agree")
+        gc.collect()
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        ranks = mesh_lib.spawn(_tp_rank, shape[0], (legs,), model=shape[1],
+                               device="cuda", timeout_s=DIST_TIMEOUT_S)
+        emit({"phase": "tp_spawn", "mesh": list(shape), "legs": legs,
+              "wall_s": time.perf_counter() - t0})
+        if "tp_agree" in legs:
+            _emit_tp_agree(ranks, add, faults)
+        for sh, sched in TP_TIME:
+            if sh == shape:
+                _emit_tp_time(shape, sched, [r[f"tp_time:{sched}"]
+                                             for r in ranks], add, faults)
+    if faults:
+        raise AssertionError("\n".join(faults))
+    return launches
+
 
 def _dist_rank(mesh, legs):
     """One rank of ``phase_dist`` (a spawned process): the legs it is
@@ -1881,8 +2215,8 @@ def phase_dist(torch, dev) -> dict:
             "world": 1, "backend": ranks[0]["backend"], "arch": DIST_ARCH,
             "n_layers": 1, "clients": 1, "rounds": ROUNDS, "seq": DIST_SEQ,
             "wall_s": wall_s, **w1}})
-        if not w1["state_equal"] or w1["losses"] != \
-                w1["single_device_losses"]:
+        if not w1["state_equal"] or not w1["no_model_axis"] or \
+                w1["losses"] != w1["single_device_losses"]:
             raise AssertionError(f"dist: the rank path at world 1 differs "
                                  f"from the single-device round: {w1}")
         if not all(a["equal"] for a in w1["aggregate"].values()):
@@ -1970,6 +2304,8 @@ def phase_dist(torch, dev) -> dict:
                                     "link": link, "wall_s": wall_s}})
     if faults:
         raise AssertionError("\n".join(faults))
+    if world == 4:
+        add(phase_tp(torch, dev))
     return launches
 
 

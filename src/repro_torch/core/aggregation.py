@@ -79,8 +79,17 @@ whole slot (the reference's ``_weighted`` upcasts the whole tree).
   bit for bit the single card's.
 
 A dead client's rank stays in every collective with weight 0, as its
-mesh row does in the reference.  Collectives inside a client (the
-``model`` axis) are ROADMAP item 5b.
+mesh row does in the reference.
+
+On a (data, model) mesh each rank holds its client's model block of every
+leaf (``sharding.local_block``), and every collective above runs in its
+``data`` group, the D ranks of its model column, on that block: the
+reference's ``shard_map`` body, which sees the same block.  So the
+strategies that reduce over a whole leaf or tree reduce over the block, as
+the reference's do: multi_krum's norms and Gram (its choice of clients can
+differ from shard to shard), norm_clip's norm, ``compressed``'s per-row
+scales where the last dim is split.  Every rank of a column ends with the
+same block.
 """
 from __future__ import annotations
 
@@ -142,8 +151,9 @@ def aggregate_params(bank, weights: torch.Tensor, schedule: AggSchedule,
     may live on another device (a pinned host copy); chunks are brought to
     the bank's device as they are needed.
 
-    With ``mesh`` (a ``launch.mesh.Mesh``), ``bank`` is this rank's slot
-    (leading dim 1) and the aggregate runs across the ranks; every rank
+    With ``mesh`` (a ``launch.mesh.Mesh``), ``bank`` is this rank's block
+    (its client's slot, leading dim 1, and its model block of each leaf)
+    and the aggregate runs across its model column's ranks; every rank
     calls it with the same weights and schedule."""
     strat = check_strategy(strategy)
     if schedule.kind not in ("tree", "flat", "rs_ag", "compressed"):
@@ -342,22 +352,24 @@ def _compressed_mean(leaf: torch.Tensor, weights: torch.Tensor, values=None):
 # across the ranks of a mesh
 # --------------------------------------------------------------------------
 
-def _gather_into(out: torch.Tensor, x: torch.Tensor):
-    """``out`` (world * x.numel() elements) <- every rank's ``x``, in rank
-    order.  ``all_gather_into_tensor`` is in every torch this port runs
-    on; newer ones warn that it is deprecated."""
+def _gather_into(out: torch.Tensor, x: torch.Tensor, group=None):
+    """``out`` (group size * x.numel() elements) <- every rank's ``x`` in
+    ``group`` (the default group when None), in rank order.
+    ``all_gather_into_tensor`` is in every torch this port runs on; newer
+    ones warn that it is deprecated."""
     with warnings.catch_warnings():
         warnings.simplefilter("ignore", FutureWarning)
-        dist.all_gather_into_tensor(out, x.contiguous())
+        dist.all_gather_into_tensor(out, x.contiguous(), group=group)
 
 
-def _rs_ag(x: torch.Tensor, world: int):
-    """In-place sum of the contiguous f32 ``x`` over all ranks as a
-    reduce-scatter and an all-gather of the flattened tensor, padded to a
-    multiple of ``world``; an all-reduce below ``4 x world`` elements."""
+def _rs_ag(x: torch.Tensor, world: int, group=None):
+    """In-place sum of the contiguous f32 ``x`` over the ``world`` ranks of
+    ``group`` as a reduce-scatter and an all-gather of the flattened
+    tensor, padded to a multiple of ``world``; an all-reduce below
+    ``4 x world`` elements."""
     n = x.numel()
     if n < 4 * world:
-        dist.all_reduce(x)
+        dist.all_reduce(x, group=group)
         return
     m = -(-n // world)
     flat = x.view(-1)
@@ -366,55 +378,57 @@ def _rs_ag(x: torch.Tensor, world: int):
     part = buf.new_empty(m)
     with warnings.catch_warnings():
         warnings.simplefilter("ignore", FutureWarning)
-        dist.reduce_scatter_tensor(part, buf)
-    _gather_into(buf, part)
+        dist.reduce_scatter_tensor(part, buf, group=group)
+    _gather_into(buf, part, group)
     if buf is not flat:
         flat.copy_(buf[:n])
 
 
 def _sum(x: torch.Tensor, schedule: AggSchedule, mesh) -> torch.Tensor:
-    """``x`` (contiguous f32) summed in place over the ranks as
-    ``schedule`` lays the collectives out; returns ``x``."""
+    """``x`` (contiguous f32) summed in place over the rank's data group
+    as ``schedule`` lays the collectives out; returns ``x``."""
     if schedule.kind == "tree":
         for lvl, group in enumerate(mesh.subgroups(schedule.level_groups)):
             if lvl > 0:          # above level 0 only the heads contribute
-                x.mul_(float(schedule.head_masks[lvl - 1][mesh.rank]))
+                x.mul_(float(schedule.head_masks[lvl - 1][mesh.data_rank]))
             if group is not None:
                 dist.all_reduce(x, group=group)
     elif schedule.kind == "rs_ag":
-        _rs_ag(x, mesh.world)
+        _rs_ag(x, mesh.shape["data"], mesh.data_group)
     else:                        # flat; compressed's weight total
-        dist.all_reduce(x)
+        dist.all_reduce(x, group=mesh.data_group)
     return x
 
 
-def _gathered_rows(x: torch.Tensor, world: int) -> torch.Tensor:
-    """Every rank's (1, n) ``x`` stacked in rank order: (world, n)."""
+def _gathered_rows(x: torch.Tensor, world: int, group=None) -> torch.Tensor:
+    """Every rank's (1, n) ``x`` in ``group`` (``world`` ranks) stacked in
+    rank order: (world, n)."""
     out = x.new_empty((world, x.shape[1]))
-    _gather_into(out, x)
+    _gather_into(out, x, group)
     return out
 
 
 def _across_ranks(strat, leaves, weights, schedule, mesh, values):
-    """``aggregate_params`` on this rank's slot (see the module's "Across
+    """``aggregate_params`` on this rank's block (see the module's "Across
     ranks")."""
-    K = mesh.world
+    K, group = mesh.shape["data"], mesh.data_group
     if weights.shape != (K,):
-        raise ValueError(f"weights {tuple(weights.shape)} on a mesh of {K}")
+        raise ValueError(f"weights {tuple(weights.shape)} on a data axis "
+                         f"of {K}")
     if strat.reduction == "stack":
         local = values or (lambda i, c0, c1: _flat(leaves[i])[:, c0:c1])
-        rows = lambda i, c0, c1: _gathered_rows(local(i, c0, c1), K)
+        rows = lambda i, c0, c1: _gathered_rows(local(i, c0, c1), K, group)
         if isinstance(strat, MultiKrum):
             _krum(strat, leaves, weights, rows)
         else:
             _stack(strat, leaves, weights, rows)
         return
-    w = weights[mesh.rank:mesh.rank + 1].float()
+    w = weights[mesh.data_rank:mesh.data_rank + 1].float()
     total = _sum(w.clone(), schedule, mesh)
     for i, leaf in enumerate(leaves):
         cols = (lambda c0, c1, i=i: values(i, c0, c1)) if values else None
         if schedule.kind == "compressed":
-            _write(leaf, _gathered_mean(leaf, w, total, K, cols))
+            _write(leaf, _gathered_mean(leaf, w, total, K, cols, group))
             continue
         flat = _flat(leaf)
         for c0, c1 in _chunks(flat.shape[1]):
@@ -423,11 +437,11 @@ def _across_ranks(strat, leaves, weights, schedule, mesh, values):
 
 
 def _gathered_mean(leaf: torch.Tensor, w: torch.Tensor, total: torch.Tensor,
-                   K: int, cols=None) -> torch.Tensor:
-    """``_compressed_mean`` across ranks: this rank's weighted
-    contribution quantized per row, the int8 rows and scales of all ranks
-    gathered into (K, rows, cols), one qagg launch with unit weights,
-    divided by the weight total."""
+                   K: int, cols=None, group=None) -> torch.Tensor:
+    """``_compressed_mean`` across the K ranks of ``group``: this rank's
+    weighted contribution quantized per row, the int8 rows and scales of
+    all of them gathered into (K, rows, cols), one qagg launch with unit
+    weights, divided by the weight total."""
     G = leaf.shape[-1] if leaf.dim() > 1 else 1
     flat = _flat(leaf)
     R = flat.shape[1] // G
@@ -438,11 +452,13 @@ def _gathered_mean(leaf: torch.Tensor, w: torch.Tensor, total: torch.Tensor,
         qr, sr = quantize_int8(v.view(1, -1, G) * w)
         rows = slice(c0 // G, c1 // G)
         if rows.stop - rows.start == R:          # the leaf in one chunk
-            _gather_into(q, qr)
-            _gather_into(s, sr)
+            _gather_into(q, qr, group)
+            _gather_into(s, sr, group)
         else:
-            q[:, rows] = _gathered_rows(qr.view(1, -1), K).view(K, -1, G)
-            s[:, rows] = _gathered_rows(sr.view(1, -1), K).view(K, -1, 1)
+            q[:, rows] = _gathered_rows(qr.view(1, -1), K, group).view(
+                K, -1, G)
+            s[:, rows] = _gathered_rows(sr.view(1, -1), K, group).view(
+                K, -1, 1)
     summed = qagg(q, s, torch.ones((K,), dtype=torch.float32,
                                    device=leaf.device))
     del q, s

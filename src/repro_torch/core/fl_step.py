@@ -15,15 +15,19 @@ activations and gradients are alive at a time, and no client's weights are
 copied.  Client k owns index k of the bank; the coordinator's
 ``tree.client_order`` must be in the same order (launch/train.py keeps it).
 
-On a mesh (``launch.mesh``: one client a ``torch.distributed`` rank, the
-reference's ``data`` axis), each rank holds its client's slot of the bank
-(leading dim 1) and its optimizer state; the round trains that client,
-averages the loss over the ranks with one ``all_reduce``, and aggregates
-across the ranks (``aggregation.aggregate_params(..., mesh=)``).  The spec
-functions (``param_specs``, ``state_specs``, ...) are the reference's, as
-tuples of mesh-axis names; ``abstract_state`` builds the whole state on the
-meta device.  ``AdapterSpec`` waits for a later slice, and so do a
-``model`` axis inside a client and the ``shared`` mode (ROADMAP item 5b).
+On a mesh (``launch.mesh``: a (data, model) grid of ``torch.distributed``
+ranks, the reference's mesh axes), each rank holds its block of the bank:
+its client's slot (leading dim 1) and, on a ``model`` axis above 1, its
+part of every dim the specs put on ``model`` (``sharding.local_block``),
+with the optimizer state of that block.  The round trains the client
+tensor-parallel over its M ranks (``dist.tensor_parallel``, the dense
+family), averages the loss over the ``data`` group with one
+``all_reduce``, and aggregates each model block across its column
+(``aggregation.aggregate_params(..., mesh=)``).  The spec functions
+(``param_specs``, ``state_specs``, ...) are the reference's, as tuples of
+mesh-axis names; ``abstract_state`` builds a state on the meta device.
+``AdapterSpec`` waits for a later slice, and so does the ``shared`` mode
+(ROADMAP item 5b-iii).
 """
 from __future__ import annotations
 
@@ -43,6 +47,7 @@ from repro_torch.core.aggregation import aggregate_params, check_strategy
 from repro_torch.core.topology import AggSchedule
 from repro_torch.device import resolve
 from repro_torch.dist import sharding as shd
+from repro_torch.dist import tensor_parallel as tpar
 from repro_torch.models import model_api
 from repro_torch.optim.api import apply_updates, make_optimizer
 
@@ -176,15 +181,23 @@ def state_specs(cfg: ArchConfig, mesh, opt_name: str):
 
 
 def abstract_state(cfg: ArchConfig, mesh):
-    """The whole train state (every client's slot) as meta tensors: shapes
-    and dtypes, no storage.  ``state_specs`` says how a mesh splits it;
-    ``mesh`` may also be a client count."""
+    """A train state as meta tensors: shapes and dtypes, no storage.  For
+    a client count or a mesh shape (a dict), the whole state (every
+    client's slot), which ``state_specs`` splits; for a
+    ``launch.mesh.Mesh``, this rank's: its block of every leaf
+    (``sharding.local_block``) and that block's optimizer state."""
     n = mesh if _is_count(mesh) else n_clients_for(cfg, mesh)
     params = T.tree_map(lambda d: torch.empty(d.shape, dtype=d.dtype,
                                               device="meta"),
                         fl_param_decls(cfg, n))
     opt = make_optimizer(cfg)
-    return {"params": params, "opt": init_opt_state(opt, params, n),
+    if _is_count(mesh) or isinstance(mesh, dict):
+        return {"params": params, "opt": init_opt_state(opt, params, n),
+                "step": 0}
+    params = T.tree_map(lambda t, s: shd.local_block(t, s, mesh), params,
+                        param_specs(cfg, mesh))
+    return {"params": params, "opt": (_per_client_opt_state(opt, params)
+                                      if n > 1 else opt.init(params)),
             "step": 0}
 
 
@@ -240,10 +253,10 @@ def init_state(cfg: ArchConfig, n_clients, seed: int = 0,
     from client 0 so every client starts from the SAME frozen base.
 
     ``n_clients`` may be a mesh (``launch.mesh.Mesh``): then the state is
-    this rank's on the mesh's device, its client's slot of the bank that
-    ``init_state(cfg, K, seed)`` draws (leading dim 1 when K > 1; each
-    leaf drawn whole and the slot kept) and that client's optimizer
-    state."""
+    this rank's on the mesh's device, its block of the bank that
+    ``init_state(cfg, K, seed)`` draws (its client's slot, leading dim 1
+    when K > 1, and its part of each dim on the ``model`` axis; each leaf
+    drawn whole and the block kept) and that block's optimizer state."""
     opt = make_optimizer(cfg, total_steps=total_steps)
     frozen = _frozen_mask(cfg, update_filter)
     if not _is_count(n_clients):
@@ -259,11 +272,15 @@ def init_state(cfg: ArchConfig, n_clients, seed: int = 0,
 
 
 def _rank_clients(cfg: ArchConfig, mesh) -> int:
-    """K on a mesh of ranks, one client a rank (``replica`` mode)."""
+    """K on a mesh of ranks, one client a row of the data axis
+    (``replica`` mode); raises for what the mesh's model axis does not run
+    yet (``tensor_parallel.check_supported``)."""
     if cfg.fl.mode != "replica":
         raise NotImplementedError(
             f"FL mode {cfg.fl.mode!r} on a mesh of ranks: the shared mode "
-            "(FSDP, one client a pod) is ROADMAP item 5b")
+            "(FSDP, one client a pod) is ROADMAP item 5b-iii")
+    if mesh.shape["model"] > 1:
+        tpar.check_supported(cfg, mesh.shape["model"])
     return n_clients_for(cfg, mesh)
 
 
@@ -272,9 +289,10 @@ def _init_rank_state(cfg: ArchConfig, mesh, seed: int, opt, frozen):
     specs = T.leaves(param_specs(cfg, mesh))
     fro = T.leaves(frozen) if frozen is not None and n > 1 else None
 
-    def block(i, x):             # a frozen leaf: every rank takes slot 0
-        return x[0:1] if fro and fro[i] else \
-            shd.local_block(x, specs[i], mesh)
+    def block(i, x):    # a frozen leaf: every client's rank takes slot 0
+        if fro and fro[i]:
+            return shd.local_block(x[0:1], (None,) + specs[i][1:], mesh)
+        return shd.local_block(x, specs[i], mesh)
     params = shd.materialize(fl_param_decls(cfg, n), seed, mesh.device,
                              block)
     return {"params": params,
@@ -286,10 +304,14 @@ def _init_rank_state(cfg: ArchConfig, mesh, seed: int, opt, frozen):
 # Step builders
 # --------------------------------------------------------------------------
 
-def _make_client_fn(cfg: ArchConfig, opt, local_steps: int, frozen_mask=None):
+def _make_client_fn(cfg: ArchConfig, opt, local_steps: int, frozen_mask=None,
+                    tp=None):
     """One client's local training loop (E optimizer steps) on its slot of
     the bank.  ``params_c``/``opt_c`` are trees of tensors (views into the
-    bank and the moments) and are updated in place.
+    bank and the moments) and are updated in place.  With ``tp`` (a
+    ``tensor_parallel.ModelAxis``) they are this rank's blocks of the
+    client, and the step runs tensor-parallel; the optimizers are
+    elementwise, so a block's update is the whole update's block.
 
     ``frozen_mask`` (same structure as params, bool leaves, True = frozen)
     turns on partial updates: frozen leaves get zero gradients and are
@@ -303,7 +325,7 @@ def _make_client_fn(cfg: ArchConfig, opt, local_steps: int, frozen_mask=None):
             live = [p.detach().requires_grad_(not (frozen and frozen[i]))
                     for i, p in enumerate(leaves)]
             loss, _ = model_api.loss_fn(cfg, T.unflatten_like(params, live),
-                                        batch)
+                                        batch, tp)
             trainable = [p for p in live if p.requires_grad]
             got = iter(torch.autograd.grad(loss, trainable))
             grads = [next(got) if p.requires_grad else torch.zeros_like(p)
@@ -350,17 +372,17 @@ def _local_round(client_fn, state, batch, n: int):
     return torch.stack(losses).mean()
 
 
-def _rank_round(client_fn, state, batch, n: int):
+def _rank_round(client_fn, state, batch, n: int, mesh):
     """This rank's client's local steps on its slot -> the mean loss over
-    the ``n`` ranks (one ``all_reduce``, as the reference's
-    ``jnp.mean(losses)``)."""
+    the ``n`` clients (one ``all_reduce`` over the data group, as the
+    reference's ``jnp.mean(losses)``; a client's M ranks hold one loss)."""
     if n == 1:
         loss = client_fn(state["params"], state["opt"], state["step"], batch)
     else:
         loss = client_fn(_slot(state["params"], 0), _slot(state["opt"], 0),
                          state["step"], batch)
     total = loss.detach().float().reshape(1).clone()
-    dist.all_reduce(total)
+    dist.all_reduce(total, group=mesh.data_group)
     return total[0] / n
 
 
@@ -426,6 +448,17 @@ def pre_round_ref(bank):
     return T.tree_map(host, bank)
 
 
+def span_ms(spans: dict) -> dict:
+    """``{name_ms: device ms}`` of a round's spans, once the round has been
+    waited for; a span that is a list of event pairs (the model-group
+    collectives) gives their sum."""
+    out = {}
+    for name, val in sorted(spans.items()):
+        pairs = val if isinstance(val, list) else [val]
+        out[f"{name}_ms"] = sum(a.elapsed_time(b) for a, b in pairs)
+    return out
+
+
 @contextmanager
 def _span(spans: dict, name: str, dev: torch.device):
     """On the card, records a CUDA event pair around the block into
@@ -464,14 +497,19 @@ def build_fl_round_step(cfg: ArchConfig, n_clients,
 
     ``n_clients`` may be a mesh (``launch.mesh.Mesh``): the step is then
     this rank's, on the mesh's device, for a state from ``init_state(cfg,
-    mesh, ...)``; ``batch`` is this rank's client's (no client dim),
-    ``weights`` all K clients'; the loss is the mean over the ranks.  Every
-    rank builds the step, in the same order: a ``tree`` schedule's process
-    groups are made here."""
+    mesh, ...)``; ``batch`` is this rank's client's (no client dim; every
+    rank of a client gets the whole client batch), ``weights`` all K
+    clients'; the loss is the mean over the clients.  On a model axis
+    above 1 the client trains tensor-parallel, and on the card the round's
+    spans add ``model_collectives``, an event pair per collective inside
+    the client.  Every rank builds the step, in the same order: a ``tree``
+    schedule's process groups are made here."""
     strat = check_strategy(strategy)
     mesh = None if _is_count(n_clients) else n_clients
+    tp = None
     if mesh is not None:
         dev, n_clients = mesh.device, _rank_clients(cfg, mesh)
+        tp = tpar.axis_for(cfg, mesh)
         if n_clients > 1 and schedule.kind == "tree":
             mesh.subgroups(schedule.level_groups)
     else:
@@ -479,7 +517,7 @@ def build_fl_round_step(cfg: ArchConfig, n_clients,
     opt = make_optimizer(cfg, total_steps=total_steps)
     E = local_steps if local_steps is not None else cfg.fl.local_steps
     frozen_mask = _frozen_mask(cfg, update_filter)
-    client_fn = _make_client_fn(cfg, opt, E, frozen_mask=frozen_mask)
+    client_fn = _make_client_fn(cfg, opt, E, frozen_mask=frozen_mask, tp=tp)
 
     def _trainable(params):
         """The aggregated leaves: all, or under ``update_filter`` only the
@@ -502,7 +540,11 @@ def build_fl_round_step(cfg: ArchConfig, n_clients,
         if mesh is None:
             loss = _local_round(client_fn, state, batch, n_clients)
         else:
-            loss = _rank_round(client_fn, state, batch, n_clients)
+            if tp is not None and dev.type == "cuda":
+                tp.events = spans["model_collectives"] = []
+            loss = _rank_round(client_fn, state, batch, n_clients, mesh)
+            if tp is not None:
+                tp.events = None
         if n_clients > 1:
             with record_function("fl/aggregate"), \
                     _span(spans, "aggregate", dev):

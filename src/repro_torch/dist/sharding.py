@@ -11,11 +11,11 @@ of the decls and a mesh shape (``{"data": 4, "model": 1}``, or a
 ``launch.mesh.Mesh``): a spec is a tuple of mesh-axis names (None where a
 dim is whole), equal to the reference's ``PartitionSpec``.  The reference's
 ``shardings_for`` has no counterpart: torch has no ``NamedSharding``.  A
-rank takes its block of a tensor with ``local_block``; on the mesh the port
-runs today (``replica`` mode, a ``model`` axis of 1) that is its client's
-slot along the axis the ``clients`` spec names.  Placing the ``model``
-axis's blocks (tensor and expert parallelism) and the ``shared`` mode's
-FSDP blocks is ROADMAP item 5b.
+rank takes its block of a tensor with ``local_block``: in ``replica`` mode
+its client's slot along the dim the ``clients`` spec puts on ``data``, and
+its 1/M along every dim that names ``model`` (tensor parallelism,
+``dist/tensor_parallel.py``).  The ``shared`` mode's FSDP blocks are
+ROADMAP item 5b-iii.
 """
 from __future__ import annotations
 
@@ -191,12 +191,17 @@ def specs_for(tree, rules: dict, mesh):
     return T.tree_map(lambda d: _spec_for(d, rules, mesh), tree)
 
 
-def local_block(t: torch.Tensor, spec: tuple, mesh) -> torch.Tensor:
-    """This rank's block of the whole tensor ``t`` under ``spec``: along
-    each dim that names ``data``, the rank's 1/world of it (a view).  Dims
-    on the ``model`` axis stay whole: the mesh's ``model`` axis is 1."""
+def local_block(t: torch.Tensor, spec: tuple, mesh,
+                rank: int | None = None) -> torch.Tensor:
+    """The block of the whole tensor ``t`` under ``spec`` that a rank of
+    ``mesh`` holds (a view): along each dim that names an axis of the mesh,
+    the rank's part of it, index ``d`` of D on ``data`` and ``m`` of M on
+    ``model``, where ``rank = d * M + m`` (this rank's unless given)."""
+    sizes = mesh_shape(mesh)
+    d, m = divmod(mesh.rank if rank is None else rank, sizes["model"])
+    at = {"data": d, "model": m}
     for dim, ax in enumerate(spec):
-        if ax == "data":
-            n = t.shape[dim] // mesh.world
-            t = t.narrow(dim, mesh.rank * n, n)
+        if ax in at and sizes[ax] > 1:
+            n = t.shape[dim] // sizes[ax]
+            t = t.narrow(dim, at[ax] * n, n)
     return t

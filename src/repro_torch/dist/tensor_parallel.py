@@ -1,0 +1,264 @@
+"""Tensor parallelism over the mesh's ``model`` axis inside a client, for
+the dense decoder family.
+
+The reference has no file for this: it declares each parameter's logical
+axes (``vocab``, ``heads``, ``kv_heads`` and ``mlp`` map to ``model``,
+``dist/sharding.rules_for``), and GSPMD's partitioner splits the math and
+inserts the collectives.  Here the split is written out, in the usual
+column- and row-parallel form, over the process group of the client's M
+ranks (``launch.mesh.Mesh.model_group``):
+
+* a column-parallel projection (``wq``/``wk``/``wv`` and their biases,
+  ``w_gate``/``w_up``, the output table's vocab rows) takes its input
+  through ``copy_to_model``: identity forward, all-reduce of the input's
+  gradient backward;
+* a row-parallel projection (``wo``, ``w_down``) computes its partial
+  product in f32 and all-reduces it (``row_parallel``); its backward is
+  the plain product's.  The reduction runs in f32: each element is then
+  rounded to bf16 once, after the sum, as the single device's one GEMM
+  rounds it (a bf16 all-reduce would round each partial first).  At
+  qwen2-7b's (2048, 3584) activations that is 29 MB an all-reduce;
+* the embedding is vocab-parallel (``embed_lookup``: each rank looks up
+  the tokens in its rows, zeros elsewhere, then an all-reduce), and so is
+  the cross-entropy over the padded vocab (``cross_entropy``: the max, the
+  sum of exponentials and the label's logit, each reduced over the model
+  axis, all in f32), the same function as ``model_api.cross_entropy``.
+
+Every activation, and every activation's gradient, is then whole and equal
+on the client's ranks, and a replicated weight (the norms) gets its whole
+gradient on each.  Where ``kv_heads`` stays whole while ``heads`` is split
+(fewer kv heads than ranks, ``_spec_for``'s rule), a rank's q heads all
+read one kv head (q head h reads kv head ``h // (H / Kv)``), which it
+selects; those weights (``wk``, ``wv``, ``bk``, ``bv``) take
+``copy_to_model`` too, so each gets the sum of its ranks' parts: its
+gradient counted once.
+
+With a model axis of 1 there is no :class:`ModelAxis` (``axis_for``
+returns None) and the model runs its plain code.  Families, optimizers and
+modes that a model axis does not reach yet raise ``NotImplementedError``
+naming their ROADMAP item (``check_supported``).
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+import torch.distributed as dist
+
+from repro_torch.configs.base import ArchConfig
+
+# family -> the ROADMAP item that puts it on the model axis
+_FAMILY_ITEM = {"moe": "5b-ii (expert parallelism)",
+                "rwkv": "5b-iv (RWKV6 and Hymba on the model axis)",
+                "hybrid": "5b-iv (RWKV6 and Hymba on the model axis)",
+                "encdec": "5b-vii (encoder-decoder and VLM on the model "
+                          "axis)",
+                "vlm": "5b-vii (encoder-decoder and VLM on the model axis)"}
+
+
+def _splits(n: int, size: int) -> bool:
+    """Whether a dim of ``n`` takes a mesh axis of ``size`` (the rule of
+    ``sharding._spec_for``)."""
+    return n >= size and n % size == 0
+
+
+def check_supported(cfg: ArchConfig, size: int):
+    """Raises ``NotImplementedError``, naming the ROADMAP item, for what a
+    model axis of ``size`` > 1 does not run yet."""
+    if cfg.family in _FAMILY_ITEM:
+        raise NotImplementedError(
+            f"family {cfg.family!r} on a model axis of {size}: ROADMAP item "
+            f"{_FAMILY_ITEM[cfg.family]}")
+    if cfg.fl.mode != "replica":
+        raise NotImplementedError(
+            f"FL mode {cfg.fl.mode!r} on a model axis of {size}: the shared "
+            "mode (FSDP, one client a pod) is ROADMAP item 5b-iii")
+    if cfg.optimizer == "adafactor":
+        raise NotImplementedError(
+            f"Adafactor on a model axis of {size}: its factor means and its "
+            "whole-leaf RMS clip span the split dims; ROADMAP item 5b-vi")
+    from repro_torch.models.layers import pad_vocab
+    whole = [name for name, n in (("heads", cfg.n_heads), ("mlp", cfg.d_ff),
+                                  ("vocab", pad_vocab(cfg.vocab)))
+             if not _splits(n, size)]
+    if whole:
+        raise NotImplementedError(
+            f"{cfg.name}: {', '.join(whole)} would stay whole on a model "
+            f"axis of {size}; tensor parallelism splits heads, mlp and vocab")
+    group, local = cfg.n_heads // cfg.n_kv_heads, cfg.n_heads // size
+    if not _splits(cfg.n_kv_heads, size) and group % local:
+        raise NotImplementedError(
+            f"{cfg.name} on a model axis of {size}: a rank's {local} q heads "
+            f"would read parts of two groups of {group}")
+
+
+class ModelAxis:
+    """A client's model axis as the dense decoder sees it: the process
+    group of its M ranks, this rank's index ``rank`` in it, and the global
+    head counts.  ``events``, when a list, collects a CUDA event pair
+    around every collective (the round step reads their time)."""
+
+    def __init__(self, group, size: int, rank: int, n_heads: int,
+                 n_kv: int):
+        self.group, self.size, self.rank = group, size, rank
+        self.n_heads, self.n_kv = n_heads, n_kv
+        self.kv_split = _splits(n_kv, size)
+        self.events: Optional[list] = None
+
+    def all_reduce(self, x: torch.Tensor, op=dist.ReduceOp.SUM):
+        """In-place all-reduce of ``x`` over the model group."""
+        if self.events is None or x.device.type != "cuda":
+            dist.all_reduce(x, op=op, group=self.group)
+            return x
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        dist.all_reduce(x, op=op, group=self.group)
+        end.record()
+        self.events.append((start, end))
+        return x
+
+    def sum_f32(self, x: torch.Tensor) -> torch.Tensor:
+        """``x`` summed over the model group, in f32 (a new tensor)."""
+        return self.all_reduce(x.to(torch.float32, copy=True).contiguous())
+
+
+def axis_for(cfg: ArchConfig, mesh) -> Optional[ModelAxis]:
+    """The model axis of ``mesh`` for ``cfg``, or None (no mesh, or a
+    model axis of 1).  Raises for what it does not run yet."""
+    if mesh is None or mesh.shape["model"] == 1:
+        return None
+    size = mesh.shape["model"]
+    check_supported(cfg, size)
+    return ModelAxis(mesh.model_group, size, mesh.model_rank, cfg.n_heads,
+                     cfg.n_kv_heads)
+
+
+# --------------------------------------------------------------------------
+# the collectives, as autograd Functions
+# --------------------------------------------------------------------------
+
+class _CopyToModel(torch.autograd.Function):
+    """Identity forward; the gradient is summed over the model group."""
+
+    @staticmethod
+    def forward(ctx, x, axis):
+        ctx.axis = axis
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.axis.sum_f32(g).to(g.dtype), None
+
+
+class _ReduceFromModel(torch.autograd.Function):
+    """Sum over the model group in f32, cast to ``dtype``; identity
+    backward (every rank's part has the sum's gradient)."""
+
+    @staticmethod
+    def forward(ctx, x, axis, dtype):
+        ctx.dtype = x.dtype
+        return axis.sum_f32(x).to(dtype)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g.to(ctx.dtype), None, None
+
+
+def _mm_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``a @ b`` (2-D) with an f32 result: on a card, bf16 or f16 operands
+    go through the GEMM with an f32 output (no rounding to bf16); on the
+    CPU, the product of the operands in f32 (the same value)."""
+    if a.device.type == "cuda" and a.dtype in (torch.bfloat16,
+                                               torch.float16):
+        return torch.mm(a, b, out_dtype=torch.float32)
+    return a.float() @ b.float()
+
+
+class _RowParallel(torch.autograd.Function):
+    """``x @ w`` where x's last dim and w's rows are this rank's part of
+    the contraction: the partial product in f32, summed over the model
+    group, cast to x's dtype.  The backward is the plain product's
+    (``g @ w.T``, ``x.T @ g`` in x's dtype); g is equal on every rank."""
+
+    @staticmethod
+    def forward(ctx, x, w, axis):
+        ctx.save_for_backward(x, w)
+        x2 = x.reshape(-1, x.shape[-1])
+        y = axis.all_reduce(_mm_f32(x2, w))
+        return y.to(x.dtype).view(*x.shape[:-1], w.shape[-1])
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w = ctx.saved_tensors
+        g2 = g.reshape(-1, g.shape[-1]).to(x.dtype)
+        dx = (g2 @ w.t()).view(x.shape)
+        dw = x.reshape(-1, x.shape[-1]).t() @ g2
+        return dx, dw, None
+
+
+def copy_to_model(x: torch.Tensor, axis: ModelAxis) -> torch.Tensor:
+    return _CopyToModel.apply(x, axis)
+
+
+def reduce_from_model(x: torch.Tensor, axis: ModelAxis,
+                      dtype=None) -> torch.Tensor:
+    return _ReduceFromModel.apply(x, axis, dtype or x.dtype)
+
+
+def row_parallel(x: torch.Tensor, w: torch.Tensor,
+                 axis: ModelAxis) -> torch.Tensor:
+    return _RowParallel.apply(x, w, axis)
+
+
+# --------------------------------------------------------------------------
+# vocab-parallel embedding and loss
+# --------------------------------------------------------------------------
+
+def _local_ids(ids: torch.Tensor, rows: int, axis: ModelAxis):
+    """(ids shifted into this rank's ``rows`` vocab rows, clamped; the
+    mask of the ids that fall in them)."""
+    t = ids.long() - axis.rank * rows
+    ok = (t >= 0) & (t < rows)
+    return t.clamp(0, rows - 1), ok
+
+
+def embed_lookup(table: torch.Tensor, tokens: torch.Tensor,
+                 axis: ModelAxis) -> torch.Tensor:
+    """Rows of the vocab-split ``table`` for ``tokens``: each rank looks up
+    the tokens in its rows (zeros for the others), then the sum over the
+    model group, which holds the one row (exact)."""
+    t, ok = _local_ids(tokens, table.shape[0], axis)
+    rows = torch.where(ok[..., None], table[t], torch.zeros(
+        (), dtype=table.dtype, device=table.device))
+    return reduce_from_model(rows, axis)
+
+
+def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
+                  axis: ModelAxis) -> torch.Tensor:
+    """``model_api.cross_entropy`` over vocab-split ``logits`` (B, S, V/M):
+    the stop-gradient max, the sum of exponentials and the label's logit,
+    each reduced over the model group, in f32."""
+    lf = logits.float()
+    m = axis.all_reduce(lf.amax(dim=-1, keepdim=True).detach(),
+                        dist.ReduceOp.MAX)
+    lse = torch.log(reduce_from_model(torch.exp(lf - m).sum(dim=-1), axis)) \
+        + m[..., 0]
+    t, ok = _local_ids(labels, lf.shape[-1], axis)
+    picked = lf.gather(-1, t[..., None])[..., 0]
+    label_logit = reduce_from_model(torch.where(ok, picked, 0.0), axis)
+    return (lse - label_logit).mean()
+
+
+# --------------------------------------------------------------------------
+# attention's kv heads
+# --------------------------------------------------------------------------
+
+def kv_index(axis: ModelAxis, local_heads: int) -> Optional[torch.Tensor]:
+    """Where ``kv_heads`` stays whole: the one kv head this rank's
+    ``local_heads`` q heads read (``check_supported`` holds them in one
+    group), as an index into the whole kv axis; None where kv is split."""
+    if axis.kv_split:
+        return None
+    return torch.tensor([axis.rank * local_heads
+                         // (axis.n_heads // axis.n_kv)])

@@ -17,13 +17,16 @@ Wires the whole stack together:
 Round steps are cached per schedule signature, as the reference caches its
 compiled steps.
 
-On a mesh (``mesh=``, ``--data-mesh N``: one client a rank, rank r on
-``cuda:r``) rank 0 alone runs the control plane, since its stats (the
-round's wall-clock time among them) drive the role optimizer, and each
-round broadcasts the schedule and the weights to the other ranks.  Rank r
-trains on ``FederatedTokens.client_batch(r, ...)``, row r of the global
-batch.  Checkpoints keep the single-device format: rank 0 gathers every
-client's slot on save, and scatters slot r to rank r on restore.
+On a mesh (``mesh=``, ``--data-mesh D [--model-mesh M]``: client d on
+ranks ``d*M .. d*M + M - 1``, rank r on ``cuda:r``) rank 0 alone runs the
+control plane, since its stats (the round's wall-clock time among them)
+drive the role optimizer, and each round broadcasts the schedule and the
+weights to the other ranks.  Every rank of client d trains on
+``FederatedTokens.client_batch(d, ...)``, row d of the global batch; with
+M > 1 the client's dense layers are split over its ranks (tensor
+parallelism).  Checkpoints keep the single-device format: rank 0 gathers
+every rank's block of every leaf on save and assembles the whole state,
+and scatters each rank's block back on restore.
 
 Usage:
     PYTHONPATH=src python -m repro_torch.launch.train --arch qwen2-7b \
@@ -34,6 +37,10 @@ Usage:
     # or one process a rank under torchrun
     PYTHONPATH=src torchrun --nproc-per-node 4 -m repro_torch.launch.train \
         --data-mesh 4
+    # 2 clients, each split over 2 ranks (4 processes; WORLD_SIZE = D x M
+    # under torchrun)
+    PYTHONPATH=src python -m repro_torch.launch.train --smoke --data-mesh 2 \
+        --model-mesh 2 [--device cpu]
 """
 from __future__ import annotations
 
@@ -53,13 +60,16 @@ from repro_torch.ckpt.manager import CheckpointManager
 from repro_torch.configs.base import get_arch, smoke_config
 from repro_torch.core.aggregation import _chunks
 from repro_torch.core.fl_step import (abstract_state, build_fl_round_step,
-                                      init_state)
+                                      init_state, span_ms, state_specs)
 from repro_torch.core.stats import StatsSimulator
 from repro_torch.core.topology import AggSchedule, compile_tree
 from repro_torch.data.federated import FederatedTokens
 from repro_torch.device import resolve
+from repro_torch.dist import tensor_parallel as tpar
+from repro_torch.dist.sharding import local_block
 from repro_torch.ft.failures import FailurePlan
 from repro_torch.launch import mesh as mesh_lib
+from repro_torch.optim.api import make_optimizer
 
 
 class SDFLMQTrainer:
@@ -69,9 +79,10 @@ class SDFLMQTrainer:
                  failure_plan: FailurePlan | None = None,
                  strategy: str = "fedavg",
                  update_filter=None, device="cuda", mesh=None):
-        if mesh is not None and n_clients != mesh.world:
-            raise ValueError(f"{n_clients} clients on a mesh of {mesh.world} "
-                             "ranks: one client a rank")
+        if mesh is not None and n_clients != mesh.shape["data"]:
+            raise ValueError(f"{n_clients} clients on a mesh of shape "
+                             f"{mesh.shape}: one client a row of its data "
+                             "axis")
         self.mesh = mesh
         self.lead = mesh is None or mesh.rank == 0   # runs the control plane
         self.device = mesh.device if mesh is not None else resolve(device)
@@ -98,7 +109,7 @@ class SDFLMQTrainer:
         if self.ckpt:
             # raise before round 0 (a mesh's checkpoint holds every slot)
             check_leaf_sizes(self.state if mesh is None
-                             else abstract_state(cfg, mesh))
+                             else abstract_state(cfg, n_clients))
             if mesh is not None:
                 self.start_round = self._restore_mesh()
             else:
@@ -132,39 +143,46 @@ class SDFLMQTrainer:
         self.clients = self.session.participants
         assert self.session.state == "running"
 
-    # ---- checkpoints on a mesh: every slot through rank 0 ---------------
-    def _slot_pieces(self, t):
-        """(1, n) view of a rank's leaf and its chunks."""
-        flat = t.reshape(1, -1)
-        return flat, _chunks(flat.shape[1])
+    # ---- checkpoints on a mesh: every block through rank 0 -------------
+    def _leaves(self):
+        """Every leaf of this rank's state beside the whole state's (meta)
+        and its spec."""
+        specs = state_specs(self.cfg, self.mesh,
+                            make_optimizer(self.cfg).name)
+        return zip(T.leaves(self.state),
+                   T.leaves(abstract_state(self.cfg, self.n)),
+                   T.leaves(specs))
 
     def _gathered_state(self):
-        """On rank 0, the single-device state on the host (every client's
-        slot, gathered chunk by chunk); None on the others."""
-        K, lead = self.n, self.mesh.rank == 0
+        """On rank 0, the single-device state on the host: every rank's
+        block of every leaf, gathered chunk by chunk and put in its place
+        (``local_block`` of the whole leaf); None on the others."""
+        mesh, lead = self.mesh, self.mesh.rank == 0
         out = []
-        for t in T.leaves(self.state):
+        for t, whole, spec in self._leaves():
             if not torch.is_tensor(t):
                 out.append(t)
                 continue
-            flat, chunks = self._slot_pieces(t)
-            host = torch.empty((K, flat.shape[1]), dtype=t.dtype) \
-                if lead else None
-            for c0, c1 in chunks:
-                piece = flat[:, c0:c1].contiguous()
-                parts = [torch.empty_like(piece) for _ in range(K)] \
+            flat = t.view(-1)
+            blocks = [torch.empty(flat.shape, dtype=t.dtype)
+                      for _ in range(mesh.world)] if lead else None
+            for c0, c1 in _chunks(flat.numel()):
+                piece = flat[c0:c1].contiguous()
+                parts = [torch.empty_like(piece) for _ in range(mesh.world)] \
                     if lead else None
                 dist.gather(piece, parts, dst=0)
-                if lead:
-                    for k, p in enumerate(parts):
-                        host[k, c0:c1].copy_(p[0])
-            out.append(host.view((K,) + tuple(t.shape[1:]) if K > 1
-                                 else t.shape) if lead else None)
+                for blk, p in zip(blocks or [], parts or []):
+                    blk[c0:c1].copy_(p)
+            if lead:
+                host = torch.empty(whole.shape, dtype=t.dtype)
+                for r, blk in enumerate(blocks):
+                    local_block(host, spec, mesh, r).copy_(blk.view(t.shape))
+            out.append(host if lead else None)
         return T.unflatten_like(self.state, out) if lead else None
 
     def _restore_mesh(self) -> int:
-        """Rank 0 reads the newest checkpoint and scatters slot r to rank
-        r; returns the round to start from."""
+        """Rank 0 reads the newest checkpoint and scatters each rank's
+        block of every leaf to it; returns the round to start from."""
         mesh, K = self.mesh, self.n
         host = found = None
         if mesh.rank == 0:
@@ -178,17 +196,18 @@ class SDFLMQTrainer:
             return 0
         meta, self.state["step"] = found
         src = T.leaves(host) if mesh.rank == 0 else None
-        for i, t in enumerate(T.leaves(self.state)):
+        for i, (t, _, spec) in enumerate(self._leaves()):
             if not torch.is_tensor(t):
                 continue
-            flat, chunks = self._slot_pieces(t)
-            whole = src[i].reshape(K, -1) if src else None
-            for c0, c1 in chunks:
-                piece = torch.empty_like(flat[:, c0:c1])
-                parts = [whole[k:k + 1, c0:c1].to(t.device)
-                         for k in range(K)] if src else None
+            flat = t.view(-1)
+            blocks = [local_block(src[i], spec, mesh, r).reshape(-1)
+                      for r in range(mesh.world)] if src else None
+            for c0, c1 in _chunks(flat.numel()):
+                piece = torch.empty_like(flat[c0:c1])
+                parts = [b[c0:c1].to(t.device) for b in blocks] \
+                    if blocks else None
                 dist.scatter(piece, parts, src=0)
-                flat[:, c0:c1].copy_(piece)
+                flat[c0:c1].copy_(piece)
         return int(meta["step"])
 
     def _save(self, step: int, loss: float):
@@ -242,7 +261,7 @@ class SDFLMQTrainer:
             with record_function("train/batch"):
                 # one client on this device (a rank, or K = 1): its own
                 # batch, with no client dim, as its state has none
-                who = mesh.rank if mesh is not None else (
+                who = mesh.data_rank if mesh is not None else (
                     0 if self.n == 1 else None)
                 batch = self.data.global_batch(
                     self.n, self.batch_per_client, self.seq, r) \
@@ -251,15 +270,15 @@ class SDFLMQTrainer:
             self.state, m = step(self.state, batch, self.weights)
             loss = float(m["loss"])          # waits for the device
             dt = time.perf_counter() - t0
-            # device ms of the round's spans (aggregate, ref), card only;
-            # on a mesh the most any rank took, and its peak memory
-            span_ms = {f"{k}_ms": a.elapsed_time(b)
-                       for k, (a, b) in sorted(m["spans"].items())}
+            # device ms of the round's spans (aggregate, ref, the model
+            # group's collectives), card only; on a mesh the most any rank
+            # took, and its peak memory
+            spans = span_ms(m["spans"])
             peak = torch.cuda.max_memory_allocated(self.device) \
                 if cuda else None
-            rank_ms = span_ms
+            rank_ms = spans
             if mesh is not None and cuda:
-                span_ms = {k: mesh.all_max(v) for k, v in span_ms.items()}
+                spans = {k: mesh.all_max(v) for k, v in spans.items()}
                 peak = int(mesh.all_max(peak))
             tokens = self.n * self.batch_per_client * self.seq \
                 * self.cfg.fl.local_steps
@@ -268,7 +287,7 @@ class SDFLMQTrainer:
                 "tokens_per_s": tokens / dt,
                 "schedule": schedule.signature(),
                 "level_groups": schedule.level_groups,
-                "n_clients": n_alive, **span_ms,
+                "n_clients": n_alive, **spans,
                 "max_memory_allocated": peak,
                 **({"rank_ms": rank_ms} if mesh is not None else {})})
             if self.ckpt and self.ckpt.should_save(r + 1):
@@ -312,42 +331,54 @@ def main(argv=None):
     ap.add_argument("--device", default="cuda",
                     help="torch device: cuda (kernels) or cpu (plain versions)")
     ap.add_argument("--data-mesh", type=int, default=0,
-                    help="ranks on the mesh's data axis, one client each, "
-                         "rank r on cuda:r (gloo with --device cpu); 0 "
-                         "keeps every client on one device")
+                    help="the mesh's data axis, one client a row, rank r "
+                         "on cuda:r (gloo with --device cpu); 0 keeps "
+                         "every client on one device")
     ap.add_argument("--model-mesh", type=int, default=1,
-                    help="the model axis: 1 (tensor parallelism inside a "
-                         "client is ROADMAP item 5b)")
+                    help="the mesh's model axis: ranks a client, its dense "
+                         "layers split over them (tensor parallelism); "
+                         "data x model ranks in all")
     args = ap.parse_args(argv)
-    mesh_lib.check_axes(args.model_mesh)
-    if args.data_mesh or mesh_lib.in_torchrun():
-        world = int(os.environ.get("WORLD_SIZE", args.data_mesh))
-        if args.clients not in (None, world) or args.data_mesh not in (
-                0, world):
-            raise ValueError(f"--clients {args.clients} and --data-mesh "
-                             f"{args.data_mesh} on {world} ranks: one "
-                             "client a rank")
-        args.clients = world
+    M = args.model_mesh
+    mesh_lib.check_axes(M)
+    if M > 1:                       # before any rank starts
+        tpar.check_supported(_config(args), M)
+    if args.data_mesh or M > 1 or mesh_lib.in_torchrun():
+        world = int(os.environ.get(
+            "WORLD_SIZE", (args.data_mesh or args.clients or 1) * M))
+        data = world // M
+        if world % M or args.clients not in (None, data) or \
+                args.data_mesh not in (0, data):
+            raise ValueError(f"--clients {args.clients}, --data-mesh "
+                             f"{args.data_mesh} and --model-mesh {M} on "
+                             f"{world} ranks: one client a row of the "
+                             "data axis")
+        args.clients = data
         if mesh_lib.in_torchrun():
-            mesh = mesh_lib.mesh_from_env(device=args.device)
+            mesh = mesh_lib.mesh_from_env(M, device=args.device)
             _run(mesh, args)
             mesh.close()
         else:
-            mesh_lib.spawn(_run, world, (args,), device=args.device)
+            mesh_lib.spawn(_run, data, (args,), model=M, device=args.device)
         return
     args.clients = args.clients or 4
     _run(None, args)
 
 
-def _run(mesh, args):
-    """The CLI's trainer, on one device or as one rank; rank 0 prints."""
+def _config(args):
+    """The CLI's architecture config, in ``replica`` mode."""
     cfg = get_arch(args.arch)
     if args.smoke:
         cfg = smoke_config(cfg)
-    cfg = cfg.replace(fl=cfg.fl.__class__(
+    return cfg.replace(fl=cfg.fl.__class__(
         mode="replica", local_steps=args.local_steps,
         aggregator_ratio=cfg.fl.aggregator_ratio, levels=cfg.fl.levels,
         schedule=args.schedule, role_policy=cfg.fl.role_policy))
+
+
+def _run(mesh, args):
+    """The CLI's trainer, on one device or as one rank; rank 0 prints."""
+    cfg = _config(args)
     trainer = SDFLMQTrainer(cfg, args.clients, args.rounds,
                             args.batch_per_client, args.seq,
                             ckpt_dir=args.ckpt_dir,

@@ -13,6 +13,11 @@ and keeps nothing for a backward.
 
 ``decode_attention`` attends one new token to a ring-buffer cache; it is
 plain PyTorch, as the reference computes it outside any Pallas kernel.
+
+``project_qkv`` and ``project_out`` take an optional ``tp``
+(``dist.tensor_parallel.ModelAxis``): the rank's local heads, projected
+column-parallel, and the output projection row-parallel; the attention
+between them runs on the local heads unchanged.
 """
 from __future__ import annotations
 
@@ -21,6 +26,7 @@ from typing import Optional
 
 import torch
 
+from repro_torch.dist import tensor_parallel as tpar
 from repro_torch.dist.sharding import decl
 from repro_torch.kernels.flash_attn.ops import flash_fwd
 from repro_torch.models.layers import rope
@@ -54,25 +60,50 @@ def project_heads(x, w):
     return (x @ w.reshape(D, H * hd)).reshape(*x.shape[:-1], H, hd)
 
 
-def project_qkv(params, x, positions, theta: float, *, apply_rope: bool = True):
-    """x: (B, S, D) -> q (B,S,H,hd), k/v (B,S,K,hd)."""
+def _kv_params(params, tp, local_heads: int) -> dict:
+    """``wk``/``wv`` (and ``bk``/``bv``) as this rank's heads read them:
+    as held where kv heads are split (or there is no model axis); where
+    they stay whole, the kv head of its q heads (``kv_index``), taken
+    through ``copy_to_model`` so each weight's gradient is the sum of its
+    ranks' parts."""
+    names = [n for n in ("wk", "wv", "bk", "bv") if n in params]
+    idx = None if tp is None else tpar.kv_index(tp, local_heads)
+    if idx is None:
+        return {n: params[n] for n in names}
+    idx = idx.to(params["wk"].device)
+    # the kv axis: dim 1 of a weight (D, Kv, hd), dim 0 of a bias (Kv, hd)
+    return {n: tpar.copy_to_model(params[n], tp).index_select(
+        params[n].dim() - 2, idx) for n in names}
+
+
+def project_qkv(params, x, positions, theta: float, *, apply_rope: bool = True,
+                tp=None):
+    """x: (B, S, D) -> q (B,S,H,hd), k/v (B,S,K,hd).  With ``tp``, H is
+    this rank's q heads and K the kv heads they read."""
+    if tp is not None:
+        x = tpar.copy_to_model(x, tp)
+    kv = _kv_params(params, tp, params["wq"].shape[1])
     q = project_heads(x, params["wq"])
-    k = project_heads(x, params["wk"])
-    v = project_heads(x, params["wv"])
+    k = project_heads(x, kv["wk"])
+    v = project_heads(x, kv["wv"])
     if "bq" in params:
         q = q + params["bq"].to(q.dtype)
-        k = k + params["bk"].to(k.dtype)
-        v = v + params["bv"].to(v.dtype)
+        k = k + kv["bk"].to(k.dtype)
+        v = v + kv["bv"].to(v.dtype)
     if apply_rope:
         q = rope(q, positions, theta)
         k = rope(k, positions, theta)
     return q, k, v
 
 
-def project_out(params, o):
-    """o: (B, S, H, hd) -> (B, S, D)."""
+def project_out(params, o, tp=None):
+    """o: (B, S, H, hd) -> (B, S, D); with ``tp``, row-parallel over this
+    rank's heads."""
     H, hd, D = params["wo"].shape
-    return o.reshape(*o.shape[:-2], H * hd) @ params["wo"].reshape(H * hd, D)
+    flat = o.reshape(*o.shape[:-2], H * hd)
+    if tp is not None:
+        return tpar.row_parallel(flat, params["wo"].reshape(H * hd, D), tp)
+    return flat @ params["wo"].reshape(H * hd, D)
 
 
 # --------------------------------------------------------------------------

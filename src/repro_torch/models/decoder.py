@@ -11,6 +11,13 @@ which it updates in place).
 The reference's ``lax.scan`` over stacked layer parameters becomes a loop
 over the layer index on views of the stacked ``(L, ...)`` leaves, and
 ``cfg.remat`` becomes ``torch.utils.checkpoint`` per layer in training.
+
+``forward`` takes an optional ``tp`` (``dist.tensor_parallel.ModelAxis``):
+the parameters are then this rank's blocks of a client's, split over the
+mesh's ``model`` axis, and the dense layers run tensor-parallel (the
+logits it returns are the rank's vocab rows).  Only the dense family runs
+so; the others raise, naming their ROADMAP item, and are never silently
+replicated.
 """
 from __future__ import annotations
 
@@ -19,6 +26,7 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch import tree as T
 from repro_torch.configs.base import ArchConfig
+from repro_torch.dist import tensor_parallel as tpar
 from repro_torch.dist.sharding import decl, stack
 from repro_torch.models import attention as attn
 from repro_torch.models import kvcache as kvc
@@ -80,27 +88,30 @@ def cache_decl(cfg: ArchConfig, batch: int, cache_len: int):
 # Layer application
 # --------------------------------------------------------------------------
 
-def _ffn(cfg: ArchConfig, lp, x, kind: str):
+def _ffn(cfg: ArchConfig, lp, x, kind: str, tp=None):
     if kind == "moe":
         return moe_apply(cfg, lp["moe"], x)
-    return swiglu(lp["mlp"], x), torch.zeros((), dtype=torch.float32,
-                                             device=x.device)
+    return swiglu(lp["mlp"], x, tp), torch.zeros((), dtype=torch.float32,
+                                                 device=x.device)
 
 
-def _apply_layer(cfg: ArchConfig, lp, x, positions, kind: str, kv_out=None):
+def _apply_layer(cfg: ArchConfig, lp, x, positions, kind: str, kv_out=None,
+                 tp=None):
     """One layer; with ``kv_out`` (two (B,S,K,hd) views of a cache) its
-    keys and values are copied there (prefill)."""
+    keys and values are copied there (prefill).  With ``tp`` the layer's
+    parameters are the rank's blocks (local heads and mlp columns)."""
     h = rmsnorm(lp["ln1"], x, cfg.norm_eps)
-    q, k, v = attn.project_qkv(lp["attn"], h, positions, cfg.rope_theta)
+    q, k, v = attn.project_qkv(lp["attn"], h, positions, cfg.rope_theta,
+                               tp=tp)
     if kv_out is not None:
         kv_out[0].copy_(k)
         kv_out[1].copy_(v)
     o = attn.attention(q, k, v, positions, positions, causal=True,
                        window=cfg.window, chunk=cfg.attn_chunk,
                        chunk_threshold=cfg.attn_chunk_threshold)
-    x = x + attn.project_out(lp["attn"], o)
+    x = x + attn.project_out(lp["attn"], o, tp)
     h2 = rmsnorm(lp["ln2"], x, cfg.norm_eps)
-    y, aux = _ffn(cfg, lp, h2, kind)
+    y, aux = _ffn(cfg, lp, h2, kind, tp)
     return x + y, aux
 
 
@@ -122,12 +133,12 @@ def _apply_layer_decode(cfg: ArchConfig, lp, x, k_l, v_l, kv_pos, pos,
 # Embedding (with optional modality injection)
 # --------------------------------------------------------------------------
 
-def _embed_inputs(cfg: ArchConfig, params, batch):
+def _embed_inputs(cfg: ArchConfig, params, batch, tp=None):
     """Token embeddings; for the VLM family the RMS-normed, projected
     ``patches`` (B, n, feat_dim) replace the first n positions.  The
     projection runs in the weight's dtype (the reference's einsum promotes
     bf16 patches against f32 weights) and lands in the embedding's."""
-    x = embed_lookup(params["embed"], batch["tokens"])
+    x = embed_lookup(params["embed"], batch["tokens"], tp)
     if cfg.family == "vlm" and "patches" in batch:
         vp = params["vis_proj"]
         vis = rmsnorm(vp["norm"], batch["patches"], cfg.norm_eps)
@@ -160,30 +171,34 @@ def _layers(cfg: ArchConfig, params):
             yield lp, kind
 
 
-def _run_layers(cfg: ArchConfig, stacked, x, positions, kind: str):
+def _run_layers(cfg: ArchConfig, stacked, x, positions, kind: str,
+                tp=None):
     """The layers of one stack in order -> (x, their auxiliary losses
     summed from 0, in layer order, as the reference's scan carries it)."""
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for lp in layer_views(stacked):
         if cfg.remat:
             x, a = checkpoint(_apply_layer, cfg, lp, x, positions, kind,
-                              use_reentrant=False)
+                              None, tp, use_reentrant=False)
         else:
-            x, a = _apply_layer(cfg, lp, x, positions, kind)
+            x, a = _apply_layer(cfg, lp, x, positions, kind, tp=tp)
         aux = aux + a
     return x, aux
 
 
-def forward(cfg: ArchConfig, params, batch):
-    """Full-sequence forward -> (logits (B,S,V), aux_loss)."""
-    x = _embed_inputs(cfg, params, batch)
+def forward(cfg: ArchConfig, params, batch, tp=None):
+    """Full-sequence forward -> (logits (B,S,V), aux_loss); with ``tp``
+    the logits are this rank's (B, S, V / M) vocab rows."""
+    if tp is not None:
+        tpar.check_supported(cfg, tp.size)
+    x = _embed_inputs(cfg, params, batch, tp)
     positions = torch.arange(x.shape[1], dtype=torch.int32, device=x.device)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for stacked, kind in _stacks(cfg, params):
-        x, a = _run_layers(cfg, stacked, x, positions, kind)
+        x, a = _run_layers(cfg, stacked, x, positions, kind, tp)
         aux = aux + a
     x = rmsnorm(params["final_norm"], x, cfg.norm_eps)
-    return logits_out(params["embed"], x), aux
+    return logits_out(params["embed"], x, tp), aux
 
 
 def prefill(cfg: ArchConfig, params, batch):

@@ -7,9 +7,14 @@ precomputed frame embeddings (``frames``), internvl2 precomputed patch
 embeddings (``patches``) that fill the leading sequence positions.
 
 ``batch_specs`` is the reference's: the batch's specs as tuples of mesh-axis
-names, equal to its PartitionSpecs.  On the mesh the port runs (a ``model``
-axis of 1) only the clients dim is split, one client a rank; sequence
-parallelism over ``model`` is ROADMAP item 5b.
+names, equal to its PartitionSpecs.  On the port's mesh only the clients
+dim is split: each of a client's M ranks on the ``model`` axis gets the
+whole client batch (the trainer's ``FederatedTokens.client_batch``).  The
+reference's spec puts the sequence on ``model`` and GSPMD reshards it
+where the layers need it; feeding every rank the whole sequence computes
+the same function, with the model's split in the layers
+(``dist/tensor_parallel.py``).  Sequence parallelism over ``model`` is not
+ported.
 """
 from __future__ import annotations
 

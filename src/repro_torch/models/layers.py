@@ -1,8 +1,16 @@
-"""Shared neural-net building blocks (plain PyTorch, decl-based params)."""
+"""Shared neural-net building blocks (plain PyTorch, decl-based params).
+
+``swiglu``, ``embed_lookup`` and ``logits_out`` take an optional ``tp``
+(``dist.tensor_parallel.ModelAxis``): their parameters are then this
+rank's part of a client's, split over the ``model`` axis, and they run
+column-parallel, row-parallel and vocab-parallel.  Without it they are
+the plain single-device functions.
+"""
 from __future__ import annotations
 
 import torch
 
+from repro_torch.dist import tensor_parallel as tpar
 from repro_torch.dist.sharding import decl
 
 
@@ -69,10 +77,17 @@ def swiglu_decl(d_model: int, d_ff: int):
     }
 
 
-def swiglu(params, x):
+def swiglu(params, x, tp=None):
+    """With ``tp``: ``w_gate``/``w_up`` column-parallel (this rank's mlp
+    columns), ``w_down`` row-parallel (its rows, summed over the model
+    axis)."""
+    if tp is not None:
+        x = tpar.copy_to_model(x, tp)
     g = x @ params["w_gate"]
     u = x @ params["w_up"]
     h = torch.nn.functional.silu(g.float()).to(x.dtype) * u
+    if tp is not None:
+        return tpar.row_parallel(h, params["w_down"], tp)
     return h @ params["w_down"]
 
 
@@ -110,9 +125,15 @@ def embed_decl(vocab: int, d_model: int):
     }
 
 
-def embed_lookup(params, tokens):
+def embed_lookup(params, tokens, tp=None):
+    if tp is not None:              # this rank's vocab rows
+        return tpar.embed_lookup(params["in_table"], tokens, tp)
     return params["in_table"][tokens.long()]
 
 
-def logits_out(params, x):
+def logits_out(params, x, tp=None):
+    """-> (..., V) logits, or with ``tp`` this rank's (..., V / M) vocab
+    rows (``tensor_parallel.cross_entropy`` reads them)."""
+    if tp is not None:
+        x = tpar.copy_to_model(x, tp)
     return x @ params["out_table"].t()

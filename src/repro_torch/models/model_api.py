@@ -16,6 +16,7 @@ import torch
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.dist import sharding as shd
+from repro_torch.dist import tensor_parallel as tpar
 from repro_torch.models import decoder, encdec, hybrid, rwkv6
 
 _FAMILY = {
@@ -59,7 +60,16 @@ def cross_entropy(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
     return (lse - label_logit).mean()
 
 
-def loss_fn(cfg: ArchConfig, params, batch):
-    logits, aux = get_model(cfg).forward(cfg, params, batch)
-    ce = cross_entropy(logits, batch["labels"])
+def loss_fn(cfg: ArchConfig, params, batch, tp=None):
+    """-> (loss, {"ce", "aux"}).  With ``tp``
+    (``dist.tensor_parallel.ModelAxis``) ``params`` are this rank's blocks
+    of a client split over the ``model`` axis, the logits its vocab rows,
+    and the cross-entropy the vocab-parallel one; every rank of the client
+    gets the same loss."""
+    if tp is None:
+        logits, aux = get_model(cfg).forward(cfg, params, batch)
+        ce = cross_entropy(logits, batch["labels"])
+    else:               # decoder.forward raises for the other families
+        logits, aux = decoder.forward(cfg, params, batch, tp)
+        ce = tpar.cross_entropy(logits, batch["labels"], tp)
     return ce + aux, {"ce": ce, "aux": aux}

@@ -37,14 +37,21 @@ class ServeEngine:
 
     Every admitted batch prefills together (left-padded with token 0 to
     the longest prompt); decode then proceeds one token per step for all
-    slots.  Greedy sampling.  A full-attention cache is grown to
+    slots.  Greedy sampling.  ``mesh``, when given, is a rank's
+    (``launch.mesh.Mesh``): the engine serves on its card, and a model
+    axis above 1 raises.  A full-attention cache is grown to
     ``min(S + max_new + 1, max_seq)`` after prefill; a windowed one is
     left at its prefilled length and wraps, as the reference does
     (ROADMAP R4)."""
 
     def __init__(self, cfg: ArchConfig, params, batch_size: int = 4,
-                 max_seq: int = 256, device="cuda"):
-        self.device = resolve(device)
+                 max_seq: int = 256, device="cuda", mesh=None):
+        if mesh is not None and mesh.shape["model"] > 1:
+            raise NotImplementedError(
+                f"serving on a model axis of {mesh.shape['model']}: the "
+                "sequence-split cache and tensor-parallel decode are ROADMAP "
+                "item 5b-v")
+        self.device = mesh.device if mesh is not None else resolve(device)
         self.cfg = cfg
         self.params = params
         self.B = batch_size

@@ -863,3 +863,98 @@ def test_rank_path_over_every_card_matches_one_card(card):
                     ulp = torch.exp2(torch.floor(torch.log2(
                         b32.abs().clamp_min(2.0 ** -126))) - 7)
                     assert ((a.float() - b32).abs() <= ulp).all()
+
+
+# ---------------------------------------------------------------------------
+# the model axis: a client split over cards (tensor parallelism)
+# ---------------------------------------------------------------------------
+
+# qwen2-7b's local heads on a model axis of 4 (7 q heads, 1 kv head) and
+# of 2 (14 and 2), causal over 2048 tokens
+TP_FLASH_CASES = [(7, 1), (14, 2)]
+
+
+@pytest.mark.parametrize("H,Kv", TP_FLASH_CASES)
+def test_flash_kernel_at_local_head_shapes_matches_plain(card, H, Kv):
+    rng = np.random.default_rng(H * 31 + Kv)
+    q = _normal(rng, (1, 2048, H, 128), torch.bfloat16, card)
+    k = _normal(rng, (1, 2048, Kv, 128), torch.bfloat16, card)
+    v = _normal(rng, (1, 2048, Kv, 128), torch.bfloat16, card)
+    before = flash_ops.launches
+    o, lse = flash_ops.flash_fwd(q, k, v, True, None)
+    assert flash_ops.launches == before + 1
+    o_ref, lse_ref = attention_ref(q, k, v, True, None)
+    torch.testing.assert_close(o.float(), o_ref.float(), rtol=0, atol=2e-2)
+    torch.testing.assert_close(lse, lse_ref, rtol=0, atol=1e-3)
+
+
+def _mesh_shape_rounds(mesh, cases, rounds):
+    return mesh.shape, _rank_rounds(mesh, cases, rounds)
+
+
+def test_one_by_one_mesh_equals_single_device(card):
+    """A (1, 1) mesh (``spawn(..., model=1)``, no model axis: the plain
+    model code) runs two rounds equal to the single-card K = 1 trainer's,
+    losses and parameters, bit for bit."""
+    from repro_torch.launch import mesh as mesh_lib
+    cases = [("flat", "fedavg")]
+    shape, got = mesh_lib.spawn(_mesh_shape_rounds, 1, (cases, 2), model=1,
+                                device="cuda", timeout_s=600)[0]
+    assert shape == {"data": 1, "model": 1}
+    losses, params = _single_rounds(card, 1, "flat", "fedavg", 2)
+    assert got[("flat", "fedavg")][0] == losses
+    for a, b in zip(T.leaves(got[("flat", "fedavg")][1]), T.leaves(params)):
+        assert torch.equal(a, b)
+
+
+def _tp_grads(mesh, rp):
+    """One qwen2-7b smoke client split over this host's cards, f32: the
+    loss and the gradient of this rank's block of every leaf."""
+    from repro_torch.core import fl_step
+    from repro_torch.dist import sharding as shd
+    from repro_torch.dist import tensor_parallel as tpar
+    from repro_torch.models import model_api
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = smoke_config(get_arch("qwen2-7b")).replace(remat=True)
+    specs = fl_step.param_specs(cfg, mesh)
+    live = T.tree_map(lambda t, s: shd.local_block(t, s, mesh).to(
+        mesh.device).clone().requires_grad_(), rp, specs)
+    rng = np.random.default_rng(3)
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab, (2, 97))).to(
+        mesh.device)
+    batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+    loss, _ = model_api.loss_fn(cfg, live, batch, tpar.axis_for(cfg, mesh))
+    grads = torch.autograd.grad(loss, T.leaves(live))
+    return loss.item(), [g.cpu() for g in grads]
+
+
+def test_client_over_cards_matches_one_card_f32(card):
+    """A (1, M) mesh over this host's cards (M = 2 or 4): the loss and
+    every gradient block of one client against the single card, f32,
+    within rtol 1e-5 / atol 1e-6 (M partial sums in another order)."""
+    from repro_torch.core import fl_step
+    from repro_torch.dist import sharding as shd
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.models import model_api
+    M = torch.cuda.device_count()
+    if M not in (2, 4):
+        pytest.skip(f"needs 2 or 4 cards, this host has {M}")
+    cfg = smoke_config(get_arch("qwen2-7b")).replace(remat=True)
+    rp = T.tree_map(lambda t: t.float(), materialize(
+        model_api.param_decls(cfg), 0, "cpu"))
+    ranks = mesh_lib.spawn(_tp_grads, 1, (rp,), model=M, device="cuda",
+                           timeout_s=600)
+    live = T.tree_map(lambda t: t.to(card).requires_grad_(), rp)
+    rng = np.random.default_rng(3)
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab, (2, 97))).to(card)
+    loss, _ = model_api.loss_fn(cfg, live, {"tokens": toks[:, :-1],
+                                            "labels": toks[:, 1:]})
+    grads = torch.autograd.grad(loss, T.leaves(live))
+    specs = T.leaves(fl_step.param_specs(cfg, {"data": 1, "model": M}))
+    grid = type("Grid", (), {"shape": {"data": 1, "model": M}})()
+    for r, (g_loss, g_grads) in enumerate(ranks):
+        assert abs(g_loss - loss.item()) <= 1e-6 * abs(loss.item())
+        for a, b, s in zip(g_grads, grads, specs):
+            torch.testing.assert_close(
+                a, shd.local_block(b.cpu(), s, grid, r), rtol=1e-5,
+                atol=1e-6)

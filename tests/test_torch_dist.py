@@ -136,12 +136,16 @@ def test_abstract_state_is_the_whole_state_on_meta():
 
 
 def test_model_axis_and_pods_raise():
-    with pytest.raises(NotImplementedError, match="5b"):
-        mesh_lib.init_mesh(4, 2, rank=0, device="cpu")
+    """A model axis runs the dense family (tests/test_torch_tp.py); what
+    still raises: pods (the shared mode), a model axis below 1, and a
+    model axis for a family it does not run yet, before any rank starts."""
     with pytest.raises(NotImplementedError, match="5b"):
         mesh_lib.check_axes(1, pods=2)
+    with pytest.raises(ValueError, match="model axis of 0"):
+        mesh_lib.init_mesh(4, 0, rank=0, device="cpu")
     with pytest.raises(NotImplementedError, match="5b"):
-        train.main(["--device", "cpu", "--smoke", "--model-mesh", "2"])
+        train.main(["--device", "cpu", "--smoke", "--arch", "rwkv6-7b",
+                    "--model-mesh", "2"])
 
 
 def test_shared_mode_on_ranks_raises():

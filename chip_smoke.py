@@ -37,7 +37,14 @@ one round of each schedule and strategy against the single-card round,
 and the schedules' time at 12 of 28 layers; on four, also the ``model``
 axis (``phase_tp``: a client split over cards): one round of each
 schedule and strategy on a (2, 2) mesh against the single-card K = 2
-round, and qwen2-7b at all 28 layers on a (1, 4) and a (2, 2) mesh.
+round, and qwen2-7b at all 28 layers on a (1, 4) and a (2, 2) mesh; then
+the MoE family and Adafactor on the model axis: mixtral-8x22b at one
+layer on a (2, 2) mesh (experts split over a client's cards) under four
+schedules and strategies against the single-card K = 2 rounds, and
+internlm2-20b at all 48 layers, kimi-k2 (its dense layer and one MoE
+layer of 384 experts) and mixtral-8x22b at 12 and 6 layers over four
+cards.  On one card the rank path also runs mixtral-8x22b under
+Adafactor against the single-card K = 1 trainer, bit for bit.
 Each phase prints JSON lines; then one line lists every kernel, one line
 gives the card's name and power limit as nvidia-smi reports them, and the
 last line is ``{"ok": true, "device": ...}``.  Any failure raises and
@@ -205,8 +212,10 @@ def phase_flash(torch, dev):
     8 kv heads, window 4096) and at odd ones, then the gradient through
     it.  The path shapes, and qwen2-7b's local heads on a model axis of 4
     and of 2 (7 q heads and 1 kv head, 14 and 2), are timed beside the
-    plain version and ``scaled_dot_product_attention``; ``bound_share`` is the bound over the
-    kernel's time."""
+    plain version and ``scaled_dot_product_attention``, and so are a
+    rank's heads on a model axis of 4 for mixtral-8x22b (12 q / 2 kv,
+    window 4096), internlm2-20b (12 / 2) and kimi-k2 (16 / 2, head dim
+    112); ``bound_share`` is the bound over the kernel's time."""
     import torch.nn.functional as F
     from repro_torch.kernels.flash_attn import ops
     from repro_torch.kernels.flash_attn.ref import attention_ref
@@ -230,6 +239,14 @@ def phase_flash(torch, dev):
          None, 0),
         ("tp_local_heads_m2", 1, 2048, 2048, 14, 2, 128, torch.bfloat16,
          True, None, 0),
+        # a rank's heads on a model axis of 4: mixtral-8x22b (window 4096),
+        # internlm2-20b, and kimi-k2 (head dim 112, padded to 128)
+        ("moe_local_heads_mixtral", 1, 2048, 2048, 12, 2, 128,
+         torch.bfloat16, True, 4096, 0),
+        ("local_heads_internlm2", 1, 2048, 2048, 12, 2, 128, torch.bfloat16,
+         True, None, 0),
+        ("moe_local_heads_kimi", 1, 2048, 2048, 16, 2, 112, torch.bfloat16,
+         True, None, 0),
     ]
     path_row = None
     for name, B, Sq, Sk, H, Kv, hd, dtype, causal, window, qo in cases:
@@ -248,7 +265,9 @@ def phase_flash(torch, dev):
                "o_max_abs_err": o_err, "lse_max_abs_err": lse_err,
                "o_tol": o_tol, "lse_tol": lse_tol}
         if name in ("path", "hymba_window", "mixtral_window",
-                    "tp_local_heads_m4", "tp_local_heads_m2"):
+                    "tp_local_heads_m4", "tp_local_heads_m2",
+                    "moe_local_heads_mixtral", "local_heads_internlm2",
+                    "moe_local_heads_kimi"):
             flops = _flash_flops(B, Sq, Sk, H, hd, causal, window)
             nbytes = (q.numel() + k.numel() + v.numel() + o.numel()) \
                 * q.element_size() + lse.numel() * 4
@@ -1586,6 +1605,7 @@ DIST_TIME_LAYERS = 12
 DIST_TIME_SCHEDULES = ("tree", "flat", "rs_ag", "compressed")
 NVLINK4_LINK_BYTES_S = 25e9     # one NVLink 4 link, one direction
 DIST_TIMEOUT_S = 900
+TP_TIMEOUT_S = 1800     # a model-axis mesh runs every leg of its shape
 EXACT_STRATEGIES = {"trimmed_mean", "multi_krum"}
 
 
@@ -1706,7 +1726,59 @@ def _dist_world1(torch, mesh) -> dict:
             "losses": [m["loss"] for m in ms],
             "single_device_losses": [m["loss"] for m in ms1],
             "round_s": [m["time_s"] for m in ms], "state_equal": equal,
-            "aggregate": aggregate, "launches": launches, "peak": peak}
+            "aggregate": aggregate, "launches": launches, "peak": peak,
+            "moe": _world1_moe(torch, mesh)}
+
+
+def _replica(cfg):
+    """``cfg`` in ``replica`` mode, the trainer CLI's: the MoE configs
+    declare the ``shared`` mode (FSDP, one client a pod; ROADMAP item
+    5b-iii), which a mesh of ranks does not run yet."""
+    import dataclasses
+    return cfg.replace(fl=dataclasses.replace(cfg.fl, mode="replica"))
+
+
+def _world1_moe(torch, mesh) -> dict:
+    """One card, the MoE family under Adafactor: two rounds of
+    mixtral-8x22b (one layer) on the (1, 1) mesh against two rounds of the
+    single-card trainer at K = 1, bit for bit (every parameter and
+    Adafactor factor), and the same routing statistics."""
+    from repro_torch import tree as T
+    from repro_torch.configs.base import get_arch
+    from repro_torch.launch.train import SDFLMQTrainer
+    from repro_torch.models import moe
+
+    cfg = _replica(get_arch(MOE_ARCH).replace(n_layers=1))
+    dev = mesh.device
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    reset_launches()
+    moe.reset_stats()
+    tr = SDFLMQTrainer(cfg, 1, ROUNDS, BATCH_PER_CLIENT, DIST_SEQ, seed=0,
+                       mesh=mesh)
+    ms = tr.run()
+    torch.cuda.synchronize(dev)
+    launches, stats = read_launches(), moe.read_stats()
+    peak = torch.cuda.max_memory_allocated(dev)
+    state = tr.state
+    del tr
+    moe.reset_stats()
+    one = SDFLMQTrainer(cfg, 1, ROUNDS, BATCH_PER_CLIENT, DIST_SEQ, seed=0,
+                        device=dev)
+    ms1 = one.run()
+    stats1 = moe.read_stats()
+    equal = state["step"] == one.state["step"] and all(
+        torch.equal(a, b) for a, b in zip(
+            T.leaves({"o": state["opt"], "p": state["params"]}),
+            T.leaves({"o": one.state["opt"], "p": one.state["params"]})))
+    del one, state
+    return {"arch": MOE_ARCH, "n_layers": 1, "optimizer": cfg.optimizer,
+            "losses": [m["loss"] for m in ms],
+            "single_device_losses": [m["loss"] for m in ms1],
+            "round_s": [m["time_s"] for m in ms], "state_equal": equal,
+            "routing": stats, "single_device_routing": stats1,
+            "launches": launches, "peak": peak}
 
 
 def _dist_agree(torch, mesh) -> list:
@@ -1834,6 +1906,38 @@ TP_TIME = [((1, 4), "tree"), ((2, 2), "flat"), ((2, 2), "compressed")]
 TP_TIME_LAYERS = 28
 
 
+# the MoE family and Adafactor on the model axis.  Leg (e) ``moe_agree``:
+# mixtral-8x22b at one layer on a (2, 2) mesh, K = 2, two rounds of each
+# case against the single-card K = 2 rounds on card 0
+MOE_ARCH = "mixtral-8x22b"
+MOE_AGREE = [("tree", "fedavg"), ("flat", "fedavg"), ("compressed", "fedavg"),
+             ("tree", "multi_krum")]
+# round 1's globals, after a non-zero learning rate.  An Adafactor step is
+# 5-50 bf16 ulps of a weight, and the client's bf16 gradients differ from
+# the single card's by their rounding (the row-parallel sums round once in
+# f32 where one GEMM does), so a few per cent of a step moves some values
+# beyond 2 ulps (1.7-3.6 % of 1.45 B elements on four H100s): every element
+# within 2 ulps and 2 steps of the learning rate, at most 10 % beyond 2
+# ulps, which a wrong scale of the model group's factor sums would exceed
+MOE_ROUND1_ULPS = 2
+MOE_LR = 3e-4           # the trainer's peak rate, round 1's at 2 rounds
+MOE_ROUND1_SHARE = 0.10
+# dropped assignments against the single card: a near-tie of two experts'
+# gates, flipped by the attention's f32 row-parallel sums, moves one
+MOE_DROP_SHARE = 1e-3
+# leg (f) ``moe_time``: (mesh, arch, layers, schedule), two rounds each.
+# internlm2-20b at all 48 layers (4.97 B parameters a rank at (1, 4));
+# kimi-k2 at 2 of 61 (its dense layer and one MoE layer, 96 of its 384
+# experts a rank); mixtral-8x22b at the most layers under about 72 GB a
+# rank (0.63 B parameters a layer a rank at (1, 4), about 5.4 GB a layer
+# with the gradients, the updates and Adafactor's two f32 temporaries of
+# the stacked expert leaf), and at half that on (2, 2)
+MOE_TIME = [((1, 4), "internlm2-20b", 48, "tree"),
+            ((1, 4), "kimi-k2-1t-a32b", 2, "tree"),
+            ((1, 4), MOE_ARCH, 12, "tree"),
+            ((2, 2), MOE_ARCH, 6, "flat")]
+
+
 def _steps_beyond(torch, got, want) -> int:
     """Elements of ``got`` more than one bf16 ulp and one int8
     quantization step of their row (2 x the row's largest ``|want|`` /
@@ -1851,6 +1955,46 @@ def _steps_beyond(torch, got, want) -> int:
                 y.abs().clamp_min(2.0 ** -126))) - 7)
             q = 2 * y.abs().amax(dim=1, keepdim=True) / 127
             n += int(((x - y).abs() > ulp + q).sum())
+    return n
+
+
+def _row_steps(torch, bank) -> list:
+    """Per leaf of a client-stacked bank, the clients' largest ``|value|``
+    in each row (the last dim) over 127: the bound on how far two int8
+    quantizations of the weighted contributions, one of whole rows and one
+    of a model block's rows, can move the weighted mean (each within half a
+    step of each contribution's row scale)."""
+    from repro_torch import tree as T
+    out = []
+    for t in T.leaves(bank):
+        G = t.shape[-1] if t.dim() > 1 else 1
+        rows = t.reshape(t.shape[0], -1, G)
+        step = max(1, (1 << 26) // G)
+        parts = [rows[:, r0:r0 + step].float().abs().amax(dim=(0, 2))
+                 for r0 in range(0, rows.shape[1], step)]
+        out.append(torch.cat(parts).div_(127).reshape(
+            t.shape[1:-1] + (1,) if t.dim() > 1 else (1,)))
+    return out
+
+
+def _beyond(torch, got, want, ulps, steps=None, floor=0.0) -> int:
+    """Elements of ``got`` more than ``ulps`` bf16 ulps (of ``want``), plus
+    ``steps`` (per leaf, broadcast over a row) where given, plus ``floor``,
+    from ``want``."""
+    from repro_torch import tree as T
+    n = 0
+    for i, (a, b) in enumerate(zip(T.leaves(got), T.leaves(want))):
+        G = b.shape[-1] if b.dim() else 1
+        a, b = a.reshape(-1, G), b.reshape(-1, G)
+        q = steps[i].reshape(-1, 1) if steps is not None else None
+        step = max(1, (1 << 26) // G)
+        for r0 in range(0, b.shape[0], step):
+            x, y = a[r0:r0 + step].float(), b[r0:r0 + step].float()
+            tol = ulps * torch.exp2(torch.floor(torch.log2(
+                y.abs().clamp_min(2.0 ** -126))) - 7)
+            if q is not None:
+                tol = tol + q[r0:r0 + step]
+            n += int(((x - y).abs() > tol + floor).sum())
     return n
 
 
@@ -1996,6 +2140,168 @@ def _tp_time(torch, mesh, sched) -> dict:
     return out
 
 
+def _moe_agree(torch, mesh) -> list:
+    """Leg (e) on a (2, 2) mesh: two rounds of mixtral-8x22b (one layer,
+    Adafactor) under each ``MOE_AGREE`` case against the single-card K = 2
+    trainer that rank 0 runs on its card first.  Slot 0 after each round
+    is broadcast from rank 0, and each rank compares its block; so are the
+    quantization steps of the initial bank's rows (``compressed``)."""
+    import torch.distributed as dist
+    from repro_torch import tree as T
+    from repro_torch.configs.base import get_arch
+    from repro_torch.core import fl_step
+    from repro_torch.dist.sharding import local_block
+    from repro_torch.launch.train import SDFLMQTrainer
+    from repro_torch.models import moe
+
+    cfg = _replica(get_arch(MOE_ARCH).replace(n_layers=1))
+    K, M, dev = mesh.shape["data"], mesh.shape["model"], mesh.device
+    specs = T.leaves(fl_step.param_specs(cfg, {"data": 1, "model": M}))
+    shapes = [t.shape for t in T.leaves(
+        fl_step.abstract_state(cfg, 1)["params"])]
+    named = lambda ts: {f"{i:03d}": t for i, t in enumerate(ts)}
+
+    def run(tr):
+        """-> (metrics, slot 0 after each round, routing statistics)."""
+        slots = []
+        tr.on_round_end = lambda r, state: slots.append(
+            [t[0].clone() for t in T.leaves(state["params"])])
+        moe.reset_stats()
+        ms = tr.run()
+        torch.cuda.synchronize(dev)
+        return ms, slots, moe.read_stats()
+
+    def from_rank0(ts, shapes, dtypes, specs=specs):
+        """Rank 0's tensors on every rank, each rank's block of each."""
+        out = []
+        for i, (shape, dt) in enumerate(zip(shapes, dtypes)):
+            w = ts[i] if ts is not None else torch.empty(shape, dtype=dt,
+                                                         device=dev)
+            dist.broadcast(w, src=0)
+            out.append(local_block(w, specs[i], mesh))
+        return named(out)
+
+    rows = []
+    for sched, strat in MOE_AGREE:
+        kw = dict(seed=0, schedule_kind=sched, strategy=strat)
+        want = single = steps = None
+        if mesh.rank == 0:
+            gc.collect()
+            torch.cuda.empty_cache()
+            one = SDFLMQTrainer(cfg, K, ROUNDS, BATCH_PER_CLIENT, DIST_SEQ,
+                                device=dev, **kw)
+            if sched == "compressed":
+                steps = _row_steps(torch, one.state["params"])
+            ms1, want, stats1 = run(one)
+            single = {"losses": [m["loss"] for m in ms1],
+                      "level_groups": [m["level_groups"] for m in ms1],
+                      "routing": stats1}
+            del one
+        single = mesh.broadcast(single)
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+        reset_launches()
+        tr = SDFLMQTrainer(cfg, K, ROUNDS, BATCH_PER_CLIENT, DIST_SEQ,
+                           mesh=mesh, **kw)
+        ms, slots, stats = run(tr)
+        launches = read_launches()
+        del tr
+        dtypes = [t.dtype for t in slots[0]]
+        row = {"schedule": sched, "strategy": strat,
+               "losses": [m["loss"] for m in ms],
+               "single_losses": single["losses"],
+               "level_groups": [m["level_groups"] for m in ms],
+               "single_level_groups": single["level_groups"],
+               "routing": stats, "single_routing": single["routing"],
+               "round_s": [m["time_s"] for m in ms],
+               "aggregate_ms": [m.get("aggregate_ms") for m in ms],
+               "model_collectives_ms": [m.get("model_collectives_ms")
+                                        for m in ms],
+               "launches": launches,
+               "peak": torch.cuda.max_memory_allocated(dev),
+               "leaves": len(slots[0])}
+        q = None
+        if sched == "compressed":         # a step a row: whole rows
+            q = list(from_rank0(
+                steps, [tuple(s[:-1]) + (1,) for s in shapes],
+                [torch.float32] * len(shapes),
+                [tuple(sp[:-1]) + (None,) for sp in specs]).values())
+        for r in range(ROUNDS):
+            got = named(slots[r])
+            blocks = from_rank0(want[r] if want else None, shapes, dtypes)
+            cmp = _slot_compare(torch, got, blocks)
+            if r == 0:
+                cmp["beyond_ulp_and_step"] = None if q is None else \
+                    _beyond(torch, got, blocks, 1, q)
+            else:
+                # under compressed the round-0 difference (at most q) carries
+                # into round 1, whose own two quantizations differ by at most
+                # the step of its contributions' rows: the global's (each
+                # |value| at most 127 q) plus one Adafactor step, which adds
+                # little over 127; 3 q bounds the two
+                q3 = None if q is None else [3 * t for t in q]
+                cmp["beyond_2_bf16_ulps"] = _beyond(
+                    torch, got, blocks, MOE_ROUND1_ULPS, q3)
+                cmp["beyond_round1_tolerance"] = _beyond(
+                    torch, got, blocks, MOE_ROUND1_ULPS, q3, 2 * MOE_LR)
+                cmp["elements"] = sum(t.numel() for t in got.values())
+            cmp["checksum"] = _checksum(torch, got)
+            row[f"round{r}"] = cmp
+            del got, blocks
+        rows.append(row)
+        del want, slots, steps, q
+    return rows
+
+
+def _moe_time(torch, mesh, arch, n_layers, sched) -> dict:
+    """Leg (f): two rounds of ``arch`` at ``n_layers`` layers on this mesh
+    under ``sched`` (Adafactor, the configs' optimizer)."""
+    from repro_torch import tree as T
+    from repro_torch.configs.base import get_arch
+    from repro_torch.launch.train import SDFLMQTrainer
+    from repro_torch.models import moe
+
+    cfg = _replica(get_arch(arch).replace(n_layers=n_layers))
+    K, dev = mesh.shape["data"], mesh.device
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    tr = SDFLMQTrainer(cfg, K, ROUNDS, BATCH_PER_CLIENT, DIST_SEQ, seed=0,
+                       mesh=mesh, schedule_kind=sched)
+    torch.cuda.synchronize(dev)
+    init_s = time.perf_counter() - t0
+    init_peak = torch.cuda.max_memory_allocated(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    reset_launches()
+    moe.reset_stats()
+    ms = tr.run()
+    torch.cuda.synchronize(dev)
+    leaves = T.leaves(tr.state["params"])
+    out = {"arch": arch, "n_layers": n_layers, "schedule": sched,
+           "optimizer": cfg.optimizer, "mesh": mesh.shape, "init_s": init_s,
+           "init_peak": init_peak,
+           "params_per_rank": sum(t.numel() for t in leaves),
+           "leaves": len(leaves),
+           "round_s": [m["time_s"] for m in ms],
+           "tokens_per_s": [m["tokens_per_s"] for m in ms],
+           "losses": [m["loss"] for m in ms],
+           "aggregate_ms_rank": [m["rank_ms"].get("aggregate_ms")
+                                 for m in ms],
+           "aggregate_ms_max": [m.get("aggregate_ms") for m in ms],
+           "model_collectives_ms_rank": [
+               m["rank_ms"].get("model_collectives_ms") for m in ms],
+           "model_collectives_ms_max": [m.get("model_collectives_ms")
+                                        for m in ms],
+           "routing": moe.read_stats(),
+           "peak": torch.cuda.max_memory_allocated(dev),
+           "launches": read_launches(),
+           "checksum": _checksum(torch, tr.state["params"])}
+    del tr
+    return out
+
+
 def _tp_rank(mesh, legs):
     """One rank of the model-axis legs (a spawned process), with the
     matmul settings of ``main``: ``tp_agree`` and each ``tp_time:<sched>``
@@ -2008,6 +2314,11 @@ def _tp_rank(mesh, legs):
     for leg in legs:
         if leg == "tp_agree":
             out[leg] = _tp_agree(torch, mesh)
+        elif leg == "moe_agree":
+            out[leg] = _moe_agree(torch, mesh)
+        elif leg.startswith("moe_time:"):
+            _, arch, n_layers, sched = leg.split(":")
+            out[leg] = _moe_time(torch, mesh, arch, int(n_layers), sched)
         else:
             out[leg] = _tp_time(torch, mesh, leg.split(":")[1])
     return out
@@ -2103,9 +2414,136 @@ def _emit_tp_time(shape, sched, rows, add, faults):
         faults.append(f"tp_time {shape} {sched}: {rows}")
 
 
+def _emit_moe_agree(ranks, add, faults):
+    """The ``moe_agree`` lines of a (2, 2) run and their checks: losses
+    within ``TP_LOSS_RTOL``; round 0 (a learning rate of 0: the
+    aggregation alone) under ``_slot_compare``'s sum rule, the stack
+    strategy bit for bit, ``compressed`` within one bf16 ulp and one quantization step of
+    the contributions' rows; round 1 within ``MOE_ROUND1_ULPS`` bf16 ulps
+    and 2 x ``MOE_LR``, at most ``MOE_ROUND1_SHARE`` beyond the ulps (and,
+    under ``compressed``, the carried and new steps); the clients' dropped
+    assignments within ``MOE_DROP_SHARE`` of the assignments of the single
+    card's; equal slots down each model column; exact flash and qagg
+    counts."""
+    from repro_torch.configs.base import get_arch
+    top_k = get_arch(MOE_ARCH).moe.top_k
+    keys = ("exact", "max_abs_err", "elements_differing",
+            "beyond_1_bf16_ulp", "beyond_1_bf16_ulp_max_err",
+            "beyond_1_bf16_ulp_max_abs_value", "beyond_sum_tolerance",
+            "beyond_ulp_and_step", "beyond_2_bf16_ulps",
+            "beyond_round1_tolerance", "elements", "finite")
+    for i, (sched, strat) in enumerate(MOE_AGREE):
+        rows = [r["moe_agree"][i] for r in ranks]
+        for r in rows:
+            add(r["launches"])
+        lead = rows[0]
+        same = all(rows[r][f"round{k}"]["checksum"]
+                   == rows[r % 2][f"round{k}"]["checksum"]
+                   for r in range(4) for k in range(ROUNDS))
+        rel = max(abs(a - b) / abs(b) for a, b in zip(
+            lead["losses"], lead["single_losses"]))
+        # one rank of each client's model group: ranks 0 and 2
+        dropped = sum(rows[r]["routing"]["dropped"] for r in (0, 2))
+        calls = sum(rows[r]["routing"]["calls"] for r in (0, 2))
+        single = lead["single_routing"]
+        emit({"phase": "moe_agree", "mesh": [2, 2], "arch": MOE_ARCH,
+              "n_layers": 1, "optimizer": "adafactor", "schedule": sched,
+              "strategy": strat, "rounds": ROUNDS, "losses": lead["losses"],
+              "single_card_losses": lead["single_losses"],
+              "loss_rel_err": rel, "level_groups": lead["level_groups"],
+              "dropped": dropped, "single_card_dropped": single["dropped"],
+              "assignments": calls * BATCH_PER_CLIENT * DIST_SEQ * top_k,
+              "moe_calls": calls, "single_card_moe_calls": single["calls"],
+              "aux_mean_rank": [r["routing"]["aux_mean"] for r in rows],
+              "single_card_aux_mean": single["aux_mean"],
+              **{f"round{k}_rank": [{x: r[f"round{k}"].get(x) for x in keys}
+                                    for r in rows] for k in range(ROUNDS)},
+              "slots_identical_across_column": same,
+              "round_s": lead["round_s"],
+              "aggregate_ms_rank": [r["aggregate_ms"] for r in rows],
+              "model_collectives_ms_rank": [r["model_collectives_ms"]
+                                            for r in rows],
+              "peak_rank": [r["peak"] for r in rows],
+              "launches_rank": [r["launches"] for r in rows]})
+        exact = strat != "fedavg"
+        for r in rows:
+            r0, r1 = r["round0"], r["round1"]
+            if (not r0["finite"] or not r1["finite"] or rel > TP_LOSS_RTOL
+                    or lead["level_groups"] != lead["single_level_groups"]
+                    or (exact and not r0["exact"])
+                    or (sched != "compressed" and r0["beyond_sum_tolerance"])
+                    or r0.get("beyond_ulp_and_step")
+                    or r1["beyond_round1_tolerance"]
+                    or r1["beyond_2_bf16_ulps"]
+                    > MOE_ROUND1_SHARE * r1["elements"]):
+                rest = {k: v for k, v in r.items()
+                        if k not in ("round0", "round1")}
+                faults.append(f"moe_agree {sched}/{strat} rank: {rest} "
+                              f"round0 { {x: r0.get(x) for x in keys} } "
+                              f"round1 { {x: r1.get(x) for x in keys} }")
+            want_qagg = r["leaves"] * ROUNDS if sched == "compressed" else 0
+            got = r["launches"]
+            if (got["flash_fwd"] != 2 * ROUNDS or got["qagg"] != want_qagg
+                    or got["fedavg"] or got["quantize"]
+                    or got["dequantize"]):
+                faults.append(f"moe_agree {sched}/{strat}: launches {got}")
+        if not same:
+            faults.append(f"moe_agree {sched}/{strat}: column blocks differ")
+        assignments = calls * BATCH_PER_CLIENT * DIST_SEQ * top_k
+        if abs(dropped - single["dropped"]) > MOE_DROP_SHARE * assignments \
+                or calls != single["calls"]:
+            faults.append(f"moe_agree {sched}/{strat}: dropped {dropped} of "
+                          f"{calls} calls, the single card {single}")
+
+
+def _emit_moe_time(shape, arch, n_layers, sched, rows, add, faults):
+    """A ``moe_time`` line and its checks."""
+    from repro_torch.configs.base import get_arch
+    for r in rows:
+        add(r["launches"])
+    lead = rows[0]
+    M = shape[1]
+    same = all(rows[r]["checksum"] == rows[r % M]["checksum"]
+               for r in range(len(rows)))
+    total = get_arch(arch).n_layers
+    routing = lead["routing"]
+    emit({"phase": "moe_time", "mesh": list(shape), "arch": arch,
+          "optimizer": lead["optimizer"], "schedule": sched,
+          "n_layers": n_layers,
+          "reduced": [] if n_layers == total else
+          [f"depth {n_layers} of {total}"],
+          "clients": shape[0], "batch_per_client": BATCH_PER_CLIENT,
+          "seq": DIST_SEQ, "rounds": ROUNDS,
+          "params_per_rank": [r["params_per_rank"] for r in rows],
+          "init_s_rank": [r["init_s"] for r in rows],
+          "init_peak_rank": [r["init_peak"] for r in rows],
+          "round_s": lead["round_s"], "tokens_per_s": lead["tokens_per_s"],
+          "losses": lead["losses"],
+          "aggregate_ms_rank": [r["aggregate_ms_rank"] for r in rows],
+          "aggregate_ms_max": lead["aggregate_ms_max"],
+          "model_collectives_ms_rank": [r["model_collectives_ms_rank"]
+                                        for r in rows],
+          "model_collectives_ms_max": lead["model_collectives_ms_max"],
+          "moe_calls": routing["calls"], "dropped": routing["dropped"],
+          "aux_mean": routing["aux_mean"],
+          "peak_rank": [r["peak"] for r in rows],
+          "flash_rank": [r["launches"]["flash_fwd"] for r in rows],
+          "qagg_rank": [r["launches"]["qagg"] for r in rows],
+          "slots_identical_across_column": same})
+    want_flash = 2 * n_layers * ROUNDS
+    if (not all(math.isfinite(x) for x in lead["losses"]) or not same
+            or lead["optimizer"] != "adafactor"
+            or max(r["peak"] for r in rows) >= CARD_BYTES
+            or any(r["launches"]["flash_fwd"] != want_flash
+                   or r["launches"]["qagg"] or r["launches"]["fedavg"]
+                   for r in rows)):
+        faults.append(f"moe_time {shape} {arch} {n_layers}: {rows}")
+
+
 def phase_tp(torch, dev) -> dict:
-    """The model axis over four cards: leg (d) ``tp_time`` on a (1, 4)
-    mesh, then on a (2, 2) one leg (c) ``tp_agree`` and leg (d).  Each
+    """The model axis over four cards: leg (d) ``tp_time`` and leg (f)
+    ``moe_time`` on a (1, 4) mesh, then on a (2, 2) one legs (c)
+    ``tp_agree``, (e) ``moe_agree``, (d) and (f).  Each
     mesh's lines are printed as soon as it ends, before any check fails
     the phase; returns the legs' launches, summed over the ranks."""
     from repro_torch.launch import mesh as mesh_lib
@@ -2119,20 +2557,29 @@ def phase_tp(torch, dev) -> dict:
     for shape in ((1, 4), (2, 2)):
         legs = [f"tp_time:{sched}" for sh, sched in TP_TIME if sh == shape]
         if shape == (2, 2):
-            legs.insert(0, "tp_agree")
+            legs[:0] = ["tp_agree", "moe_agree"]
+        legs += [f"moe_time:{arch}:{n}:{sched}"
+                 for sh, arch, n, sched in MOE_TIME if sh == shape]
         gc.collect()
         torch.cuda.empty_cache()
         t0 = time.perf_counter()
         ranks = mesh_lib.spawn(_tp_rank, shape[0], (legs,), model=shape[1],
-                               device="cuda", timeout_s=DIST_TIMEOUT_S)
+                               device="cuda", timeout_s=TP_TIMEOUT_S)
         emit({"phase": "tp_spawn", "mesh": list(shape), "legs": legs,
               "wall_s": time.perf_counter() - t0})
         if "tp_agree" in legs:
             _emit_tp_agree(ranks, add, faults)
+        if "moe_agree" in legs:
+            _emit_moe_agree(ranks, add, faults)
         for sh, sched in TP_TIME:
             if sh == shape:
                 _emit_tp_time(shape, sched, [r[f"tp_time:{sched}"]
                                              for r in ranks], add, faults)
+        for sh, arch, n, sched in MOE_TIME:
+            if sh == shape:
+                _emit_moe_time(shape, arch, n, sched, [
+                    r[f"moe_time:{arch}:{n}:{sched}"] for r in ranks],
+                    add, faults)
     if faults:
         raise AssertionError("\n".join(faults))
     return launches
@@ -2221,6 +2668,16 @@ def phase_dist(torch, dev) -> dict:
                                  f"from the single-device round: {w1}")
         if not all(a["equal"] for a in w1["aggregate"].values()):
             raise AssertionError(f"dist: aggregation at world 1: {w1}")
+        w1m = w1["moe"]
+        if not w1m["state_equal"] or w1m["optimizer"] != "adafactor" or \
+                w1m["losses"] != w1m["single_device_losses"] or \
+                w1m["routing"] != w1m["single_device_routing"] or \
+                w1m["launches"]["flash_fwd"] != 2 * ROUNDS or any(
+                    n for k, n in w1m["launches"].items() if k != "flash_fwd"):
+            raise AssertionError(f"dist: mixtral-8x22b under Adafactor at "
+                                 f"world 1 differs from the single-device "
+                                 f"round: {w1m}")
+        add(w1m["launches"])
         if w1["launches"]["flash_fwd"] < ROUNDS or any(
                 n for k, n in w1["launches"].items() if k != "flash_fwd"):
             raise AssertionError(f"dist: launches {w1['launches']}")

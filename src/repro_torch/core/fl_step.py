@@ -20,9 +20,11 @@ ranks, the reference's mesh axes), each rank holds its block of the bank:
 its client's slot (leading dim 1) and, on a ``model`` axis above 1, its
 part of every dim the specs put on ``model`` (``sharding.local_block``),
 with the optimizer state of that block.  The round trains the client
-tensor-parallel over its M ranks (``dist.tensor_parallel``, the dense
-family), averages the loss over the ``data`` group with one
-``all_reduce``, and aggregates each model block across its column
+tensor-parallel over its M ranks (``dist.tensor_parallel``: the dense and
+MoE families, under any optimizer; Adafactor's factor means and RMS clip
+over a split dim sum over the model group), averages the loss over the
+``data`` group with one ``all_reduce``, and aggregates each model block
+across its column
 (``aggregation.aggregate_params(..., mesh=)``).  The spec functions
 (``param_specs``, ``state_specs``, ...) are the reference's, as tuples of
 mesh-axis names; ``abstract_state`` builds a state on the meta device.
@@ -271,6 +273,15 @@ def init_state(cfg: ArchConfig, n_clients, seed: int = 0,
             "step": 0}
 
 
+def model_split_dims(cfg: ArchConfig, mesh):
+    """Per leaf of one client's parameters (no client dim), the dims its
+    spec puts on the ``model`` axis: what Adafactor's reductions span."""
+    lead = 1 if n_clients_for(cfg, mesh) > 1 else 0
+    return T.tree_map(lambda s: tuple(i - lead for i, ax in enumerate(s)
+                                      if ax == "model" and i >= lead),
+                      param_specs(cfg, mesh))
+
+
 def _rank_clients(cfg: ArchConfig, mesh) -> int:
     """K on a mesh of ranks, one client a row of the data axis
     (``replica`` mode); raises for what the mesh's model axis does not run
@@ -310,8 +321,10 @@ def _make_client_fn(cfg: ArchConfig, opt, local_steps: int, frozen_mask=None,
     the bank.  ``params_c``/``opt_c`` are trees of tensors (views into the
     bank and the moments) and are updated in place.  With ``tp`` (a
     ``tensor_parallel.ModelAxis``) they are this rank's blocks of the
-    client, and the step runs tensor-parallel; the optimizers are
-    elementwise, so a block's update is the whole update's block.
+    client, and the step runs tensor-parallel; sgdm and AdamW are
+    elementwise, so a block's update is the whole update's block, and
+    Adafactor (built with the axis, ``make_optimizer``) reduces its means
+    over the split dims.
 
     ``frozen_mask`` (same structure as params, bool leaves, True = frozen)
     turns on partial updates: frozen leaves get zero gradients and are
@@ -514,7 +527,9 @@ def build_fl_round_step(cfg: ArchConfig, n_clients,
             mesh.subgroups(schedule.level_groups)
     else:
         dev = resolve(device)
-    opt = make_optimizer(cfg, total_steps=total_steps)
+    opt = make_optimizer(cfg, total_steps=total_steps, tp=tp,
+                         split=None if tp is None else
+                         model_split_dims(cfg, mesh))
     E = local_steps if local_steps is not None else cfg.fl.local_steps
     frozen_mask = _frozen_mask(cfg, update_filter)
     client_fn = _make_client_fn(cfg, opt, E, frozen_mask=frozen_mask, tp=tp)

@@ -10,10 +10,14 @@ pinned on the dispatch buffers, which apply only when a mesh with a
   * ``tp_local`` — intra-expert tensor parallelism: the (E, cap, F) expert
                    activations sharded over ``model`` on the d_ff dim.
 
-The port runs each client on one device (a rank of the client mesh has a
-``model`` axis of 1), where the reference also runs the math
-unconstrained, so each variant is ``moe_apply_dense``.  The constraints
-come with the ``model`` axis, ROADMAP item 5b.
+The constraint only steers GSPMD; the parameters' specs fix where the
+expert weights live.  Here the split is written out, and the expert
+leaves' specs decide its form (``tensor_parallel.moe_split``: the experts
+claim the model axis where they divide it, their FFN width otherwise).  So
+both variants take the client's model axis ``tp`` and run
+``moe_apply_dense`` in that form: expert parallelism or intra-expert
+tensor parallelism over the model ranks, or the whole layer on one device
+without ``tp``.
 """
 from __future__ import annotations
 
@@ -21,9 +25,9 @@ from repro_torch.configs.base import ArchConfig
 from repro_torch.models.moe import moe_apply_dense
 
 
-def moe_apply_a2a(cfg: ArchConfig, p, x):
-    return moe_apply_dense(cfg, p, x)
+def moe_apply_a2a(cfg: ArchConfig, p, x, tp=None):
+    return moe_apply_dense(cfg, p, x, tp)
 
 
-def moe_apply_tp_local(cfg: ArchConfig, p, x):
-    return moe_apply_dense(cfg, p, x)
+def moe_apply_tp_local(cfg: ArchConfig, p, x, tp=None):
+    return moe_apply_dense(cfg, p, x, tp)

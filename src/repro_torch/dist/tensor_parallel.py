@@ -1,5 +1,5 @@
 """Tensor parallelism over the mesh's ``model`` axis inside a client, for
-the dense decoder family.
+the dense and MoE decoder families.
 
 The reference has no file for this: it declares each parameter's logical
 axes (``vocab``, ``heads``, ``kv_heads`` and ``mlp`` map to ``model``,
@@ -24,9 +24,27 @@ ranks (``launch.mesh.Mesh.model_group``):
   sum of exponentials and the label's logit, each reduced over the model
   axis, all in f32), the same function as ``model_api.cross_entropy``.
 
+* the MoE layer (``models/moe.moe_apply_dense``) takes the form the
+  expert leaves' specs give it (``moe_split``, ``_spec_for``'s rule: the
+  experts claim the axis first, their FFN width where the experts do not
+  divide it).  Expert parallelism: each rank holds E/M experts and the
+  router's (D, E/M) columns; it all-gathers the router
+  (``gather_from_model``), so routing, dispatch, capacity and the
+  auxiliary loss are the single device's on every rank, runs its own E/M
+  rows of the whole (E, cap, D) dispatch buffer, and all-gathers their
+  outputs before the single device's combine.  Intra-expert tensor
+  parallelism: the ``swiglu`` form above batched over the experts (the
+  router whole).  Only the dispatch's input goes through
+  ``copy_to_model``: the router's own path to x has its whole gradient
+  on every rank already.
+
 Every activation, and every activation's gradient, is then whole and equal
 on the client's ranks, and a replicated weight (the norms) gets its whole
-gradient on each.  Where ``kv_heads`` stays whole while ``heads`` is split
+gradient on each.  An all-gather's backward takes the rank's slice of a
+gradient that is whole on every rank: nothing is summed.  Adafactor's
+factor means and its RMS clip over a split dim sum over the model group
+(``optim/api.adafactor``, through ``ModelAxis.all_reduce``).  Where
+``kv_heads`` stays whole while ``heads`` is split
 (fewer kv heads than ranks, ``_spec_for``'s rule), a rank's q heads all
 read one kv head (q head h reads kv head ``h // (H / Kv)``), which it
 selects; those weights (``wk``, ``wv``, ``bk``, ``bv``) take
@@ -34,12 +52,13 @@ selects; those weights (``wk``, ``wv``, ``bk``, ``bv``) take
 gradient counted once.
 
 With a model axis of 1 there is no :class:`ModelAxis` (``axis_for``
-returns None) and the model runs its plain code.  Families, optimizers and
-modes that a model axis does not reach yet raise ``NotImplementedError``
-naming their ROADMAP item (``check_supported``).
+returns None) and the model runs its plain code.  Families and modes that
+a model axis does not reach yet raise ``NotImplementedError`` naming their
+ROADMAP item (``check_supported``).
 """
 from __future__ import annotations
 
+import warnings
 from typing import Optional
 
 import torch
@@ -48,8 +67,7 @@ import torch.distributed as dist
 from repro_torch.configs.base import ArchConfig
 
 # family -> the ROADMAP item that puts it on the model axis
-_FAMILY_ITEM = {"moe": "5b-ii (expert parallelism)",
-                "rwkv": "5b-iv (RWKV6 and Hymba on the model axis)",
+_FAMILY_ITEM = {"rwkv": "5b-iv (RWKV6 and Hymba on the model axis)",
                 "hybrid": "5b-iv (RWKV6 and Hymba on the model axis)",
                 "encdec": "5b-vii (encoder-decoder and VLM on the model "
                           "axis)",
@@ -60,6 +78,27 @@ def _splits(n: int, size: int) -> bool:
     """Whether a dim of ``n`` takes a mesh axis of ``size`` (the rule of
     ``sharding._spec_for``)."""
     return n >= size and n % size == 0
+
+
+def moe_split(cfg: ArchConfig, size: int) -> Optional[str]:
+    """The MoE dim a model axis of ``size`` splits: ``"experts"`` (expert
+    parallelism) where the experts divide it, else ``"expert_mlp"``
+    (intra-expert tensor parallelism) where their FFN width does, else
+    None (``sharding._spec_for`` on the expert leaves)."""
+    m = cfg.moe
+    if _splits(m.n_experts, size):
+        return "experts"
+    return "expert_mlp" if _splits(m.d_ff_expert, size) else None
+
+
+def _mlp_widths(cfg: ArchConfig) -> list:
+    """The widths of the ``mlp`` leaves the config holds: the dense FFN, or
+    an MoE config's leading dense layers and its shared expert."""
+    m = cfg.moe
+    if m is None:
+        return [cfg.d_ff]
+    return ([m.d_ff_dense] if m.first_k_dense else []) + \
+        ([m.n_shared_experts * m.d_ff_expert] if m.n_shared_experts else [])
 
 
 def check_supported(cfg: ArchConfig, size: int):
@@ -73,18 +112,19 @@ def check_supported(cfg: ArchConfig, size: int):
         raise NotImplementedError(
             f"FL mode {cfg.fl.mode!r} on a model axis of {size}: the shared "
             "mode (FSDP, one client a pod) is ROADMAP item 5b-iii")
-    if cfg.optimizer == "adafactor":
-        raise NotImplementedError(
-            f"Adafactor on a model axis of {size}: its factor means and its "
-            "whole-leaf RMS clip span the split dims; ROADMAP item 5b-vi")
     from repro_torch.models.layers import pad_vocab
-    whole = [name for name, n in (("heads", cfg.n_heads), ("mlp", cfg.d_ff),
+    whole = [name for name, n in (("heads", cfg.n_heads),
                                   ("vocab", pad_vocab(cfg.vocab)))
              if not _splits(n, size)]
+    whole += ["mlp"] if not all(_splits(n, size)
+                                for n in _mlp_widths(cfg)) else []
+    if cfg.moe is not None and moe_split(cfg, size) is None:
+        whole.append("experts and expert_mlp")
     if whole:
         raise NotImplementedError(
             f"{cfg.name}: {', '.join(whole)} would stay whole on a model "
-            f"axis of {size}; tensor parallelism splits heads, mlp and vocab")
+            f"axis of {size}; tensor parallelism splits heads, mlp (or the "
+            "experts) and vocab")
     group, local = cfg.n_heads // cfg.n_kv_heads, cfg.n_heads // size
     if not _splits(cfg.n_kv_heads, size) and group % local:
         raise NotImplementedError(
@@ -105,18 +145,37 @@ class ModelAxis:
         self.kv_split = _splits(n_kv, size)
         self.events: Optional[list] = None
 
-    def all_reduce(self, x: torch.Tensor, op=dist.ReduceOp.SUM):
-        """In-place all-reduce of ``x`` over the model group."""
+    def _timed(self, x: torch.Tensor, collective):
+        """Runs ``collective()``; on the card, with ``events`` a list, inside
+        a CUDA event pair appended to it."""
         if self.events is None or x.device.type != "cuda":
-            dist.all_reduce(x, op=op, group=self.group)
-            return x
+            collective()
+            return
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
-        dist.all_reduce(x, op=op, group=self.group)
+        collective()
         end.record()
         self.events.append((start, end))
+
+    def all_reduce(self, x: torch.Tensor, op=dist.ReduceOp.SUM):
+        """In-place all-reduce of ``x`` over the model group."""
+        self._timed(x, lambda: dist.all_reduce(x, op=op, group=self.group))
         return x
+
+    def all_gather(self, x: torch.Tensor, dim: int) -> torch.Tensor:
+        """Every rank's ``x`` concatenated along ``dim`` in rank order (a
+        new tensor).  ``all_gather_into_tensor`` is in every torch this port
+        runs on; newer ones warn that it is deprecated."""
+        part = x.movedim(dim, 0).contiguous()
+        out = part.new_empty((self.size * part.shape[0],) + part.shape[1:])
+
+        def gather():
+            with warnings.catch_warnings():
+                warnings.simplefilter("ignore", FutureWarning)
+                dist.all_gather_into_tensor(out, part, group=self.group)
+        self._timed(x, gather)
+        return out.movedim(0, dim).contiguous()
 
     def sum_f32(self, x: torch.Tensor) -> torch.Tensor:
         """``x`` summed over the model group, in f32 (a new tensor)."""
@@ -166,24 +225,45 @@ class _ReduceFromModel(torch.autograd.Function):
 
 
 def _mm_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """``a @ b`` (2-D) with an f32 result: on a card, bf16 or f16 operands
-    go through the GEMM with an f32 output (no rounding to bf16); on the
-    CPU, the product of the operands in f32 (the same value)."""
+    """``a @ b`` (2-D, or batched 3-D) with an f32 result: on a card, bf16
+    or f16 operands go through the GEMM with an f32 output (no rounding to
+    bf16); on the CPU, the product of the operands in f32 (the same
+    value)."""
+    mm = torch.bmm if b.dim() == 3 else torch.mm
     if a.device.type == "cuda" and a.dtype in (torch.bfloat16,
                                                torch.float16):
-        return torch.mm(a, b, out_dtype=torch.float32)
-    return a.float() @ b.float()
+        return mm(a, b, out_dtype=torch.float32)
+    return mm(a.float(), b.float())
+
+
+class _GatherFromModel(torch.autograd.Function):
+    """Every rank's part concatenated along ``dim``; the backward takes this
+    rank's slice of the gradient, which is whole and equal on every rank
+    (nothing to sum)."""
+
+    @staticmethod
+    def forward(ctx, x, axis, dim):
+        ctx.axis, ctx.dim, ctx.n = axis, dim, x.shape[dim]
+        return axis.all_gather(x, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g.narrow(ctx.dim, ctx.axis.rank * ctx.n, ctx.n), None, None
 
 
 class _RowParallel(torch.autograd.Function):
     """``x @ w`` where x's last dim and w's rows are this rank's part of
     the contraction: the partial product in f32, summed over the model
     group, cast to x's dtype.  The backward is the plain product's
-    (``g @ w.T``, ``x.T @ g`` in x's dtype); g is equal on every rank."""
+    (``g @ w.T``, ``x.T @ g`` in x's dtype); g is equal on every rank.  A
+    3-D ``w`` (E, F/M, D) is a batch of E products of a 3-D x (E, n, F/M),
+    the experts' down projection."""
 
     @staticmethod
     def forward(ctx, x, w, axis):
         ctx.save_for_backward(x, w)
+        if w.dim() == 3:
+            return axis.all_reduce(_mm_f32(x, w)).to(x.dtype)
         x2 = x.reshape(-1, x.shape[-1])
         y = axis.all_reduce(_mm_f32(x2, w))
         return y.to(x.dtype).view(*x.shape[:-1], w.shape[-1])
@@ -191,6 +271,10 @@ class _RowParallel(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         x, w = ctx.saved_tensors
+        if w.dim() == 3:
+            g = g.to(x.dtype)
+            return (torch.bmm(g, w.transpose(1, 2)),
+                    torch.bmm(x.transpose(1, 2), g), None)
         g2 = g.reshape(-1, g.shape[-1]).to(x.dtype)
         dx = (g2 @ w.t()).view(x.shape)
         dw = x.reshape(-1, x.shape[-1]).t() @ g2
@@ -204,6 +288,11 @@ def copy_to_model(x: torch.Tensor, axis: ModelAxis) -> torch.Tensor:
 def reduce_from_model(x: torch.Tensor, axis: ModelAxis,
                       dtype=None) -> torch.Tensor:
     return _ReduceFromModel.apply(x, axis, dtype or x.dtype)
+
+
+def gather_from_model(x: torch.Tensor, axis: ModelAxis,
+                      dim: int) -> torch.Tensor:
+    return _GatherFromModel.apply(x, axis, dim)
 
 
 def row_parallel(x: torch.Tensor, w: torch.Tensor,

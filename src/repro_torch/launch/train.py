@@ -23,10 +23,14 @@ control plane, since its stats (the round's wall-clock time among them)
 drive the role optimizer, and each round broadcasts the schedule and the
 weights to the other ranks.  Every rank of client d trains on
 ``FederatedTokens.client_batch(d, ...)``, row d of the global batch; with
-M > 1 the client's dense layers are split over its ranks (tensor
-parallelism).  Checkpoints keep the single-device format: rank 0 gathers
-every rank's block of every leaf on save and assembles the whole state,
-and scatters each rank's block back on restore.
+M > 1 the client's layers are split over its ranks (tensor parallelism:
+the dense family, and the MoE family with its experts split or each
+expert's width, under the config's optimizer, Adafactor included).
+Checkpoints keep the single-device format: rank 0 gathers every rank's
+block of every leaf on save and assembles the whole state, and scatters
+each rank's block back on restore.  Adafactor's factors over a split dim
+are whole and equal on a client's ranks, so their blocks assemble the
+single device's factors.
 
 Usage:
     PYTHONPATH=src python -m repro_torch.launch.train --arch qwen2-7b \
@@ -41,6 +45,9 @@ Usage:
     # under torchrun)
     PYTHONPATH=src python -m repro_torch.launch.train --smoke --data-mesh 2 \
         --model-mesh 2 [--device cpu]
+    # an MoE config under Adafactor: its experts split over the ranks
+    PYTHONPATH=src python -m repro_torch.launch.train --smoke \
+        --arch mixtral-8x22b --data-mesh 2 --model-mesh 2 [--device cpu]
 """
 from __future__ import annotations
 
@@ -200,8 +207,11 @@ class SDFLMQTrainer:
             if not torch.is_tensor(t):
                 continue
             flat = t.view(-1)
-            blocks = [local_block(src[i], spec, mesh, r).reshape(-1)
-                      for r in range(mesh.world)] if src else None
+            # contiguous: a block whose split dim is its last, of length 1
+            # (a factor of kv heads split one a rank), flattens to a strided
+            # view, and the collectives send from the data pointer
+            blocks = [local_block(src[i], spec, mesh, r).contiguous()
+                      .view(-1) for r in range(mesh.world)] if src else None
             for c0, c1 in _chunks(flat.numel()):
                 piece = torch.empty_like(flat[c0:c1])
                 parts = [b[c0:c1].to(t.device) for b in blocks] \
@@ -335,9 +345,9 @@ def main(argv=None):
                          "on cuda:r (gloo with --device cpu); 0 keeps "
                          "every client on one device")
     ap.add_argument("--model-mesh", type=int, default=1,
-                    help="the mesh's model axis: ranks a client, its dense "
-                         "layers split over them (tensor parallelism); "
-                         "data x model ranks in all")
+                    help="the mesh's model axis: ranks a client, its "
+                         "layers (dense or MoE) split over them (tensor and "
+                         "expert parallelism); data x model ranks in all")
     args = ap.parse_args(argv)
     M = args.model_mesh
     mesh_lib.check_axes(M)

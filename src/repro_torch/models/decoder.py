@@ -14,10 +14,11 @@ over the layer index on views of the stacked ``(L, ...)`` leaves, and
 
 ``forward`` takes an optional ``tp`` (``dist.tensor_parallel.ModelAxis``):
 the parameters are then this rank's blocks of a client's, split over the
-mesh's ``model`` axis, and the dense layers run tensor-parallel (the
-logits it returns are the rank's vocab rows).  Only the dense family runs
-so; the others raise, naming their ROADMAP item, and are never silently
-replicated.
+mesh's ``model`` axis, and the layers run tensor-parallel (the logits it
+returns are the rank's vocab rows): the dense family, and the MoE family
+with its leading dense layers, its experts (expert or intra-expert
+parallelism) and its shared expert.  The VLM family raises, naming its
+ROADMAP item, and is never silently replicated.
 """
 from __future__ import annotations
 
@@ -90,7 +91,7 @@ def cache_decl(cfg: ArchConfig, batch: int, cache_len: int):
 
 def _ffn(cfg: ArchConfig, lp, x, kind: str, tp=None):
     if kind == "moe":
-        return moe_apply(cfg, lp["moe"], x)
+        return moe_apply(cfg, lp["moe"], x, tp)
     return swiglu(lp["mlp"], x, tp), torch.zeros((), dtype=torch.float32,
                                                  device=x.device)
 

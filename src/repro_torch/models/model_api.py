@@ -65,7 +65,9 @@ def loss_fn(cfg: ArchConfig, params, batch, tp=None):
     (``dist.tensor_parallel.ModelAxis``) ``params`` are this rank's blocks
     of a client split over the ``model`` axis, the logits its vocab rows,
     and the cross-entropy the vocab-parallel one; every rank of the client
-    gets the same loss."""
+    gets the same loss.  An MoE layer's auxiliary loss comes from the
+    router gathered whole, so it is whole on every rank and added once
+    there, as on one device (never summed over the model group)."""
     if tp is None:
         logits, aux = get_model(cfg).forward(cfg, params, batch)
         ce = cross_entropy(logits, batch["labels"])

@@ -7,8 +7,12 @@ run as dense batched products (``torch.bmm``), as the reference computes
 them outside any Pallas kernel.
 
 The reference's ``impl`` variants (``ep_a2a``, ``tp_local``) differ only in
-the sharding constraints pinned on the dispatch buffers; on one device each
-runs ``moe_apply_dense`` unconstrained (``repro_torch/dist/moe_a2a.py``).
+the sharding constraints pinned on the dispatch buffers
+(``repro_torch/dist/moe_a2a.py``).  Here a ``tp``
+(``dist.tensor_parallel.ModelAxis``) splits the layer over the client's
+model ranks in the form the expert leaves' specs give it
+(``tensor_parallel.moe_split``): expert parallelism, or intra-expert
+tensor parallelism; the shared expert is a ``swiglu`` on the ``mlp`` axis.
 """
 from __future__ import annotations
 
@@ -16,6 +20,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.dist import tensor_parallel as tpar
 from repro_torch.dist.sharding import decl
 from repro_torch.models.layers import swiglu, swiglu_decl
 
@@ -82,16 +87,16 @@ def route(router_w, x_flat, top_k: int):
     return topw, topi, gates
 
 
-def moe_apply(cfg: ArchConfig, p, x):
+def moe_apply(cfg: ArchConfig, p, x, tp=None):
     """x: (B, S, D) -> (y: (B, S, D), aux_loss: scalar)."""
     m = cfg.moe
     if m.impl == "ep_a2a":
         from repro_torch.dist.moe_a2a import moe_apply_a2a
-        return moe_apply_a2a(cfg, p, x)
+        return moe_apply_a2a(cfg, p, x, tp)
     if m.impl == "tp_local":
         from repro_torch.dist.moe_a2a import moe_apply_tp_local
-        return moe_apply_tp_local(cfg, p, x)
-    return moe_apply_dense(cfg, p, x)
+        return moe_apply_tp_local(cfg, p, x, tp)
+    return moe_apply_dense(cfg, p, x, tp)
 
 
 def dispatch(ids: torch.Tensor, n_experts: int, cap: int):
@@ -111,19 +116,33 @@ def dispatch(ids: torch.Tensor, n_experts: int, cap: int):
     return order, slot, valid
 
 
-def moe_apply_dense(cfg: ArchConfig, p, x):
+def moe_apply_dense(cfg: ArchConfig, p, x, tp=None):
     """The capacity-dispatch path.  The return scatter-add sums each
     token's k contributions in increasing expert id, one rounding in x's
     dtype per add, from zero: the order of the sorted assignments, in
     which the reference's scatter-add runs on the CPU, and the same order
-    on the card."""
+    on the card.
+
+    With ``tp`` the expert leaves are this rank's blocks.  Expert
+    parallelism (``moe_split`` gives ``"experts"``): the router's columns
+    are gathered whole, every rank routes and dispatches all T tokens into
+    the whole buffer, runs its own E/M experts' rows, and gathers every
+    expert's output before the combine, so the forward is the single
+    device's.  Intra-expert tensor parallelism (``"expert_mlp"``): each
+    expert's FFN is column- then row-parallel over its width.  Either way
+    only the dispatch's input goes through ``copy_to_model`` (its gradient
+    covers this rank's experts or width); the router's path to x is whole
+    on every rank."""
     m = cfg.moe
     B, S, D = x.shape
     T = B * S
     E, K = m.n_experts, m.top_k
     xf = x.reshape(T, D)
+    form = None if tp is None else tpar.moe_split(cfg, tp.size)
 
-    topw, topi, gates = route(p["router"], xf, K)
+    router = p["router"] if form != "experts" else \
+        tpar.gather_from_model(p["router"], tp, -1)
+    topw, topi, gates = route(router, xf, K)
 
     cap = capacity(T, m)
     order, slot, valid = dispatch(topi, E, cap)
@@ -131,12 +150,21 @@ def moe_apply_dense(cfg: ArchConfig, p, x):
     stok, sw = tok[order], topw.reshape(T * K)[order]
 
     # rows of dropped assignments land in the spare row, sliced away
-    buf = x.new_zeros((E * cap + 1, D)).index_put((slot,), xf[stok])
+    xd = xf if tp is None else tpar.copy_to_model(xf, tp)
+    buf = x.new_zeros((E * cap + 1, D)).index_put((slot,), xd[stok])
     h = buf[:E * cap].reshape(E, cap, D)
+    if form == "experts":           # this rank's experts' rows
+        h = h.narrow(0, tp.rank * (E // tp.size), E // tp.size)
     g = torch.bmm(h, p["w_gate"])
     up = torch.bmm(h, p["w_up"])
     act = F.silu(g.float()).to(x.dtype) * up
-    out = torch.bmm(act, p["w_down"]).reshape(E * cap, D)
+    if form == "expert_mlp":
+        out = tpar.row_parallel(act, p["w_down"], tp)
+    else:
+        out = torch.bmm(act, p["w_down"])
+    if form == "experts":
+        out = tpar.gather_from_model(out, tp, 0)
+    out = out.reshape(E * cap, D)
 
     gathered = out[slot.clamp(0, E * cap - 1)]
     gathered = torch.where(valid[:, None], gathered, gathered.new_zeros(()))
@@ -157,6 +185,6 @@ def moe_apply_dense(cfg: ArchConfig, p, x):
     aux = m.aux_coef * E * (f * pmean).sum()
 
     if m.n_shared_experts:
-        y = y + swiglu(p["shared"], xf)
+        y = y + swiglu(p["shared"], xf, tp)
     _count(valid, aux)
     return y.reshape(B, S, D), aux

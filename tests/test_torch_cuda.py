@@ -888,6 +888,27 @@ def test_flash_kernel_at_local_head_shapes_matches_plain(card, H, Kv):
     torch.testing.assert_close(lse, lse_ref, rtol=0, atol=1e-3)
 
 
+# a rank's heads on a model axis of 4 for the MoE and Adafactor configs:
+# mixtral-8x22b (12 q, 2 kv, window 4096), internlm2-20b (12, 2), kimi-k2
+# (16, 2, head dim 112)
+MOE_FLASH_CASES = [(12, 2, 128, 4096), (12, 2, 128, None), (16, 2, 112, None)]
+
+
+@pytest.mark.parametrize("H,Kv,hd,window", MOE_FLASH_CASES)
+def test_flash_kernel_at_moe_local_head_shapes_matches_plain(card, H, Kv, hd,
+                                                             window):
+    rng = np.random.default_rng(H * 37 + hd)
+    q = _normal(rng, (1, 2048, H, hd), torch.bfloat16, card)
+    k = _normal(rng, (1, 2048, Kv, hd), torch.bfloat16, card)
+    v = _normal(rng, (1, 2048, Kv, hd), torch.bfloat16, card)
+    before = flash_ops.launches
+    o, lse = flash_ops.flash_fwd(q, k, v, True, window)
+    assert flash_ops.launches == before + 1
+    o_ref, lse_ref = attention_ref(q, k, v, True, window)
+    torch.testing.assert_close(o.float(), o_ref.float(), rtol=0, atol=2e-2)
+    torch.testing.assert_close(lse, lse_ref, rtol=0, atol=1e-3)
+
+
 def _mesh_shape_rounds(mesh, cases, rounds):
     return mesh.shape, _rank_rounds(mesh, cases, rounds)
 

@@ -19,8 +19,9 @@ stay whole, the mixed layout).
   chooses its clients in each model shard, as the reference does;
 * (f) the CLI's ``--data-mesh 2 --model-mesh 2`` equals ``--clients 2``,
   and resumes; a (2, 2) trainer resumes bit for bit;
-* (g) pods, the shared mode, the other families, Adafactor and serving on
-  a model axis above 1 raise, naming their ROADMAP item.
+* (g) pods, the shared mode (the MoE configs' declared mode among them),
+  the other families and serving on a model axis above 1 raise, naming
+  their ROADMAP item.
 
 The reference runs in one subprocess (jax fixes its device count at its
 first use) while the ranks run; each mesh is spawned once.  The
@@ -520,17 +521,21 @@ def test_cli_grid_matches_single_device_and_resumes(tmp_path):
 # (g) what a model axis does not run yet
 # ---------------------------------------------------------------------------
 
-def _with(arch, **kw):
+def _with(arch, mode="replica", **kw):
     cfg = smoke_config(get_arch(arch)).replace(**kw)
-    return cfg.replace(fl=cfg.fl.__class__(mode="replica"))
+    return cfg.replace(fl=cfg.fl.__class__(mode=mode))
 
 
-@pytest.mark.parametrize("arch,item", [
-    ("mixtral-8x22b", "5b-ii"), ("kimi-k2-1t-a32b", "5b-ii"),
-    ("rwkv6-7b", "5b-iv"), ("hymba-1.5b", "5b-iv"),
-    ("whisper-small", "5b-vii"), ("internvl2-2b", "5b-vii")])
-def test_other_families_on_model_axis_raise(arch, item):
-    cfg = _with(arch, optimizer="adamw")
+# the MoE configs run on a model axis in replica mode (the trainer's CLI
+# mode); in their declared shared mode they still raise
+@pytest.mark.parametrize("arch,item,mode", [
+    ("mixtral-8x22b", "5b-iii", "shared"),
+    ("kimi-k2-1t-a32b", "5b-iii", "shared"),
+    ("rwkv6-7b", "5b-iv", "replica"), ("hymba-1.5b", "5b-iv", "replica"),
+    ("whisper-small", "5b-vii", "replica"),
+    ("internvl2-2b", "5b-vii", "replica")])
+def test_other_families_on_model_axis_raise(arch, item, mode):
+    cfg = _with(arch, mode, optimizer="adamw")
     with pytest.raises(NotImplementedError, match=item):
         fl_step.init_state(cfg, _grid(2, 2), 0)
     with pytest.raises(NotImplementedError, match=item):
@@ -541,17 +546,20 @@ def test_other_families_on_model_axis_raise(arch, item):
 
 
 def test_adafactor_shared_mode_and_pods_on_model_axis_raise():
-    with pytest.raises(NotImplementedError, match="5b-vi"):
-        fl_step.init_state(_with("qwen2-7b", optimizer="adafactor"),
-                           _grid(1, 2), 0)
+    # Adafactor runs on a model axis; a config whose experts and their
+    # width would stay whole does not
+    moe = _with("mixtral-8x22b", optimizer="adafactor")
+    with pytest.raises(NotImplementedError, match="stay whole"):
+        fl_step.init_state(moe.replace(moe=moe.moe.__class__(
+            n_experts=3, top_k=2, d_ff_expert=30)), _grid(1, 4), 0)
     cfg = R.qwen2_smoke()
     shared = cfg.replace(fl=cfg.fl.__class__(mode="shared"))
     with pytest.raises(NotImplementedError, match="5b-iii"):
         fl_step.build_fl_round_step(shared, _grid(2, 2), R.schedule("flat", 2))
     with pytest.raises(NotImplementedError, match="5b-iii"):
         mesh_lib.check_axes(2, pods=2)
-    with pytest.raises(NotImplementedError, match="5b-ii"):
-        train.main(["--device", "cpu", "--smoke", "--arch", "mixtral-8x22b",
+    with pytest.raises(NotImplementedError, match="5b-iv"):
+        train.main(["--device", "cpu", "--smoke", "--arch", "rwkv6-7b",
                     "--model-mesh", "2"])
 
 

@@ -43,8 +43,14 @@ layer on a (2, 2) mesh (experts split over a client's cards) under four
 schedules and strategies against the single-card K = 2 rounds, and
 internlm2-20b at all 48 layers, kimi-k2 (its dense layer and one MoE
 layer of 384 experts) and mixtral-8x22b at 12 and 6 layers over four
-cards.  On one card the rank path also runs mixtral-8x22b under
-Adafactor against the single-card K = 1 trainer, bit for bit.
+cards; then the ``shared`` mode (``phase_shared``: one client a pod, its
+parameters FSDP-split over the pod's data cards): mixtral-8x22b at one
+layer on a (pod 2, data 2, model 1) mesh under four schedules and
+strategies, qwen2-7b under AdamW, and mixtral on (1, 2, 2), two rounds
+each against the single card; mixtral at the most layers that fit and
+qwen2-7b at all 28 layers on (2, 2, 1).  On one card the rank path also
+runs mixtral-8x22b under Adafactor against the single-card K = 1
+trainer, bit for bit.
 Each phase prints JSON lines; then one line lists every kernel, one line
 gives the card's name and power limit as nvidia-smi reports them, and the
 last line is ``{"ok": true, "device": ...}``.  Any failure raises and
@@ -73,6 +79,74 @@ PEAK_BF16_FLOP_S = 989e12     # H100 SXM dense bf16 tensor cores
 
 def emit(obj):
     print(json.dumps(obj), flush=True)
+
+
+def adopt_orphans() -> None:
+    """Makes this process the reaper of its descendants (Linux
+    ``PR_SET_CHILD_SUBREAPER``): a process that a child leaves behind
+    becomes this one's child, so ``stop_children`` finds it."""
+    import ctypes
+    try:
+        ctypes.CDLL(None, use_errno=True).prctl(36, 1, 0, 0, 0)
+    except (OSError, AttributeError):
+        pass
+
+
+def _children() -> list[tuple[int, str]]:
+    """This process's children that have not ended, as (pid, name)."""
+    me, found = str(os.getpid()), []
+    for pid in os.listdir("/proc"):
+        if not pid.isdigit():
+            continue
+        try:
+            stat = Path(f"/proc/{pid}/stat").read_text()
+        except OSError:
+            continue
+        name = stat[stat.find("(") + 1:stat.rfind(")")]
+        state, ppid = stat[stat.rfind(")") + 2:].split()[:2]
+        if ppid == me and state != "Z":
+            found.append((int(pid), name))
+    return found
+
+
+def _reap_until(deadline: float) -> None:
+    """Reaps the children that end until none is left or ``deadline``."""
+    while True:
+        try:
+            if os.waitpid(-1, os.WNOHANG)[0] != 0:
+                continue
+        except ChildProcessError:
+            return
+        if time.monotonic() >= deadline:
+            return
+        time.sleep(0.05)
+
+
+def stop_children(grace_s: float = 5.0) -> None:
+    """Stops every process this run started that still runs, and reaps it:
+    the ``spawn`` method's resource tracker (which ignores SIGTERM and
+    would outlive the script until it reads its pipe's end), then any other
+    child, with SIGTERM and after ``grace_s`` SIGKILL.  Each one stopped
+    is named on stderr."""
+    import signal
+    from multiprocessing import resource_tracker
+    gc.collect()        # the semaphores that are garbage unregister first
+    tracker = resource_tracker._resource_tracker
+    if getattr(tracker, "_pid", None) is not None and \
+            hasattr(tracker, "_stop"):
+        print(f"chip_smoke: stopping the resource tracker (pid "
+              f"{tracker._pid})", file=sys.stderr, flush=True)
+        tracker._stop()
+    for sig in (signal.SIGTERM, signal.SIGKILL):
+        _reap_until(time.monotonic())
+        for pid, name in _children():
+            print(f"chip_smoke: stopping leftover process {pid} ({name}) "
+                  f"with {sig.name}", file=sys.stderr, flush=True)
+            try:
+                os.kill(pid, sig)
+            except ProcessLookupError:
+                pass
+        _reap_until(time.monotonic() + grace_s)
 
 
 def smi_line() -> str:
@@ -247,6 +321,11 @@ def phase_flash(torch, dev):
          True, None, 0),
         ("moe_local_heads_kimi", 1, 2048, 2048, 16, 2, 112, torch.bfloat16,
          True, None, 0),
+        # the shared mode on (1, 2, 2): a data rank's row of its client's
+        # batch, mixtral-8x22b's heads on a model axis of 2 (on (2, 2, 1)
+        # it runs ``mixtral_window``'s shape)
+        ("shared_local_heads_mixtral_m2", 1, 2048, 2048, 24, 4, 128,
+         torch.bfloat16, True, 4096, 0),
     ]
     path_row = None
     for name, B, Sq, Sk, H, Kv, hd, dtype, causal, window, qo in cases:
@@ -267,7 +346,8 @@ def phase_flash(torch, dev):
         if name in ("path", "hymba_window", "mixtral_window",
                     "tp_local_heads_m4", "tp_local_heads_m2",
                     "moe_local_heads_mixtral", "local_heads_internlm2",
-                    "moe_local_heads_kimi"):
+                    "moe_local_heads_kimi",
+                    "shared_local_heads_mixtral_m2"):
             flops = _flash_flops(B, Sq, Sk, H, hd, causal, window)
             nbytes = (q.numel() + k.numel() + v.numel() + o.numel()) \
                 * q.element_size() + lse.numel() * 4
@@ -323,13 +403,17 @@ def phase_flash(torch, dev):
 
 def phase_qagg(torch, dev):
     """qagg at the embed table's payload (the path's largest launch), a
-    large-G leaf (w_gate/w_up) and odd shapes: bit-exact with the plain
-    version, with kernel and plain times and the byte bound."""
+    large-G leaf (w_gate/w_up), the shared mode's largest launch (two
+    pods' data block of one mixtral-8x22b layer's ``w_gate``: 8 experts x
+    3072 of the 6144 embed rows, 16384 wide) and odd shapes: bit-exact
+    with the plain version, with kernel and plain times and the byte
+    bound."""
     from repro_torch.kernels.fedavg import ops
     from repro_torch.kernels.fedavg.ref import qagg_ref
     gen = torch.Generator(device=dev).manual_seed(2)
     w = torch.tensor([0.7, 1.3, 2.0, 0.5], device=dev)
     cases = [("path_embed", 4, 152064, 3584), ("large_G", 4, 3584, 18944),
+             ("shared_block", 2, 8 * 3072, 16384),
              ("G1", 4, 1000, 1), ("G7", 4, 999, 7), ("R1", 4, 1, 3584),
              ("scalar", 4, 1, 1)]
     path_row = None
@@ -337,19 +421,20 @@ def phase_qagg(torch, dev):
         q = torch.randint(-127, 128, (K, R, G), generator=gen, device=dev,
                           dtype=torch.int8)
         s = torch.rand((K, R, 1), generator=gen, device=dev) * (2.0 / 127)
-        got = ops.qagg(q, s, w)
-        want = qagg_ref(q, s, w)
+        wk = w[:K]
+        got = ops.qagg(q, s, wk)
+        want = qagg_ref(q, s, wk)
         torch.cuda.synchronize()
         nbytes = K * R * G + 4 * K * R + 4 * R * G
         row = {"case": name, "K": K, "R": R, "G": G,
                "bit_exact": bool(torch.equal(got, want)),
                "max_abs_err": float((got - want).abs().max()),
                "bytes": nbytes, "bound_ms": nbytes / PEAK_BYTES_S * 1e3}
-        if name in ("path_embed", "large_G"):
-            ms = time_ms(torch, lambda: ops.qagg(q, s, w), 10)
+        if name in ("path_embed", "large_G", "shared_block"):
+            ms = time_ms(torch, lambda: ops.qagg(q, s, wk), 10)
             row.update({"kernel_ms": ms,
                         "plain_ms": time_ms(torch,
-                                            lambda: qagg_ref(q, s, w), 3),
+                                            lambda: qagg_ref(q, s, wk), 3),
                         "gb_s": nbytes / (ms * 1e-3) / 1e9})
         emit({"phase": "qagg", **row})
         if not row["bit_exact"]:
@@ -1732,8 +1817,9 @@ def _dist_world1(torch, mesh) -> dict:
 
 def _replica(cfg):
     """``cfg`` in ``replica`` mode, the trainer CLI's: the MoE configs
-    declare the ``shared`` mode (FSDP, one client a pod; ROADMAP item
-    5b-iii), which a mesh of ranks does not run yet."""
+    declare the ``shared`` mode (FSDP, one client a pod), which
+    ``phase_shared`` runs; the legs that hold the model axis alone run
+    them as replicas, one client a row of the data axis."""
     import dataclasses
     return cfg.replace(fl=dataclasses.replace(cfg.fl, mode="replica"))
 
@@ -2081,7 +2167,7 @@ def _tp_agree(torch, mesh) -> list:
         aggregation.aggregate_params(mine, w, schedule, strat, mesh=mesh)
         end.record()
         whole = T.tree_map(lambda t: aggregation._gathered_rows(
-            t.reshape(1, -1), K, mesh.data_group).view((K,) + t.shape[1:]),
+            t.reshape(1, -1), K, mesh.group("data")).view((K,) + t.shape[1:]),
             bank)
         aggregation.aggregate_params(whole, w, schedule, strat)
         end.synchronize()
@@ -2140,56 +2226,59 @@ def _tp_time(torch, mesh, sched) -> dict:
     return out
 
 
-def _moe_agree(torch, mesh) -> list:
-    """Leg (e) on a (2, 2) mesh: two rounds of mixtral-8x22b (one layer,
-    Adafactor) under each ``MOE_AGREE`` case against the single-card K = 2
-    trainer that rank 0 runs on its card first.  Slot 0 after each round
-    is broadcast from rank 0, and each rank compares its block; so are the
-    quantization steps of the initial bank's rows (``compressed``)."""
+def _agree_rounds(torch, mesh, cases, bpc) -> list:
+    """Two rounds of each (config, schedule, strategy) case on this mesh
+    (batch ``bpc`` a client) against the single-card trainer of the same K
+    clients that rank 0 runs on its card first.  Slot 0 after each round
+    is broadcast from rank 0, and each rank compares its block (its place
+    on the axes other than the client axis); so are the quantization steps
+    of the initial bank's rows (``compressed``)."""
     import torch.distributed as dist
     from repro_torch import tree as T
-    from repro_torch.configs.base import get_arch
     from repro_torch.core import fl_step
     from repro_torch.dist.sharding import local_block
     from repro_torch.launch.train import SDFLMQTrainer
     from repro_torch.models import moe
 
-    cfg = _replica(get_arch(MOE_ARCH).replace(n_layers=1))
-    K, M, dev = mesh.shape["data"], mesh.shape["model"], mesh.device
-    specs = T.leaves(fl_step.param_specs(cfg, {"data": 1, "model": M}))
-    shapes = [t.shape for t in T.leaves(
-        fl_step.abstract_state(cfg, 1)["params"])]
-    named = lambda ts: {f"{i:03d}": t for i, t in enumerate(ts)}
-
-    def run(tr):
-        """-> (metrics, slot 0 after each round, routing statistics)."""
-        slots = []
-        tr.on_round_end = lambda r, state: slots.append(
-            [t[0].clone() for t in T.leaves(state["params"])])
-        moe.reset_stats()
-        ms = tr.run()
-        torch.cuda.synchronize(dev)
-        return ms, slots, moe.read_stats()
-
-    def from_rank0(ts, shapes, dtypes, specs=specs):
-        """Rank 0's tensors on every rank, each rank's block of each."""
-        out = []
-        for i, (shape, dt) in enumerate(zip(shapes, dtypes)):
-            w = ts[i] if ts is not None else torch.empty(shape, dtype=dt,
-                                                         device=dev)
-            dist.broadcast(w, src=0)
-            out.append(local_block(w, specs[i], mesh))
-        return named(out)
-
+    dev = mesh.device
     rows = []
-    for sched, strat in MOE_AGREE:
+    for cfg, sched, strat in cases:
+        K = fl_step.n_clients_for(cfg, mesh)
+        axis = fl_step.client_axis_for(cfg, mesh)
+        one_client = {**mesh.shape, **({axis: 1} if axis else {})}
+        specs = T.leaves(fl_step.param_specs(cfg, one_client))
+        shapes = [t.shape for t in T.leaves(
+            fl_step.abstract_state(cfg, 1)["params"])]
+        named = lambda ts: {f"{i:03d}": t for i, t in enumerate(ts)}
+
+        def run(tr):
+            """-> (metrics, slot 0 after each round, routing)."""
+            slots = []
+            tr.on_round_end = lambda r, state: slots.append(
+                [(t[0] if K > 1 else t).clone()
+                 for t in T.leaves(state["params"])])
+            moe.reset_stats()
+            ms = tr.run()
+            torch.cuda.synchronize(dev)
+            return ms, slots, moe.read_stats()
+
+        def from_rank0(ts, shapes, dtypes, specs=specs):
+            """Rank 0's tensors on every rank, each rank's block of each."""
+            out = []
+            for i, (shp, dt) in enumerate(zip(shapes, dtypes)):
+                w = ts[i] if ts is not None else torch.empty(
+                    shp, dtype=dt, device=dev)
+                dist.broadcast(w, src=0)
+                out.append(local_block(w, specs[i], mesh))
+            return named(out)
+
         kw = dict(seed=0, schedule_kind=sched, strategy=strat)
         want = single = steps = None
         if mesh.rank == 0:
             gc.collect()
             torch.cuda.empty_cache()
-            one = SDFLMQTrainer(cfg, K, ROUNDS, BATCH_PER_CLIENT, DIST_SEQ,
-                                device=dev, **kw)
+            one = SDFLMQTrainer(cfg, K, ROUNDS, bpc, DIST_SEQ, device=dev,
+                                **kw)
             if sched == "compressed":
                 steps = _row_steps(torch, one.state["params"])
             ms1, want, stats1 = run(one)
@@ -2202,13 +2291,13 @@ def _moe_agree(torch, mesh) -> list:
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats(dev)
         reset_launches()
-        tr = SDFLMQTrainer(cfg, K, ROUNDS, BATCH_PER_CLIENT, DIST_SEQ,
-                           mesh=mesh, **kw)
+        tr = SDFLMQTrainer(cfg, K, ROUNDS, bpc, DIST_SEQ, mesh=mesh, **kw)
         ms, slots, stats = run(tr)
         launches = read_launches()
         del tr
         dtypes = [t.dtype for t in slots[0]]
-        row = {"schedule": sched, "strategy": strat,
+        row = {"arch": cfg.name, "schedule": sched, "strategy": strat,
+               "K": K, "optimizer": cfg.optimizer,
                "losses": [m["loss"] for m in ms],
                "single_losses": single["losses"],
                "level_groups": [m["level_groups"] for m in ms],
@@ -2216,6 +2305,8 @@ def _moe_agree(torch, mesh) -> list:
                "routing": stats, "single_routing": single["routing"],
                "round_s": [m["time_s"] for m in ms],
                "aggregate_ms": [m.get("aggregate_ms") for m in ms],
+               "data_collectives_ms": [m.get("data_collectives_ms")
+                                       for m in ms],
                "model_collectives_ms": [m.get("model_collectives_ms")
                                         for m in ms],
                "launches": launches,
@@ -2254,22 +2345,44 @@ def _moe_agree(torch, mesh) -> list:
     return rows
 
 
-def _moe_time(torch, mesh, arch, n_layers, sched) -> dict:
-    """Leg (f): two rounds of ``arch`` at ``n_layers`` layers on this mesh
-    under ``sched`` (Adafactor, the configs' optimizer)."""
-    from repro_torch import tree as T
+def _moe_agree(torch, mesh) -> list:
+    """Leg (e) on a (2, 2) mesh: two rounds of mixtral-8x22b (one layer,
+    Adafactor, ``replica`` mode) under each ``MOE_AGREE`` case against the
+    single-card K = 2 trainer."""
     from repro_torch.configs.base import get_arch
+    cfg = _replica(get_arch(MOE_ARCH).replace(n_layers=1))
+    return _agree_rounds(torch, mesh, [(cfg, sched, strat)
+                                       for sched, strat in MOE_AGREE],
+                         BATCH_PER_CLIENT)
+
+
+def _shared_agree(torch, mesh) -> list:
+    """Leg (g) on this mesh: two rounds of each ``SHARED_AGREE`` case in
+    ``shared`` mode (one layer, batch ``SHARED_BPC`` a client) against the
+    single-card trainer."""
+    from repro_torch.configs.base import get_arch
+    return _agree_rounds(torch, mesh, [
+        (_shared(get_arch(arch).replace(n_layers=1)), sched, strat)
+        for arch, sched, strat in SHARED_AGREE[tuple(mesh.shape.values())]],
+        SHARED_BPC)
+
+
+def _time_leg(torch, mesh, cfg, sched, bpc) -> dict:
+    """Two rounds of ``cfg`` on this mesh under ``sched`` (the config's
+    optimizer), batch ``bpc`` a client: round times, peaks, the spans a
+    rank and their maximum, routing, launches."""
+    from repro_torch import tree as T
+    from repro_torch.core import fl_step
     from repro_torch.launch.train import SDFLMQTrainer
     from repro_torch.models import moe
 
-    cfg = _replica(get_arch(arch).replace(n_layers=n_layers))
-    K, dev = mesh.shape["data"], mesh.device
+    K, dev = fl_step.n_clients_for(cfg, mesh), mesh.device
     gc.collect()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats(dev)
     t0 = time.perf_counter()
-    tr = SDFLMQTrainer(cfg, K, ROUNDS, BATCH_PER_CLIENT, DIST_SEQ, seed=0,
-                       mesh=mesh, schedule_kind=sched)
+    tr = SDFLMQTrainer(cfg, K, ROUNDS, bpc, DIST_SEQ, seed=0, mesh=mesh,
+                       schedule_kind=sched)
     torch.cuda.synchronize(dev)
     init_s = time.perf_counter() - t0
     init_peak = torch.cuda.max_memory_allocated(dev)
@@ -2279,46 +2392,49 @@ def _moe_time(torch, mesh, arch, n_layers, sched) -> dict:
     ms = tr.run()
     torch.cuda.synchronize(dev)
     leaves = T.leaves(tr.state["params"])
-    out = {"arch": arch, "n_layers": n_layers, "schedule": sched,
-           "optimizer": cfg.optimizer, "mesh": mesh.shape, "init_s": init_s,
-           "init_peak": init_peak,
+    out = {"arch": cfg.name, "n_layers": cfg.n_layers, "schedule": sched,
+           "optimizer": cfg.optimizer, "mode": cfg.fl.mode, "K": K,
+           "mesh": mesh.shape, "init_s": init_s, "init_peak": init_peak,
            "params_per_rank": sum(t.numel() for t in leaves),
            "leaves": len(leaves),
            "round_s": [m["time_s"] for m in ms],
            "tokens_per_s": [m["tokens_per_s"] for m in ms],
            "losses": [m["loss"] for m in ms],
-           "aggregate_ms_rank": [m["rank_ms"].get("aggregate_ms")
-                                 for m in ms],
-           "aggregate_ms_max": [m.get("aggregate_ms") for m in ms],
-           "model_collectives_ms_rank": [
-               m["rank_ms"].get("model_collectives_ms") for m in ms],
-           "model_collectives_ms_max": [m.get("model_collectives_ms")
-                                        for m in ms],
            "routing": moe.read_stats(),
            "peak": torch.cuda.max_memory_allocated(dev),
            "launches": read_launches(),
            "checksum": _checksum(torch, tr.state["params"])}
+    for span in ("aggregate", "model_collectives", "data_collectives"):
+        out[f"{span}_ms_rank"] = [m["rank_ms"].get(f"{span}_ms") for m in ms]
+        out[f"{span}_ms_max"] = [m.get(f"{span}_ms") for m in ms]
     del tr
     return out
 
 
 def _tp_rank(mesh, legs):
-    """One rank of the model-axis legs (a spawned process), with the
-    matmul settings of ``main``: ``tp_agree`` and each ``tp_time:<sched>``
-    in ``legs``."""
+    """One rank of the model-axis and shared-mode legs (a spawned process),
+    with the matmul settings of ``main``: ``tp_agree``, ``moe_agree``,
+    ``shared_agree``, each ``tp_time:<sched>`` and each
+    ``{moe,shared}_time:<arch>:<layers>:<sched>`` in ``legs``."""
     import torch
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     out = {"rank": mesh.rank, "shape": mesh.shape,
            "device": torch.cuda.get_device_name(mesh.device)}
+    from repro_torch.configs.base import get_arch
     for leg in legs:
         if leg == "tp_agree":
             out[leg] = _tp_agree(torch, mesh)
         elif leg == "moe_agree":
             out[leg] = _moe_agree(torch, mesh)
-        elif leg.startswith("moe_time:"):
-            _, arch, n_layers, sched = leg.split(":")
-            out[leg] = _moe_time(torch, mesh, arch, int(n_layers), sched)
+        elif leg == "shared_agree":
+            out[leg] = _shared_agree(torch, mesh)
+        elif leg.startswith(("moe_time:", "shared_time:")):
+            kind, arch, n_layers, sched = leg.split(":")
+            mode, bpc = ((_replica, BATCH_PER_CLIENT) if kind == "moe_time"
+                         else (_shared, SHARED_BPC))
+            cfg = mode(get_arch(arch).replace(n_layers=int(n_layers)))
+            out[leg] = _time_leg(torch, mesh, cfg, sched, bpc)
         else:
             out[leg] = _tp_time(torch, mesh, leg.split(":")[1])
     return out
@@ -2414,58 +2530,67 @@ def _emit_tp_time(shape, sched, rows, add, faults):
         faults.append(f"tp_time {shape} {sched}: {rows}")
 
 
-def _emit_moe_agree(ranks, add, faults):
-    """The ``moe_agree`` lines of a (2, 2) run and their checks: losses
-    within ``TP_LOSS_RTOL``; round 0 (a learning rate of 0: the
-    aggregation alone) under ``_slot_compare``'s sum rule, the stack
-    strategy bit for bit, ``compressed`` within one bf16 ulp and one quantization step of
-    the contributions' rows; round 1 within ``MOE_ROUND1_ULPS`` bf16 ulps
-    and 2 x ``MOE_LR``, at most ``MOE_ROUND1_SHARE`` beyond the ulps (and,
-    under ``compressed``, the carried and new steps); the clients' dropped
-    assignments within ``MOE_DROP_SHARE`` of the assignments of the single
-    card's; equal slots down each model column; exact flash and qagg
-    counts."""
+def _emit_agree(phase, shape, cases, bpc, ranks, add, faults):
+    """The lines of an agree leg (``moe_agree``, ``shared_agree``) on a mesh
+    and their checks: losses within ``TP_LOSS_RTOL``; round 0 (a learning
+    rate of 0: the aggregation alone) under ``_slot_compare``'s sum rule,
+    the stack strategy bit for bit, ``compressed`` within one bf16 ulp and
+    one quantization step of the contributions' whole rows; round 1 within
+    ``MOE_ROUND1_ULPS`` bf16 ulps and 2 x ``MOE_LR``, at most
+    ``MOE_ROUND1_SHARE`` beyond the ulps (and, under ``compressed``, the
+    carried and new steps); the clients' dropped assignments within
+    ``MOE_DROP_SHARE`` of the assignments of the single card's; equal
+    blocks on the ranks that hold the same block of different clients;
+    exact flash and qagg counts.  ``cases``: (arch, schedule, strategy)."""
     from repro_torch.configs.base import get_arch
-    top_k = get_arch(MOE_ARCH).moe.top_k
     keys = ("exact", "max_abs_err", "elements_differing",
             "beyond_1_bf16_ulp", "beyond_1_bf16_ulp_max_err",
             "beyond_1_bf16_ulp_max_abs_value", "beyond_sum_tolerance",
             "beyond_ulp_and_step", "beyond_2_bf16_ulps",
             "beyond_round1_tolerance", "elements", "finite")
-    for i, (sched, strat) in enumerate(MOE_AGREE):
-        rows = [r["moe_agree"][i] for r in ranks]
+    for i, (arch, sched, strat) in enumerate(cases):
+        rows = [r[phase][i] for r in ranks]
         for r in rows:
             add(r["launches"])
         lead = rows[0]
+        K = lead["K"]
+        period = len(rows) // K      # the client axis is the outermost
         same = all(rows[r][f"round{k}"]["checksum"]
-                   == rows[r % 2][f"round{k}"]["checksum"]
-                   for r in range(4) for k in range(ROUNDS))
+                   == rows[r % period][f"round{k}"]["checksum"]
+                   for r in range(len(rows)) for k in range(ROUNDS))
         rel = max(abs(a - b) / abs(b) for a, b in zip(
             lead["losses"], lead["single_losses"]))
-        # one rank of each client's model group: ranks 0 and 2
-        dropped = sum(rows[r]["routing"]["dropped"] for r in (0, 2))
-        calls = sum(rows[r]["routing"]["calls"] for r in (0, 2))
+        heads = [k * period for k in range(K)]     # one rank a client
+        dropped = sum(rows[r]["routing"]["dropped"] for r in heads)
+        calls = sum(rows[r]["routing"]["calls"] for r in heads)
         single = lead["single_routing"]
-        emit({"phase": "moe_agree", "mesh": [2, 2], "arch": MOE_ARCH,
-              "n_layers": 1, "optimizer": "adafactor", "schedule": sched,
-              "strategy": strat, "rounds": ROUNDS, "losses": lead["losses"],
+        moe = get_arch(arch).moe
+        assignments = calls * bpc * DIST_SEQ * (moe.top_k if moe else 0)
+        emit({"phase": phase, "mesh": list(shape), "arch": arch,
+              "n_layers": 1, "clients": K, "batch_per_client": bpc,
+              "seq": DIST_SEQ, "optimizer": lead["optimizer"],
+              "schedule": sched, "strategy": strat, "rounds": ROUNDS,
+              "losses": lead["losses"],
               "single_card_losses": lead["single_losses"],
               "loss_rel_err": rel, "level_groups": lead["level_groups"],
               "dropped": dropped, "single_card_dropped": single["dropped"],
-              "assignments": calls * BATCH_PER_CLIENT * DIST_SEQ * top_k,
-              "moe_calls": calls, "single_card_moe_calls": single["calls"],
+              "assignments": assignments, "moe_calls": calls,
+              "single_card_moe_calls": single["calls"],
               "aux_mean_rank": [r["routing"]["aux_mean"] for r in rows],
               "single_card_aux_mean": single["aux_mean"],
               **{f"round{k}_rank": [{x: r[f"round{k}"].get(x) for x in keys}
                                     for r in rows] for k in range(ROUNDS)},
-              "slots_identical_across_column": same,
+              "blocks_identical_across_clients": same,
               "round_s": lead["round_s"],
               "aggregate_ms_rank": [r["aggregate_ms"] for r in rows],
               "model_collectives_ms_rank": [r["model_collectives_ms"]
                                             for r in rows],
+              "data_collectives_ms_rank": [r["data_collectives_ms"]
+                                           for r in rows],
               "peak_rank": [r["peak"] for r in rows],
               "launches_rank": [r["launches"] for r in rows]})
         exact = strat != "fedavg"
+        name = f"{phase} {shape} {arch} {sched}/{strat}"
         for r in rows:
             r0, r1 = r["round0"], r["round1"]
             if (not r0["finite"] or not r1["finite"] or rel > TP_LOSS_RTOL
@@ -2478,7 +2603,7 @@ def _emit_moe_agree(ranks, add, faults):
                     > MOE_ROUND1_SHARE * r1["elements"]):
                 rest = {k: v for k, v in r.items()
                         if k not in ("round0", "round1")}
-                faults.append(f"moe_agree {sched}/{strat} rank: {rest} "
+                faults.append(f"{name} rank: {rest} "
                               f"round0 { {x: r0.get(x) for x in keys} } "
                               f"round1 { {x: r1.get(x) for x in keys} }")
             want_qagg = r["leaves"] * ROUNDS if sched == "compressed" else 0
@@ -2486,58 +2611,70 @@ def _emit_moe_agree(ranks, add, faults):
             if (got["flash_fwd"] != 2 * ROUNDS or got["qagg"] != want_qagg
                     or got["fedavg"] or got["quantize"]
                     or got["dequantize"]):
-                faults.append(f"moe_agree {sched}/{strat}: launches {got}")
+                faults.append(f"{name}: launches {got}")
         if not same:
-            faults.append(f"moe_agree {sched}/{strat}: column blocks differ")
-        assignments = calls * BATCH_PER_CLIENT * DIST_SEQ * top_k
-        if abs(dropped - single["dropped"]) > MOE_DROP_SHARE * assignments \
-                or calls != single["calls"]:
-            faults.append(f"moe_agree {sched}/{strat}: dropped {dropped} of "
-                          f"{calls} calls, the single card {single}")
+            faults.append(f"{name}: blocks differ across clients")
+        if moe and (abs(dropped - single["dropped"])
+                    > MOE_DROP_SHARE * assignments
+                    or calls != single["calls"]):
+            faults.append(f"{name}: dropped {dropped} of {calls} calls, the "
+                          f"single card {single}")
 
 
-def _emit_moe_time(shape, arch, n_layers, sched, rows, add, faults):
-    """A ``moe_time`` line and its checks."""
+def _emit_time(phase, shape, arch, n_layers, sched, bpc, rows, add,
+               faults):
+    """A time leg's line (``moe_time``, ``shared_time``) and its checks:
+    finite losses, equal blocks across the clients, the config's
+    optimizer, every peak under the card, flash exactly 2 a layer a round
+    a rank (remat's recompute), qagg a leaf a round under ``compressed``,
+    no fedavg."""
     from repro_torch.configs.base import get_arch
     for r in rows:
         add(r["launches"])
     lead = rows[0]
-    M = shape[1]
-    same = all(rows[r]["checksum"] == rows[r % M]["checksum"]
+    period = len(rows) // lead["K"]
+    same = all(rows[r]["checksum"] == rows[r % period]["checksum"]
                for r in range(len(rows)))
     total = get_arch(arch).n_layers
     routing = lead["routing"]
-    emit({"phase": "moe_time", "mesh": list(shape), "arch": arch,
-          "optimizer": lead["optimizer"], "schedule": sched,
-          "n_layers": n_layers,
+    moe = get_arch(arch).moe
+    assignments = routing["calls"] * bpc * DIST_SEQ * (moe.top_k if moe
+                                                       else 0)
+    emit({"phase": phase, "mesh": list(shape), "arch": arch,
+          "mode": lead["mode"], "optimizer": lead["optimizer"],
+          "schedule": sched, "n_layers": n_layers,
           "reduced": [] if n_layers == total else
           [f"depth {n_layers} of {total}"],
-          "clients": shape[0], "batch_per_client": BATCH_PER_CLIENT,
+          "clients": lead["K"], "batch_per_client": bpc,
           "seq": DIST_SEQ, "rounds": ROUNDS,
           "params_per_rank": [r["params_per_rank"] for r in rows],
           "init_s_rank": [r["init_s"] for r in rows],
           "init_peak_rank": [r["init_peak"] for r in rows],
           "round_s": lead["round_s"], "tokens_per_s": lead["tokens_per_s"],
           "losses": lead["losses"],
-          "aggregate_ms_rank": [r["aggregate_ms_rank"] for r in rows],
-          "aggregate_ms_max": lead["aggregate_ms_max"],
-          "model_collectives_ms_rank": [r["model_collectives_ms_rank"]
-                                        for r in rows],
-          "model_collectives_ms_max": lead["model_collectives_ms_max"],
+          **{f"{span}_ms_rank": [r[f"{span}_ms_rank"] for r in rows]
+             for span in ("aggregate", "model_collectives",
+                          "data_collectives")},
+          **{f"{span}_ms_max": lead[f"{span}_ms_max"]
+             for span in ("aggregate", "model_collectives",
+                          "data_collectives")},
           "moe_calls": routing["calls"], "dropped": routing["dropped"],
+          "dropped_share": (routing["dropped"] / assignments
+                            if assignments else None),
           "aux_mean": routing["aux_mean"],
           "peak_rank": [r["peak"] for r in rows],
           "flash_rank": [r["launches"]["flash_fwd"] for r in rows],
           "qagg_rank": [r["launches"]["qagg"] for r in rows],
-          "slots_identical_across_column": same})
+          "blocks_identical_across_clients": same})
     want_flash = 2 * n_layers * ROUNDS
+    want_qagg = lead["leaves"] * ROUNDS if sched == "compressed" else 0
     if (not all(math.isfinite(x) for x in lead["losses"]) or not same
-            or lead["optimizer"] != "adafactor"
+            or lead["optimizer"] != get_arch(arch).optimizer
             or max(r["peak"] for r in rows) >= CARD_BYTES
             or any(r["launches"]["flash_fwd"] != want_flash
-                   or r["launches"]["qagg"] or r["launches"]["fedavg"]
-                   for r in rows)):
-        faults.append(f"moe_time {shape} {arch} {n_layers}: {rows}")
+                   or r["launches"]["qagg"] != want_qagg
+                   or r["launches"]["fedavg"] for r in rows)):
+        faults.append(f"{phase} {shape} {arch} {n_layers} {sched}: {rows}")
 
 
 def phase_tp(torch, dev) -> dict:
@@ -2570,16 +2707,87 @@ def phase_tp(torch, dev) -> dict:
         if "tp_agree" in legs:
             _emit_tp_agree(ranks, add, faults)
         if "moe_agree" in legs:
-            _emit_moe_agree(ranks, add, faults)
+            _emit_agree("moe_agree", shape, [(MOE_ARCH,) + c
+                                             for c in MOE_AGREE],
+                        BATCH_PER_CLIENT, ranks, add, faults)
         for sh, sched in TP_TIME:
             if sh == shape:
                 _emit_tp_time(shape, sched, [r[f"tp_time:{sched}"]
                                              for r in ranks], add, faults)
         for sh, arch, n, sched in MOE_TIME:
             if sh == shape:
-                _emit_moe_time(shape, arch, n, sched, [
-                    r[f"moe_time:{arch}:{n}:{sched}"] for r in ranks],
-                    add, faults)
+                _emit_time("moe_time", shape, arch, n, sched,
+                           BATCH_PER_CLIENT,
+                           [r[f"moe_time:{arch}:{n}:{sched}"]
+                            for r in ranks], add, faults)
+    if faults:
+        raise AssertionError("\n".join(faults))
+    return launches
+
+
+# the shared mode: one client a pod, its parameters FSDP-split over its
+# data ranks (``embed``) and tensor-parallel over its model ranks, the MoE
+# configs' declared deployment.  Batch 2 a client, so each data rank of a
+# (2, 2, 1) mesh takes one row.  Leg (g) ``shared_agree``: at one layer,
+# two rounds (round 0 at a learning rate of 0) of each case against the
+# single-card rounds on card 0, on a (2, 2, 1) mesh (K = 2) and a
+# (1, 2, 2) one (K = 1: experts on model, embed on data); the checks are
+# ``moe_agree``'s
+SHARED_BPC = 2
+SHARED_AGREE = {(2, 2, 1): [(MOE_ARCH, "tree", "fedavg"),
+                            (MOE_ARCH, "flat", "fedavg"),
+                            (MOE_ARCH, "compressed", "fedavg"),
+                            (MOE_ARCH, "tree", "multi_krum"),
+                            (DIST_ARCH, "tree", "fedavg")],
+                (1, 2, 2): [(MOE_ARCH, "flat", "fedavg")]}
+# leg (h) ``shared_time`` on (2, 2, 1), two rounds each: mixtral-8x22b at
+# the most layers under about 72 GB a rank (a layer is 2.50 B parameters,
+# 1.25 B a rank: 6 layers took 70.56 GB, and a seventh would add about 11
+# GB), and qwen2-7b at all 28 layers under AdamW (3.8 B parameters a rank)
+SHARED_TIME = [(MOE_ARCH, 6, "tree"), (MOE_ARCH, 6, "compressed"),
+               (DIST_ARCH, 28, "tree")]
+
+
+def _shared(cfg):
+    """``cfg`` in ``shared`` mode (mixtral's and kimi-k2's own)."""
+    import dataclasses
+    return cfg.replace(fl=dataclasses.replace(cfg.fl, mode="shared"))
+
+
+def phase_shared(torch, dev) -> dict:
+    """The shared mode over four cards, one spawn a mesh shape: leg (g)
+    ``shared_agree`` and leg (h) ``shared_time`` on a (2, 2, 1) mesh, then
+    leg (g) on a (1, 2, 2) one.  Each mesh's lines are printed as soon as
+    it ends, before any check fails the phase; returns the legs'
+    launches, summed over the ranks."""
+    from repro_torch.launch import mesh as mesh_lib
+
+    launches, faults = {}, []
+
+    def add(got):
+        for k, v in got.items():
+            launches[k] = launches.get(k, 0) + v
+
+    for shape, cases in SHARED_AGREE.items():
+        legs = ["shared_agree"]
+        if shape == (2, 2, 1):
+            legs += [f"shared_time:{arch}:{n}:{sched}"
+                     for arch, n, sched in SHARED_TIME]
+        gc.collect()
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        ranks = mesh_lib.spawn(_tp_rank, shape[1], (legs,), model=shape[2],
+                               pods=shape[0], device="cuda",
+                               timeout_s=TP_TIMEOUT_S)
+        emit({"phase": "shared_spawn", "mesh": list(shape), "legs": legs,
+              "wall_s": time.perf_counter() - t0})
+        _emit_agree("shared_agree", shape, cases, SHARED_BPC, ranks, add,
+                    faults)
+        if shape == (2, 2, 1):
+            for arch, n, sched in SHARED_TIME:
+                _emit_time("shared_time", shape, arch, n, sched, SHARED_BPC,
+                           [r[f"shared_time:{arch}:{n}:{sched}"]
+                            for r in ranks], add, faults)
     if faults:
         raise AssertionError("\n".join(faults))
     return launches
@@ -2763,6 +2971,7 @@ def phase_dist(torch, dev) -> dict:
         raise AssertionError("\n".join(faults))
     if world == 4:
         add(phase_tp(torch, dev))
+        add(phase_shared(torch, dev))
     return launches
 
 
@@ -2822,6 +3031,14 @@ def kernel_rows(fed, flash, qagg, quant8, wkv, launches):
 
 
 def main(argv=None) -> int:
+    adopt_orphans()
+    try:
+        return run(argv)
+    finally:
+        stop_children()
+
+
+def run(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--profile", action="store_true",
                     help="trace each training round with torch.profiler "

@@ -84,7 +84,11 @@ mesh row does in the reference.
 On a (data, model) mesh each rank holds its client's model block of every
 leaf (``sharding.local_block``), and every collective above runs in its
 ``data`` group, the D ranks of its model column, on that block: the
-reference's ``shard_map`` body, which sees the same block.  So the
+reference's ``shard_map`` body, which sees the same block.  In ``shared``
+mode (a (pod, data, model) mesh, one client a pod) the client axis is
+``pod`` (``aggregate_params(..., axis="pod")``): each rank holds its pod's
+(data, model) block, and the collectives run in its ``pod`` group, the P
+ranks of that block; ``compressed`` quantizes the block's rows.  So the
 strategies that reduce over a whole leaf or tree reduce over the block, as
 the reference's do: multi_krum's norms and Gram (its choice of clients can
 differ from shard to shard), norm_clip's norm, ``compressed``'s per-row
@@ -140,7 +144,7 @@ def check_strategy(strategy: Union[str, AggregationStrategy]):
 
 def aggregate_params(bank, weights: torch.Tensor, schedule: AggSchedule,
                      strategy: Union[str, AggregationStrategy] = "fedavg",
-                     ref=None, mesh=None):
+                     ref=None, mesh=None, axis: str = "data"):
     """bank: client-stacked tree (leading dim = n_clients); weights:
     (n_clients,) f32 on the bank's device.  Every client slot is
     overwritten in place with the strategy's aggregate; returns ``bank``.
@@ -152,9 +156,11 @@ def aggregate_params(bank, weights: torch.Tensor, schedule: AggSchedule,
     the bank's device as they are needed.
 
     With ``mesh`` (a ``launch.mesh.Mesh``), ``bank`` is this rank's block
-    (its client's slot, leading dim 1, and its model block of each leaf)
-    and the aggregate runs across its model column's ranks; every rank
-    calls it with the same weights and schedule."""
+    (its client's slot, leading dim 1, and its block of each leaf on the
+    other axes) and the aggregate runs across the ranks of its line along
+    the client axis ``axis`` (``"data"`` in ``replica`` mode, ``"pod"`` in
+    ``shared`` mode, the reference's ``aggregate_params(..., axis)``);
+    every rank calls it with the same weights and schedule."""
     strat = check_strategy(strategy)
     if schedule.kind not in ("tree", "flat", "rs_ag", "compressed"):
         raise NotImplementedError(
@@ -164,7 +170,8 @@ def aggregate_params(bank, weights: torch.Tensor, schedule: AggSchedule,
     with torch.no_grad():
         values = _premap(strat, leaves, refs) if refs is not None else None
         if mesh is not None:
-            _across_ranks(strat, leaves, weights, schedule, mesh, values)
+            _across_ranks(strat, leaves, weights, schedule, mesh, values,
+                          axis)
         elif strat.reduction == "stack":
             rows = values or (lambda i, c0, c1: _flat(leaves[i])[:, c0:c1])
             if isinstance(strat, MultiKrum):
@@ -384,19 +391,23 @@ def _rs_ag(x: torch.Tensor, world: int, group=None):
         flat.copy_(buf[:n])
 
 
-def _sum(x: torch.Tensor, schedule: AggSchedule, mesh) -> torch.Tensor:
-    """``x`` (contiguous f32) summed in place over the rank's data group
-    as ``schedule`` lays the collectives out; returns ``x``."""
+def _sum(x: torch.Tensor, schedule: AggSchedule, mesh,
+         axis: str) -> torch.Tensor:
+    """``x`` (contiguous f32) summed in place over the rank's group along
+    the client axis ``axis`` as ``schedule`` lays the collectives out;
+    returns ``x``."""
     if schedule.kind == "tree":
-        for lvl, group in enumerate(mesh.subgroups(schedule.level_groups)):
+        me = mesh.coord(axis)
+        for lvl, group in enumerate(mesh.subgroups(schedule.level_groups,
+                                                   axis)):
             if lvl > 0:          # above level 0 only the heads contribute
-                x.mul_(float(schedule.head_masks[lvl - 1][mesh.data_rank]))
+                x.mul_(float(schedule.head_masks[lvl - 1][me]))
             if group is not None:
                 dist.all_reduce(x, group=group)
     elif schedule.kind == "rs_ag":
-        _rs_ag(x, mesh.shape["data"], mesh.data_group)
+        _rs_ag(x, mesh.shape[axis], mesh.group(axis))
     else:                        # flat; compressed's weight total
-        dist.all_reduce(x, group=mesh.data_group)
+        dist.all_reduce(x, group=mesh.group(axis))
     return x
 
 
@@ -408,12 +419,12 @@ def _gathered_rows(x: torch.Tensor, world: int, group=None) -> torch.Tensor:
     return out
 
 
-def _across_ranks(strat, leaves, weights, schedule, mesh, values):
+def _across_ranks(strat, leaves, weights, schedule, mesh, values, axis):
     """``aggregate_params`` on this rank's block (see the module's "Across
-    ranks")."""
-    K, group = mesh.shape["data"], mesh.data_group
+    ranks") along the client axis ``axis``."""
+    K, group = mesh.shape[axis], mesh.group(axis)
     if weights.shape != (K,):
-        raise ValueError(f"weights {tuple(weights.shape)} on a data axis "
+        raise ValueError(f"weights {tuple(weights.shape)} on a {axis} axis "
                          f"of {K}")
     if strat.reduction == "stack":
         local = values or (lambda i, c0, c1: _flat(leaves[i])[:, c0:c1])
@@ -423,8 +434,9 @@ def _across_ranks(strat, leaves, weights, schedule, mesh, values):
         else:
             _stack(strat, leaves, weights, rows)
         return
-    w = weights[mesh.data_rank:mesh.data_rank + 1].float()
-    total = _sum(w.clone(), schedule, mesh)
+    me = mesh.coord(axis)
+    w = weights[me:me + 1].float()
+    total = _sum(w.clone(), schedule, mesh, axis)
     for i, leaf in enumerate(leaves):
         cols = (lambda c0, c1, i=i: values(i, c0, c1)) if values else None
         if schedule.kind == "compressed":
@@ -433,7 +445,8 @@ def _across_ranks(strat, leaves, weights, schedule, mesh, values):
         flat = _flat(leaf)
         for c0, c1 in _chunks(flat.shape[1]):
             v = cols(c0, c1) if cols else flat[:, c0:c1].float()
-            flat[:, c0:c1].copy_(_sum(v * w, schedule, mesh).div_(total))
+            flat[:, c0:c1].copy_(_sum(v * w, schedule, mesh,
+                                      axis).div_(total))
 
 
 def _gathered_mean(leaf: torch.Tensor, w: torch.Tensor, total: torch.Tensor,

@@ -15,21 +15,25 @@ activations and gradients are alive at a time, and no client's weights are
 copied.  Client k owns index k of the bank; the coordinator's
 ``tree.client_order`` must be in the same order (launch/train.py keeps it).
 
-On a mesh (``launch.mesh``: a (data, model) grid of ``torch.distributed``
-ranks, the reference's mesh axes), each rank holds its block of the bank:
-its client's slot (leading dim 1) and, on a ``model`` axis above 1, its
-part of every dim the specs put on ``model`` (``sharding.local_block``),
-with the optimizer state of that block.  The round trains the client
-tensor-parallel over its M ranks (``dist.tensor_parallel``: the dense and
-MoE families, under any optimizer; Adafactor's factor means and RMS clip
-over a split dim sum over the model group), averages the loss over the
-``data`` group with one ``all_reduce``, and aggregates each model block
-across its column
-(``aggregation.aggregate_params(..., mesh=)``).  The spec functions
-(``param_specs``, ``state_specs``, ...) are the reference's, as tuples of
-mesh-axis names; ``abstract_state`` builds a state on the meta device.
-``AdapterSpec`` waits for a later slice, and so does the ``shared`` mode
-(ROADMAP item 5b-iii).
+On a mesh (``launch.mesh``: a (pod, data, model) grid of
+``torch.distributed`` ranks, the reference's mesh axes), each rank holds
+its block of the bank: its client's slot (leading dim 1, where K > 1) and
+its part of every dim the specs put on a mesh axis
+(``sharding.local_block``), with the optimizer state of that block.  The
+client axis is ``data`` in ``replica`` mode and ``pod`` in ``shared`` mode
+(``client_axis_for``; without a pod axis the whole mesh is one client).
+The round trains the client tensor-parallel over its M ranks
+(``dist.tensor_parallel``: the dense and MoE families, under any
+optimizer; Adafactor's factor means and RMS clip over a split dim sum over
+the model group) and, in ``shared`` mode, fully sharded over its D data
+ranks (``dist.fsdp``: each rank takes its rows of the client's batch where
+the batch divides D, and the same sums run over the data group), averages
+the loss over the client axis with one ``all_reduce``, and aggregates each
+rank's block across the client axis
+(``aggregation.aggregate_params(..., mesh=, axis=)``).  The spec
+functions (``param_specs``, ``state_specs``, ...) are the reference's, as
+tuples of mesh-axis names; ``abstract_state`` builds a state on the meta
+device.  ``AdapterSpec`` waits for a later slice.
 """
 from __future__ import annotations
 
@@ -48,9 +52,10 @@ from repro_torch.configs.base import ArchConfig
 from repro_torch.core.aggregation import aggregate_params, check_strategy
 from repro_torch.core.topology import AggSchedule
 from repro_torch.device import resolve
+from repro_torch.dist import fsdp
 from repro_torch.dist import sharding as shd
 from repro_torch.dist import tensor_parallel as tpar
-from repro_torch.models import model_api
+from repro_torch.models import inputs, model_api
 from repro_torch.optim.api import apply_updates, make_optimizer
 
 
@@ -273,26 +278,42 @@ def init_state(cfg: ArchConfig, n_clients, seed: int = 0,
             "step": 0}
 
 
-def model_split_dims(cfg: ArchConfig, mesh):
-    """Per leaf of one client's parameters (no client dim), the dims its
-    spec puts on the ``model`` axis: what Adafactor's reductions span."""
+def client_specs(cfg: ArchConfig, mesh):
+    """Per leaf of one client's parameters, its spec without the client
+    dim: which dim each mesh axis splits inside a client."""
     lead = 1 if n_clients_for(cfg, mesh) > 1 else 0
-    return T.tree_map(lambda s: tuple(i - lead for i, ax in enumerate(s)
-                                      if ax == "model" and i >= lead),
-                      param_specs(cfg, mesh))
+    return T.tree_map(lambda s: tuple(s[lead:]), param_specs(cfg, mesh))
+
+
+def split_dims(cfg: ArchConfig, mesh, axis: str):
+    """Per leaf of one client's parameters (no client dim), the dims its
+    spec puts on ``axis`` (``"model"`` or ``"data"``): what Adafactor's
+    reductions over that axis span."""
+    return T.tree_map(lambda s: tuple(i for i, ax in enumerate(s)
+                                      if ax == axis),
+                      client_specs(cfg, mesh))
 
 
 def _rank_clients(cfg: ArchConfig, mesh) -> int:
-    """K on a mesh of ranks, one client a row of the data axis
-    (``replica`` mode); raises for what the mesh's model axis does not run
-    yet (``tensor_parallel.check_supported``)."""
-    if cfg.fl.mode != "replica":
-        raise NotImplementedError(
-            f"FL mode {cfg.fl.mode!r} on a mesh of ranks: the shared mode "
-            "(FSDP, one client a pod) is ROADMAP item 5b-iii")
+    """K on a mesh of ranks: one client a row of the data axis in
+    ``replica`` mode, one a pod in ``shared`` mode (the whole mesh without
+    pods); raises for what the mesh does not run yet
+    (``fsdp.check_supported``, ``tensor_parallel.check_supported``)."""
+    if cfg.fl.mode == "shared":
+        fsdp.check_supported(cfg)
     if mesh.shape["model"] > 1:
         tpar.check_supported(cfg, mesh.shape["model"])
     return n_clients_for(cfg, mesh)
+
+
+def data_axis_for(cfg: ArchConfig, mesh) -> Optional[fsdp.DataAxis]:
+    """The client's data axis of ``mesh`` in ``shared`` mode (FSDP over
+    its D ranks), or None (``replica`` mode, or a data axis of 1)."""
+    if cfg.fl.mode != "shared" or mesh.shape["data"] == 1:
+        return None
+    return fsdp.DataAxis(mesh.group("data"), mesh.shape["data"],
+                         mesh.coord("data"),
+                         fsdp.data_dims(client_specs(cfg, mesh)))
 
 
 def _init_rank_state(cfg: ArchConfig, mesh, seed: int, opt, frozen):
@@ -320,30 +341,36 @@ def _make_client_fn(cfg: ArchConfig, opt, local_steps: int, frozen_mask=None,
     """One client's local training loop (E optimizer steps) on its slot of
     the bank.  ``params_c``/``opt_c`` are trees of tensors (views into the
     bank and the moments) and are updated in place.  With ``tp`` (a
-    ``tensor_parallel.ModelAxis``) they are this rank's blocks of the
-    client, and the step runs tensor-parallel; sgdm and AdamW are
-    elementwise, so a block's update is the whole update's block, and
-    Adafactor (built with the axis, ``make_optimizer``) reduces its means
-    over the split dims.
+    ``tensor_parallel.ModelAxis``) and/or the call's ``dp`` (a
+    ``fsdp.DataAxis`` whose ``split`` says whether ``batch_c`` is this
+    rank's rows) they are this rank's blocks of the client, and the step runs
+    tensor-parallel and/or fully sharded; sgdm and AdamW are elementwise,
+    so a block's update is the whole update's block, and Adafactor (built
+    with the axes, ``make_optimizer``) reduces its means over the split
+    dims.  Under a split batch the gradient of a leaf with no dim on
+    ``data`` is averaged over the data group (``fsdp.reduce_replicated``).
 
     ``frozen_mask`` (same structure as params, bool leaves, True = frozen)
     turns on partial updates: frozen leaves get zero gradients and are
     restored bit-exactly after the loop, so weight decay / momentum cannot
     drift the base the client never ships."""
     frozen = T.leaves(frozen_mask) if frozen_mask is not None else None
+    names = leaf_path_names(model_api.param_decls(cfg))
 
-    def local_step(params, opt_state, step, batch):
+    def local_step(params, opt_state, step, batch, dp):
         with record_function("fl/forward_backward"):
             leaves = T.leaves(params)
             live = [p.detach().requires_grad_(not (frozen and frozen[i]))
                     for i, p in enumerate(leaves)]
             loss, _ = model_api.loss_fn(cfg, T.unflatten_like(params, live),
-                                        batch, tp)
+                                        batch, tp, dp)
             trainable = [p for p in live if p.requires_grad]
             got = iter(torch.autograd.grad(loss, trainable))
             grads = [next(got) if p.requires_grad else torch.zeros_like(p)
                      for p in live]
             del live, trainable, got
+            if dp is not None:
+                grads = fsdp.reduce_replicated(grads, names, dp)
         with record_function("fl/optimizer"):
             updates, opt_state = opt.update(T.unflatten_like(params, grads),
                                             opt_state, params, step)
@@ -351,7 +378,7 @@ def _make_client_fn(cfg: ArchConfig, opt, local_steps: int, frozen_mask=None,
             apply_updates(params, updates)
         return loss.detach()
 
-    def client_fn(params_c, opt_c, step, batch_c):
+    def client_fn(params_c, opt_c, step, batch_c, dp=None):
         """-> the last step's loss; params_c/opt_c are updated in place."""
         base = None
         if frozen is not None:
@@ -359,7 +386,7 @@ def _make_client_fn(cfg: ArchConfig, opt, local_steps: int, frozen_mask=None,
                     for p, f in zip(T.leaves(params_c), frozen)]
         loss = None
         for _ in range(local_steps):
-            loss = local_step(params_c, opt_c, step, batch_c)
+            loss = local_step(params_c, opt_c, step, batch_c, dp)
             step = step + 1
         if base is not None:
             with torch.no_grad():
@@ -385,17 +412,24 @@ def _local_round(client_fn, state, batch, n: int):
     return torch.stack(losses).mean()
 
 
-def _rank_round(client_fn, state, batch, n: int, mesh):
+def _rank_round(client_fn, state, batch, n: int, mesh, axis, dp):
     """This rank's client's local steps on its slot -> the mean loss over
-    the ``n`` clients (one ``all_reduce`` over the data group, as the
-    reference's ``jnp.mean(losses)``; a client's M ranks hold one loss)."""
+    the ``n`` clients (one ``all_reduce`` over the client axis ``axis``, as
+    the reference's ``jnp.mean(losses)``; a client's M ranks hold one
+    loss).  Under a batch split over ``dp``, the client's loss is first
+    the mean of its D data ranks' losses (``model_api.loss_fn``)."""
     if n == 1:
-        loss = client_fn(state["params"], state["opt"], state["step"], batch)
+        loss = client_fn(state["params"], state["opt"], state["step"], batch,
+                         dp)
     else:
         loss = client_fn(_slot(state["params"], 0), _slot(state["opt"], 0),
-                         state["step"], batch)
+                         state["step"], batch, dp)
     total = loss.detach().float().reshape(1).clone()
-    dist.all_reduce(total, group=mesh.data_group)
+    if dp is not None and dp.split:
+        dist.all_reduce(total, group=dp.group)
+        total.div_(dp.size)
+    if n > 1:
+        dist.all_reduce(total, group=mesh.group(axis))
     return total[0] / n
 
 
@@ -511,25 +545,30 @@ def build_fl_round_step(cfg: ArchConfig, n_clients,
     ``n_clients`` may be a mesh (``launch.mesh.Mesh``): the step is then
     this rank's, on the mesh's device, for a state from ``init_state(cfg,
     mesh, ...)``; ``batch`` is this rank's client's (no client dim; every
-    rank of a client gets the whole client batch), ``weights`` all K
-    clients'; the loss is the mean over the clients.  On a model axis
-    above 1 the client trains tensor-parallel, and on the card the round's
-    spans add ``model_collectives``, an event pair per collective inside
-    the client.  Every rank builds the step, in the same order: a ``tree``
-    schedule's process groups are made here."""
+    rank of a client gets the whole client batch, and in ``shared`` mode
+    the step takes the rank's rows of it, ``inputs.rank_rows``),
+    ``weights`` all K clients'; the loss is the mean over the clients.  On
+    a model axis above 1 the client trains tensor-parallel, on a data axis
+    above 1 in ``shared`` mode fully sharded, and on the card the round's
+    spans add ``model_collectives`` and ``data_collectives``, an event
+    pair per collective inside the client on each axis.  Every rank builds the step, in the same
+    order: a ``tree`` schedule's process groups are made here."""
     strat = check_strategy(strategy)
     mesh = None if _is_count(n_clients) else n_clients
-    tp = None
+    tp = dp = axis = None
     if mesh is not None:
         dev, n_clients = mesh.device, _rank_clients(cfg, mesh)
+        axis = client_axis_for(cfg, mesh)
         tp = tpar.axis_for(cfg, mesh)
+        dp = data_axis_for(cfg, mesh)
         if n_clients > 1 and schedule.kind == "tree":
-            mesh.subgroups(schedule.level_groups)
+            mesh.subgroups(schedule.level_groups, axis)
     else:
         dev = resolve(device)
-    opt = make_optimizer(cfg, total_steps=total_steps, tp=tp,
-                         split=None if tp is None else
-                         model_split_dims(cfg, mesh))
+    opt = make_optimizer(
+        cfg, total_steps=total_steps, tp=tp, dp=dp,
+        split=None if tp is None else split_dims(cfg, mesh, "model"),
+        data_split=None if dp is None else split_dims(cfg, mesh, "data"))
     E = local_steps if local_steps is not None else cfg.fl.local_steps
     frozen_mask = _frozen_mask(cfg, update_filter)
     client_fn = _make_client_fn(cfg, opt, E, frozen_mask=frozen_mask, tp=tp)
@@ -555,17 +594,25 @@ def build_fl_round_step(cfg: ArchConfig, n_clients,
         if mesh is None:
             loss = _local_round(client_fn, state, batch, n_clients)
         else:
-            if tp is not None and dev.type == "cuda":
-                tp.events = spans["model_collectives"] = []
-            loss = _rank_round(client_fn, state, batch, n_clients, mesh)
-            if tp is not None:
-                tp.events = None
+            inner = {"model": tp, "data": dp}
+            inner = {k: a for k, a in inner.items() if a is not None}
+            for k, a in inner.items():
+                if dev.type == "cuda":
+                    a.events = spans[f"{k}_collectives"] = []
+            rows = dp
+            if dp is not None:
+                batch, split = inputs.rank_rows(batch, dp.size, dp.rank)
+                rows = dp.with_split(split)
+            loss = _rank_round(client_fn, state, batch, n_clients, mesh,
+                               axis, rows)
+            for a in inner.values():
+                a.events = None
         if n_clients > 1:
             with record_function("fl/aggregate"), \
                     _span(spans, "aggregate", dev):
                 aggregate_params(_trainable(state["params"]),
                                  _on(weights, dev, torch.float32), schedule,
-                                 strat, ref=ref, mesh=mesh)
+                                 strat, ref=ref, mesh=mesh, axis=axis)
         state["step"] = state["step"] + E
         return state, {"loss": loss, "spans": spans}
 

@@ -17,7 +17,8 @@ claim the model axis where they divide it, their FFN width otherwise).  So
 both variants take the client's model axis ``tp`` and run
 ``moe_apply_dense`` in that form: expert parallelism or intra-expert
 tensor parallelism over the model ranks, or the whole layer on one device
-without ``tp``.
+without ``tp``; a ``dp`` (the ``shared`` mode's data axis) routes the
+client's whole batch.
 """
 from __future__ import annotations
 
@@ -25,9 +26,9 @@ from repro_torch.configs.base import ArchConfig
 from repro_torch.models.moe import moe_apply_dense
 
 
-def moe_apply_a2a(cfg: ArchConfig, p, x, tp=None):
-    return moe_apply_dense(cfg, p, x, tp)
+def moe_apply_a2a(cfg: ArchConfig, p, x, tp=None, dp=None):
+    return moe_apply_dense(cfg, p, x, tp, dp)
 
 
-def moe_apply_tp_local(cfg: ArchConfig, p, x, tp=None):
-    return moe_apply_dense(cfg, p, x, tp)
+def moe_apply_tp_local(cfg: ArchConfig, p, x, tp=None, dp=None):
+    return moe_apply_dense(cfg, p, x, tp, dp)

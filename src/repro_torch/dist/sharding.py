@@ -11,11 +11,14 @@ of the decls and a mesh shape (``{"data": 4, "model": 1}``, or a
 ``launch.mesh.Mesh``): a spec is a tuple of mesh-axis names (None where a
 dim is whole), equal to the reference's ``PartitionSpec``.  The reference's
 ``shardings_for`` has no counterpart: torch has no ``NamedSharding``.  A
-rank takes its block of a tensor with ``local_block``: in ``replica`` mode
-its client's slot along the dim the ``clients`` spec puts on ``data``, and
-its 1/M along every dim that names ``model`` (tensor parallelism,
-``dist/tensor_parallel.py``).  The ``shared`` mode's FSDP blocks are
-ROADMAP item 5b-iii.
+rank takes its block of a tensor with ``local_block``: along every dim
+whose spec names a mesh axis, its part of that axis, from its coordinates
+in the (pod, data, model) grid (``mesh_coords``: rank ``(p * D + d) * M +
+m``).  In ``replica`` mode that is its client's slot along the dim the
+``clients`` spec puts on ``data`` and its 1/M along every dim on ``model``
+(tensor parallelism, ``dist/tensor_parallel.py``); in ``shared`` mode its
+pod's slot, its 1/D of the ``embed`` dim (FSDP, ``dist/fsdp.py``) and its
+1/M of the dims on ``model``.
 """
 from __future__ import annotations
 
@@ -191,15 +194,25 @@ def specs_for(tree, rules: dict, mesh):
     return T.tree_map(lambda d: _spec_for(d, rules, mesh), tree)
 
 
+def mesh_coords(mesh, rank: int) -> dict:
+    """Axis -> index of ``rank`` in ``mesh`` (a shape dict or a mesh
+    object), ``model`` the fastest axis: ``rank = (p * D + d) * M + m``."""
+    sizes = mesh_shape(mesh)
+    out, r = {}, rank
+    for ax in reversed(list(sizes)):
+        r, out[ax] = divmod(r, sizes[ax])
+    return {ax: out[ax] for ax in sizes}
+
+
 def local_block(t: torch.Tensor, spec: tuple, mesh,
                 rank: int | None = None) -> torch.Tensor:
     """The block of the whole tensor ``t`` under ``spec`` that a rank of
     ``mesh`` holds (a view): along each dim that names an axis of the mesh,
-    the rank's part of it, index ``d`` of D on ``data`` and ``m`` of M on
-    ``model``, where ``rank = d * M + m`` (this rank's unless given)."""
+    the rank's part of it, index ``p`` of P on ``pod``, ``d`` of D on
+    ``data`` and ``m`` of M on ``model``, where ``rank = (p * D + d) * M +
+    m`` (this rank's unless given)."""
     sizes = mesh_shape(mesh)
-    d, m = divmod(mesh.rank if rank is None else rank, sizes["model"])
-    at = {"data": d, "model": m}
+    at = mesh_coords(sizes, mesh.rank if rank is None else rank)
     for dim, ax in enumerate(spec):
         if ax in at and sizes[ax] > 1:
             n = t.shape[dim] // sizes[ax]

@@ -6,7 +6,7 @@ axes (``vocab``, ``heads``, ``kv_heads`` and ``mlp`` map to ``model``,
 ``dist/sharding.rules_for``), and GSPMD's partitioner splits the math and
 inserts the collectives.  Here the split is written out, in the usual
 column- and row-parallel form, over the process group of the client's M
-ranks (``launch.mesh.Mesh.model_group``):
+ranks (``launch.mesh.Mesh.group("model")``):
 
 * a column-parallel projection (``wq``/``wk``/``wv`` and their biases,
   ``w_gate``/``w_up``, the output table's vocab rows) takes its input
@@ -52,9 +52,11 @@ selects; those weights (``wk``, ``wv``, ``bk``, ``bv``) take
 gradient counted once.
 
 With a model axis of 1 there is no :class:`ModelAxis` (``axis_for``
-returns None) and the model runs its plain code.  Families and modes that
-a model axis does not reach yet raise ``NotImplementedError`` naming their
-ROADMAP item (``check_supported``).
+returns None) and the model runs its plain code.  Families that a model
+axis does not reach yet raise ``NotImplementedError`` naming their ROADMAP
+item (``check_supported``).  In ``shared`` mode the parameters are also
+split on ``data`` (``dist/fsdp.py``), and each layer gathers them there
+before this code sees them: a gathered leaf is a model block as here.
 """
 from __future__ import annotations
 
@@ -108,10 +110,6 @@ def check_supported(cfg: ArchConfig, size: int):
         raise NotImplementedError(
             f"family {cfg.family!r} on a model axis of {size}: ROADMAP item "
             f"{_FAMILY_ITEM[cfg.family]}")
-    if cfg.fl.mode != "replica":
-        raise NotImplementedError(
-            f"FL mode {cfg.fl.mode!r} on a model axis of {size}: the shared "
-            "mode (FSDP, one client a pod) is ROADMAP item 5b-iii")
     from repro_torch.models.layers import pad_vocab
     whole = [name for name, n in (("heads", cfg.n_heads),
                                   ("vocab", pad_vocab(cfg.vocab)))
@@ -132,17 +130,14 @@ def check_supported(cfg: ArchConfig, size: int):
             f"would read parts of two groups of {group}")
 
 
-class ModelAxis:
-    """A client's model axis as the dense decoder sees it: the process
-    group of its M ranks, this rank's index ``rank`` in it, and the global
-    head counts.  ``events``, when a list, collects a CUDA event pair
-    around every collective (the round step reads their time)."""
+class GroupAxis:
+    """One mesh axis of a client as its collectives see it: the process
+    group of its ``size`` ranks and this rank's index ``rank`` in it.
+    ``events``, when a list, collects a CUDA event pair around every
+    collective (the round step reads their time)."""
 
-    def __init__(self, group, size: int, rank: int, n_heads: int,
-                 n_kv: int):
+    def __init__(self, group, size: int, rank: int):
         self.group, self.size, self.rank = group, size, rank
-        self.n_heads, self.n_kv = n_heads, n_kv
-        self.kv_split = _splits(n_kv, size)
         self.events: Optional[list] = None
 
     def _timed(self, x: torch.Tensor, collective):
@@ -159,7 +154,7 @@ class ModelAxis:
         self.events.append((start, end))
 
     def all_reduce(self, x: torch.Tensor, op=dist.ReduceOp.SUM):
-        """In-place all-reduce of ``x`` over the model group."""
+        """In-place all-reduce of ``x`` over the group."""
         self._timed(x, lambda: dist.all_reduce(x, op=op, group=self.group))
         return x
 
@@ -178,8 +173,19 @@ class ModelAxis:
         return out.movedim(0, dim).contiguous()
 
     def sum_f32(self, x: torch.Tensor) -> torch.Tensor:
-        """``x`` summed over the model group, in f32 (a new tensor)."""
+        """``x`` summed over the group, in f32 (a new tensor)."""
         return self.all_reduce(x.to(torch.float32, copy=True).contiguous())
+
+
+class ModelAxis(GroupAxis):
+    """A client's model axis as the dense decoder sees it: its group, this
+    rank's index ``rank`` in it, and the global head counts."""
+
+    def __init__(self, group, size: int, rank: int, n_heads: int,
+                 n_kv: int):
+        super().__init__(group, size, rank)
+        self.n_heads, self.n_kv = n_heads, n_kv
+        self.kv_split = _splits(n_kv, size)
 
 
 def axis_for(cfg: ArchConfig, mesh) -> Optional[ModelAxis]:
@@ -189,8 +195,8 @@ def axis_for(cfg: ArchConfig, mesh) -> Optional[ModelAxis]:
         return None
     size = mesh.shape["model"]
     check_supported(cfg, size)
-    return ModelAxis(mesh.model_group, size, mesh.model_rank, cfg.n_heads,
-                     cfg.n_kv_heads)
+    return ModelAxis(mesh.group("model"), size, mesh.coord("model"),
+                     cfg.n_heads, cfg.n_kv_heads)
 
 
 # --------------------------------------------------------------------------

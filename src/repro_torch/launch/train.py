@@ -26,6 +26,11 @@ weights to the other ranks.  Every rank of client d trains on
 M > 1 the client's layers are split over its ranks (tensor parallelism:
 the dense family, and the MoE family with its experts split or each
 expert's width, under the config's optimizer, Adafactor included).
+In ``shared`` mode (``--pod-mesh P``, the MoE configs' declared mode) a
+client is a pod of D x M ranks (rank ``(p*D + d)*M + m``): K = P clients,
+each fully sharded over its D data ranks (its parameters' ``embed`` dim
+split, its batch's rows where they divide D) and tensor-parallel over M;
+without a pod axis the whole mesh is one client.
 Checkpoints keep the single-device format: rank 0 gathers every rank's
 block of every leaf on save and assembles the whole state, and scatters
 each rank's block back on restore.  Adafactor's factors over a split dim
@@ -48,6 +53,9 @@ Usage:
     # an MoE config under Adafactor: its experts split over the ranks
     PYTHONPATH=src python -m repro_torch.launch.train --smoke \
         --arch mixtral-8x22b --data-mesh 2 --model-mesh 2 [--device cpu]
+    # shared mode: 2 clients (pods), each FSDP over 2 data ranks
+    PYTHONPATH=src python -m repro_torch.launch.train --smoke \
+        --arch mixtral-8x22b --pod-mesh 2 --data-mesh 2 [--device cpu]
 """
 from __future__ import annotations
 
@@ -67,11 +75,13 @@ from repro_torch.ckpt.manager import CheckpointManager
 from repro_torch.configs.base import get_arch, smoke_config
 from repro_torch.core.aggregation import _chunks
 from repro_torch.core.fl_step import (abstract_state, build_fl_round_step,
-                                      init_state, span_ms, state_specs)
+                                      client_axis_for, init_state,
+                                      n_clients_for, span_ms, state_specs)
 from repro_torch.core.stats import StatsSimulator
 from repro_torch.core.topology import AggSchedule, compile_tree
 from repro_torch.data.federated import FederatedTokens
 from repro_torch.device import resolve
+from repro_torch.dist import fsdp
 from repro_torch.dist import tensor_parallel as tpar
 from repro_torch.dist.sharding import local_block
 from repro_torch.ft.failures import FailurePlan
@@ -86,10 +96,11 @@ class SDFLMQTrainer:
                  failure_plan: FailurePlan | None = None,
                  strategy: str = "fedavg",
                  update_filter=None, device="cuda", mesh=None):
-        if mesh is not None and n_clients != mesh.shape["data"]:
+        if mesh is not None and n_clients != n_clients_for(cfg, mesh):
             raise ValueError(f"{n_clients} clients on a mesh of shape "
-                             f"{mesh.shape}: one client a row of its data "
-                             "axis")
+                             f"{mesh.shape} in {cfg.fl.mode} mode: one "
+                             "client a row of its data axis (replica) or a "
+                             "pod (shared)")
         self.mesh = mesh
         self.lead = mesh is None or mesh.rank == 0   # runs the control plane
         self.device = mesh.device if mesh is not None else resolve(device)
@@ -235,6 +246,12 @@ class SDFLMQTrainer:
         index_of = {cid: int(cid[1:]) for cid in tree.client_order}
         return compile_tree(tree, axis_size=self.n, index_of=index_of)
 
+    def _client(self) -> int:
+        """This rank's client: its index on the client axis (0 where the
+        whole mesh is one client)."""
+        axis = client_axis_for(self.cfg, self.mesh)
+        return self.mesh.coord(axis) if axis else 0
+
     def _step_for(self, schedule):
         key = schedule.signature()
         if key not in self._steps:
@@ -271,7 +288,7 @@ class SDFLMQTrainer:
             with record_function("train/batch"):
                 # one client on this device (a rank, or K = 1): its own
                 # batch, with no client dim, as its state has none
-                who = mesh.data_rank if mesh is not None else (
+                who = self._client() if mesh is not None else (
                     0 if self.n == 1 else None)
                 batch = self.data.global_batch(
                     self.n, self.batch_per_client, self.seq, r) \
@@ -348,40 +365,54 @@ def main(argv=None):
                     help="the mesh's model axis: ranks a client, its "
                          "layers (dense or MoE) split over them (tensor and "
                          "expert parallelism); data x model ranks in all")
+    ap.add_argument("--pod-mesh", type=int, default=0,
+                    help="the mesh's pod axis, one client a pod: the "
+                         "shared (FSDP) mode, each client's parameters "
+                         "split over its --data-mesh ranks; pod x data x "
+                         "model ranks in all (0: no pod axis, replica "
+                         "mode)")
     args = ap.parse_args(argv)
-    M = args.model_mesh
-    mesh_lib.check_axes(M)
-    if M > 1:                       # before any rank starts
+    M, P = args.model_mesh, args.pod_mesh
+    mesh_lib.check_axes(M, P)
+    if P:                           # before any rank starts
+        fsdp.check_supported(_config(args))
+    if M > 1:
         tpar.check_supported(_config(args), M)
-    if args.data_mesh or M > 1 or mesh_lib.in_torchrun():
+    if args.data_mesh or M > 1 or P or mesh_lib.in_torchrun():
+        per = M * max(P, 1)
         world = int(os.environ.get(
-            "WORLD_SIZE", (args.data_mesh or args.clients or 1) * M))
-        data = world // M
-        if world % M or args.clients not in (None, data) or \
+            "WORLD_SIZE",
+            (args.data_mesh or (1 if P else args.clients or 1)) * per))
+        data = world // per
+        K = P or data
+        if world % per or args.clients not in (None, K) or \
                 args.data_mesh not in (0, data):
-            raise ValueError(f"--clients {args.clients}, --data-mesh "
-                             f"{args.data_mesh} and --model-mesh {M} on "
-                             f"{world} ranks: one client a row of the "
-                             "data axis")
-        args.clients = data
+            raise ValueError(f"--clients {args.clients}, --pod-mesh {P}, "
+                             f"--data-mesh {args.data_mesh} and --model-mesh "
+                             f"{M} on {world} ranks: one client a row of "
+                             "the data axis, or with pods one a pod")
+        args.clients = K
         if mesh_lib.in_torchrun():
-            mesh = mesh_lib.mesh_from_env(M, device=args.device)
+            mesh = mesh_lib.mesh_from_env(M, device=args.device, pods=P)
             _run(mesh, args)
             mesh.close()
         else:
-            mesh_lib.spawn(_run, data, (args,), model=M, device=args.device)
+            mesh_lib.spawn(_run, data, (args,), model=M, pods=P,
+                           device=args.device)
         return
     args.clients = args.clients or 4
     _run(None, args)
 
 
 def _config(args):
-    """The CLI's architecture config, in ``replica`` mode."""
+    """The CLI's architecture config: ``shared`` mode with a pod axis,
+    ``replica`` mode otherwise."""
     cfg = get_arch(args.arch)
     if args.smoke:
         cfg = smoke_config(cfg)
     return cfg.replace(fl=cfg.fl.__class__(
-        mode="replica", local_steps=args.local_steps,
+        mode="shared" if getattr(args, "pod_mesh", 0) else "replica",
+        local_steps=args.local_steps,
         aggregator_ratio=cfg.fl.aggregator_ratio, levels=cfg.fl.levels,
         schedule=args.schedule, role_policy=cfg.fl.role_policy))
 

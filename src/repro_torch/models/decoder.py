@@ -19,6 +19,15 @@ returns are the rank's vocab rows): the dense family, and the MoE family
 with its leading dense layers, its experts (expert or intra-expert
 parallelism) and its shared expert.  The VLM family raises, naming its
 ROADMAP item, and is never silently replicated.
+
+It also takes an optional ``dp`` (``dist.fsdp.DataAxis``, the ``shared``
+mode): the parameters are then also split over the client's ``data``
+ranks on their ``embed`` dim, and the batch is the rank's rows of the
+client's.  Each layer gathers its weights whole on ``data`` inside the
+function that ``checkpoint`` wraps (remat gathers them again in the
+backward), and the embedding tables are gathered where they are used;
+the attention's projections and ``swiglu`` receive them gathered.  The
+MoE layer routes the client's whole batch (``models/moe``).
 """
 from __future__ import annotations
 
@@ -27,6 +36,7 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch import tree as T
 from repro_torch.configs.base import ArchConfig
+from repro_torch.dist import fsdp
 from repro_torch.dist import tensor_parallel as tpar
 from repro_torch.dist.sharding import decl, stack
 from repro_torch.models import attention as attn
@@ -89,18 +99,21 @@ def cache_decl(cfg: ArchConfig, batch: int, cache_len: int):
 # Layer application
 # --------------------------------------------------------------------------
 
-def _ffn(cfg: ArchConfig, lp, x, kind: str, tp=None):
+def _ffn(cfg: ArchConfig, lp, x, kind: str, tp=None, dp=None):
     if kind == "moe":
-        return moe_apply(cfg, lp["moe"], x, tp)
+        return moe_apply(cfg, lp["moe"], x, tp, dp)
     return swiglu(lp["mlp"], x, tp), torch.zeros((), dtype=torch.float32,
                                                  device=x.device)
 
 
 def _apply_layer(cfg: ArchConfig, lp, x, positions, kind: str, kv_out=None,
-                 tp=None):
+                 tp=None, dp=None, path: str = "layers"):
     """One layer; with ``kv_out`` (two (B,S,K,hd) views of a cache) its
     keys and values are copied there (prefill).  With ``tp`` the layer's
-    parameters are the rank's blocks (local heads and mlp columns)."""
+    parameters are the rank's blocks (local heads and mlp columns); with
+    ``dp`` they are also split on ``data``, and are gathered here (``path``
+    names the stack, whose leaves' specs say which dim)."""
+    lp = fsdp.whole(dp, lp, path, lead=1)
     h = rmsnorm(lp["ln1"], x, cfg.norm_eps)
     q, k, v = attn.project_qkv(lp["attn"], h, positions, cfg.rope_theta,
                                tp=tp)
@@ -112,7 +125,7 @@ def _apply_layer(cfg: ArchConfig, lp, x, positions, kind: str, kv_out=None,
                        chunk_threshold=cfg.attn_chunk_threshold)
     x = x + attn.project_out(lp["attn"], o, tp)
     h2 = rmsnorm(lp["ln2"], x, cfg.norm_eps)
-    y, aux = _ffn(cfg, lp, h2, kind, tp)
+    y, aux = _ffn(cfg, lp, h2, kind, tp, dp)
     return x + y, aux
 
 
@@ -134,12 +147,14 @@ def _apply_layer_decode(cfg: ArchConfig, lp, x, k_l, v_l, kv_pos, pos,
 # Embedding (with optional modality injection)
 # --------------------------------------------------------------------------
 
-def _embed_inputs(cfg: ArchConfig, params, batch, tp=None):
+def _embed_inputs(cfg: ArchConfig, params, batch, tp=None, dp=None):
     """Token embeddings; for the VLM family the RMS-normed, projected
     ``patches`` (B, n, feat_dim) replace the first n positions.  The
     projection runs in the weight's dtype (the reference's einsum promotes
     bf16 patches against f32 weights) and lands in the embedding's."""
-    x = embed_lookup(params["embed"], batch["tokens"], tp)
+    table = {"in_table": fsdp.whole(dp, params["embed"]["in_table"],
+                                    "embed/in_table")}
+    x = embed_lookup(table, batch["tokens"], tp)
     if cfg.family == "vlm" and "patches" in batch:
         vp = params["vis_proj"]
         vis = rmsnorm(vp["norm"], batch["patches"], cfg.norm_eps)
@@ -153,10 +168,12 @@ def _embed_inputs(cfg: ArchConfig, params, batch, tp=None):
 # --------------------------------------------------------------------------
 
 def _stacks(cfg: ArchConfig, params):
-    """[(stacked layer params, kind)] in layer order: Kimi's leading dense
-    layers, then the uniform stack."""
-    out = [(params["dense_layers"], "dense")] if n_dense_layers(cfg) else []
-    return out + [(params["layers"], "moe" if cfg.moe else "dense")]
+    """[(stacked layer params, kind, path)] in layer order: Kimi's leading
+    dense layers, then the uniform stack."""
+    out = [(params["dense_layers"], "dense", "dense_layers")] \
+        if n_dense_layers(cfg) else []
+    return out + [(params["layers"], "moe" if cfg.moe else "dense",
+                   "layers")]
 
 
 def layer_views(stacked):
@@ -167,39 +184,45 @@ def layer_views(stacked):
 
 def _layers(cfg: ArchConfig, params):
     """(layer params, kind) of every layer in order."""
-    for stacked, kind in _stacks(cfg, params):
+    for stacked, kind, _ in _stacks(cfg, params):
         for lp in layer_views(stacked):
             yield lp, kind
 
 
 def _run_layers(cfg: ArchConfig, stacked, x, positions, kind: str,
-                tp=None):
+                tp=None, dp=None, path: str = "layers"):
     """The layers of one stack in order -> (x, their auxiliary losses
     summed from 0, in layer order, as the reference's scan carries it)."""
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for lp in layer_views(stacked):
         if cfg.remat:
             x, a = checkpoint(_apply_layer, cfg, lp, x, positions, kind,
-                              None, tp, use_reentrant=False)
+                              None, tp, dp, path, use_reentrant=False)
         else:
-            x, a = _apply_layer(cfg, lp, x, positions, kind, tp=tp)
+            x, a = _apply_layer(cfg, lp, x, positions, kind, tp=tp, dp=dp,
+                                path=path)
         aux = aux + a
     return x, aux
 
 
-def forward(cfg: ArchConfig, params, batch, tp=None):
+def forward(cfg: ArchConfig, params, batch, tp=None, dp=None):
     """Full-sequence forward -> (logits (B,S,V), aux_loss); with ``tp``
-    the logits are this rank's (B, S, V / M) vocab rows."""
+    the logits are this rank's (B, S, V / M) vocab rows; with ``dp`` the
+    batch is this rank's rows of its client's, and so are the logits."""
     if tp is not None:
         tpar.check_supported(cfg, tp.size)
-    x = _embed_inputs(cfg, params, batch, tp)
+    if dp is not None:
+        fsdp.check_supported(cfg)
+    x = _embed_inputs(cfg, params, batch, tp, dp)
     positions = torch.arange(x.shape[1], dtype=torch.int32, device=x.device)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    for stacked, kind in _stacks(cfg, params):
-        x, a = _run_layers(cfg, stacked, x, positions, kind, tp)
+    for stacked, kind, path in _stacks(cfg, params):
+        x, a = _run_layers(cfg, stacked, x, positions, kind, tp, dp, path)
         aux = aux + a
-    x = rmsnorm(params["final_norm"], x, cfg.norm_eps)
-    return logits_out(params["embed"], x, tp), aux
+    x = rmsnorm(params["final_norm"], x, cfg.norm_eps)   # never on data
+    table = {"out_table": fsdp.whole(dp, params["embed"]["out_table"],
+                                     "embed/out_table")}
+    return logits_out(table, x, tp), aux
 
 
 def prefill(cfg: ArchConfig, params, batch):

@@ -14,7 +14,9 @@ reference's spec puts the sequence on ``model`` and GSPMD reshards it
 where the layers need it; feeding every rank the whole sequence computes
 the same function, with the model's split in the layers
 (``dist/tensor_parallel.py``).  Sequence parallelism over ``model`` is not
-ported.
+ported.  In ``shared`` mode a client's batch also splits over its
+``data`` ranks where it divides them (``rank_rows``, the spec's ``ok``
+rule), as the reference's spec puts the per-client batch dim on ``data``.
 """
 from __future__ import annotations
 
@@ -86,6 +88,19 @@ def batch_specs(cfg: ArchConfig, shape: ShapeConfig, clients: int = 0,
     return {k: sp(v.shape, k in ("tokens", "labels")
                   and shape.kind != "decode")
             for k, v in batch_struct(cfg, shape, clients).items()}
+
+
+def rank_rows(batch: dict, size: int, rank: int):
+    """-> (this data rank's rows of a client's ``batch``, whether the batch
+    is split).  Where the batch size B divides the ``size`` data ranks,
+    rank d takes rows ``d*B/size .. (d+1)*B/size`` of every leaf;
+    otherwise every rank takes the whole batch (``batch_specs``' rule,
+    which leaves a dim whole where it does not divide its axis)."""
+    B = next(iter(batch.values())).shape[0]
+    if size == 1 or B % size:
+        return batch, False
+    n = B // size
+    return {k: v[rank * n:(rank + 1) * n] for k, v in batch.items()}, True
 
 
 def make_batch(cfg: ArchConfig, shape: ShapeConfig, seed: int,

@@ -60,18 +60,28 @@ def cross_entropy(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
     return (lse - label_logit).mean()
 
 
-def loss_fn(cfg: ArchConfig, params, batch, tp=None):
+def loss_fn(cfg: ArchConfig, params, batch, tp=None, dp=None):
     """-> (loss, {"ce", "aux"}).  With ``tp``
     (``dist.tensor_parallel.ModelAxis``) ``params`` are this rank's blocks
     of a client split over the ``model`` axis, the logits its vocab rows,
     and the cross-entropy the vocab-parallel one; every rank of the client
     gets the same loss.  An MoE layer's auxiliary loss comes from the
     router gathered whole, so it is whole on every rank and added once
-    there, as on one device (never summed over the model group)."""
-    if tp is None:
+    there, as on one device (never summed over the model group).
+
+    With ``dp`` (``dist.fsdp.DataAxis``, the ``shared`` mode) ``params``
+    are also split on ``data`` and ``batch`` is this rank's rows of its
+    client's (or, where the batch does not split, the whole of it): the
+    loss is this rank's, the cross-entropy over its rows plus the
+    auxiliary loss of the client's whole batch, which is equal on every
+    data rank.  The client's loss is the mean of its data ranks' losses
+    (the round step averages them), so the auxiliary term counts once in
+    it, and the gradients are that mean's (``dist.fsdp``)."""
+    if tp is None and dp is None:
         logits, aux = get_model(cfg).forward(cfg, params, batch)
         ce = cross_entropy(logits, batch["labels"])
     else:               # decoder.forward raises for the other families
-        logits, aux = decoder.forward(cfg, params, batch, tp)
-        ce = tpar.cross_entropy(logits, batch["labels"], tp)
+        logits, aux = decoder.forward(cfg, params, batch, tp, dp)
+        ce = cross_entropy(logits, batch["labels"]) if tp is None else \
+            tpar.cross_entropy(logits, batch["labels"], tp)
     return ce + aux, {"ce": ce, "aux": aux}

@@ -13,6 +13,11 @@ the sharding constraints pinned on the dispatch buffers
 model ranks in the form the expert leaves' specs give it
 (``tensor_parallel.moe_split``): expert parallelism, or intra-expert
 tensor parallelism; the shared expert is a ``swiglu`` on the ``mlp`` axis.
+A ``dp`` (``dist.fsdp.DataAxis``, the ``shared`` mode) whose batch is split
+over the client's data ranks gathers the rows of every rank first, so the
+layer routes and dispatches the client's whole batch (its capacity and
+auxiliary loss are the whole batch's, as the reference's), and keeps the
+rank's own rows of the output.
 """
 from __future__ import annotations
 
@@ -20,6 +25,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.dist import fsdp
 from repro_torch.dist import tensor_parallel as tpar
 from repro_torch.dist.sharding import decl
 from repro_torch.models.layers import swiglu, swiglu_decl
@@ -87,16 +93,16 @@ def route(router_w, x_flat, top_k: int):
     return topw, topi, gates
 
 
-def moe_apply(cfg: ArchConfig, p, x, tp=None):
+def moe_apply(cfg: ArchConfig, p, x, tp=None, dp=None):
     """x: (B, S, D) -> (y: (B, S, D), aux_loss: scalar)."""
     m = cfg.moe
     if m.impl == "ep_a2a":
         from repro_torch.dist.moe_a2a import moe_apply_a2a
-        return moe_apply_a2a(cfg, p, x, tp)
+        return moe_apply_a2a(cfg, p, x, tp, dp)
     if m.impl == "tp_local":
         from repro_torch.dist.moe_a2a import moe_apply_tp_local
-        return moe_apply_tp_local(cfg, p, x, tp)
-    return moe_apply_dense(cfg, p, x, tp)
+        return moe_apply_tp_local(cfg, p, x, tp, dp)
+    return moe_apply_dense(cfg, p, x, tp, dp)
 
 
 def dispatch(ids: torch.Tensor, n_experts: int, cap: int):
@@ -116,7 +122,7 @@ def dispatch(ids: torch.Tensor, n_experts: int, cap: int):
     return order, slot, valid
 
 
-def moe_apply_dense(cfg: ArchConfig, p, x, tp=None):
+def moe_apply_dense(cfg: ArchConfig, p, x, tp=None, dp=None):
     """The capacity-dispatch path.  The return scatter-add sums each
     token's k contributions in increasing expert id, one rounding in x's
     dtype per add, from zero: the order of the sorted assignments, in
@@ -132,8 +138,16 @@ def moe_apply_dense(cfg: ArchConfig, p, x, tp=None):
     expert's FFN is column- then row-parallel over its width.  Either way
     only the dispatch's input goes through ``copy_to_model`` (its gradient
     covers this rank's experts or width); the router's path to x is whole
-    on every rank."""
+    on every rank.
+
+    With ``dp`` and a split batch, x is this rank's rows: the layer runs on
+    every data rank's rows gathered (``fsdp.gather_rows``), and the rank
+    keeps its own rows of the routed output; the shared expert runs on its
+    own rows alone."""
     m = cfg.moe
+    own = x
+    if dp is not None and dp.split:
+        x = fsdp.gather_rows(x, dp)
     B, S, D = x.shape
     T = B * S
     E, K = m.n_experts, m.top_k
@@ -177,6 +191,8 @@ def moe_apply_dense(cfg: ArchConfig, p, x, tp=None):
     y = x.new_zeros((T, D))
     for j in range(K):
         y = y + per_tok[:, j]
+    if own is not x:                                    # this rank's rows
+        y = fsdp.own_rows(y.view(B, S, D), dp).reshape(-1, D)
 
     # Switch-style load-balancing auxiliary loss.
     n = torch.full((), T * K, dtype=torch.float32, device=x.device)
@@ -185,6 +201,6 @@ def moe_apply_dense(cfg: ArchConfig, p, x, tp=None):
     aux = m.aux_coef * E * (f * pmean).sum()
 
     if m.n_shared_experts:
-        y = y + swiglu(p["shared"], xf, tp)
+        y = y + swiglu(p["shared"], own.reshape(-1, D), tp)
     _count(valid, aux)
-    return y.reshape(B, S, D), aux
+    return y.reshape(own.shape), aux

@@ -110,28 +110,31 @@ def adamw(lr=constant(3e-4), b1=0.9, b2=0.95, eps=1e-8, wd=0.01,
 # --------------------------------------------------------------------------
 
 def adafactor(lr=constant(1e-3), decay=0.8, eps=1e-30,
-              clip_threshold=1.0, tp=None, split=None) -> Optimizer:
+              clip_threshold=1.0, tp=None, split=None, dp=None,
+              data_split=None) -> Optimizer:
     """Factored for >=2-D parameters (state: the f32 means over the last
     and over the second-to-last dim, O(n+m) not O(nm)); a full f32 second
     moment for 1-D ones.  The state tree is ``{"f": {leaf path: {"vr",
     "vc"} or {"v"}}}``, the reference's.
 
-    On a client's model axis (``tp``, a ``tensor_parallel.ModelAxis``) the
-    parameters, gradients and factors are this rank's blocks, and
-    ``split`` gives each leaf's dims on the axis (a tree of tuples).  A
-    mean over a split dim is then a sum over the model group divided by
-    the whole dim: ``vr``'s where the last dim is split, ``vc``'s and
-    ``denom``'s where the second-to-last is; and the RMS clip of a split
-    leaf sums its squares over the group.  A factor reduced so is whole
-    and equal on the group's ranks; a split leading dim (the experts)
-    needs no reduction but the RMS's."""
+    On a client's split axes the parameters, gradients and factors are
+    this rank's blocks: ``tp`` (a ``tensor_parallel.ModelAxis``) with
+    ``split``, each leaf's dims on the ``model`` axis (a tree of tuples),
+    and ``dp`` (a ``fsdp.DataAxis``, the ``shared`` mode) with
+    ``data_split``, each leaf's dims on ``data``.  A mean over a split dim
+    is then a sum over that axis's group divided by the whole dim:
+    ``vr``'s where the last dim is split, ``vc``'s and ``denom``'s where
+    the second-to-last is; and the RMS clip of a split leaf sums its
+    squares over the group of every axis it is split on.  A factor reduced
+    so is whole and equal on the group's ranks; a split leading dim (the
+    experts) needs no reduction but the RMS's."""
 
-    def mean(x, dim, split_here, whole, keepdim=False):
-        """``x.mean(dim)``, whole over the model group where ``dim`` is
-        split (``whole``: the whole dim's length)."""
-        if not split_here:
+    def mean(x, dim, ax, whole, keepdim=False):
+        """``x.mean(dim)``, whole over the group of ``ax`` (None: ``dim``
+        is not split; ``whole``: the whole dim's length)."""
+        if ax is None:
             return x.mean(dim=dim, keepdim=keepdim)
-        return tp.all_reduce(x.sum(dim=dim, keepdim=keepdim)).div_(whole)
+        return ax.all_reduce(x.sum(dim=dim, keepdim=keepdim)).div_(whole)
 
     def init(params):
         def f(p):
@@ -153,21 +156,22 @@ def adafactor(lr=constant(1e-3), decay=0.8, eps=1e-30,
         one_m_beta = float(np.float32(1) - np.float32(beta))
         neg_lr = -lr(step)
 
-        def upd(g, s, p, dims=()):
+        def upd(g, s, p, dims=(), ddims=()):
             n = p.dim()
-            last, second = n - 1 in dims, n - 2 in dims
-            M = tp.size if dims else 1
+            on = {i: tp for i in dims} | {i: dp for i in ddims}
+            size = lambda i: on[i].size if i in on else 1
+            last, second = on.get(n - 1), on.get(n - 2)
             with torch.no_grad():
                 gf = g.float()
                 g2 = gf.square().add_(eps)
                 if n >= 2:
                     vr, vc = s["vr"], s["vc"]
-                    rows = mean(g2, -1, last, p.shape[-1] * M)
+                    rows = mean(g2, -1, last, p.shape[-1] * size(n - 1))
                     vr.mul_(beta).add_(rows.mul_(one_m_beta))
-                    cols = mean(g2, -2, second, p.shape[-2] * M)
+                    cols = mean(g2, -2, second, p.shape[-2] * size(n - 2))
                     vc.mul_(beta).add_(cols.mul_(one_m_beta))
                     del g2, rows, cols
-                    denom = mean(vr, -1, second, p.shape[-2] * M,
+                    denom = mean(vr, -1, second, p.shape[-2] * size(n - 2),
                                  keepdim=True).clamp_min_(eps)
                     prec = (vr / denom)[..., None] * vc[..., None, :]
                     r = prec.clamp_min_(eps).rsqrt_()
@@ -178,17 +182,26 @@ def adafactor(lr=constant(1e-3), decay=0.8, eps=1e-30,
                 u = gf.mul_(r) if gf is not g else gf * r   # g stays whole
                 del r
                 sq = u.square()
-                ms = (tp.all_reduce(sq.sum().reshape(1))[0].div_(
-                    sq.numel() * M) if dims else sq.mean())
+                if on:
+                    total, count = sq.sum().reshape(1), sq.numel()
+                    for ax in (tp, dp):
+                        if ax is not None and ax in on.values():
+                            total, count = ax.all_reduce(total), \
+                                count * ax.size
+                    ms = total[0].div_(count)
+                else:
+                    ms = sq.mean()
                 del sq
                 rms = ms.add_(1e-12).sqrt_()
                 u.div_(torch.clamp_min(rms / clip_threshold, 1.0))
                 return u.mul_(neg_lr).to(p.dtype)
 
         # each grad leaf meets its {"vr", "vc"} or {"v"} node of the state
-        if split is None:
+        if split is None and data_split is None:
             return T.tree_map(upd, grads, state["f"], params), state
-        return T.tree_map(upd, grads, state["f"], params, split), state
+        none = T.tree_map(lambda _: (), grads)
+        return T.tree_map(upd, grads, state["f"], params, split or none,
+                          data_split or none), state
 
     return Optimizer(init, update, "adafactor")
 
@@ -196,15 +209,17 @@ def adafactor(lr=constant(1e-3), decay=0.8, eps=1e-30,
 # --------------------------------------------------------------------------
 
 def make_optimizer(cfg: ArchConfig, lr: Optional[float] = None,
-                   total_steps: int = 10000, tp=None,
-                   split=None) -> Optimizer:
-    """``tp`` and ``split``: a client's model axis and its leaves' split
-    dims, which Adafactor's reductions need; sgdm and AdamW are
-    elementwise, so a block's update is the whole update's block."""
+                   total_steps: int = 10000, tp=None, split=None, dp=None,
+                   data_split=None) -> Optimizer:
+    """``tp`` and ``split``, ``dp`` and ``data_split``: a client's model and
+    data axes and its leaves' dims on each, which Adafactor's reductions
+    need; sgdm and AdamW are elementwise, so a block's update is the whole
+    update's block."""
     sched = warmup_cosine(lr or 3e-4, warmup=min(100, total_steps // 10 + 1),
                           total=total_steps)
     if cfg.optimizer == "adafactor":
-        return adafactor(sched, tp=tp, split=split)
+        return adafactor(sched, tp=tp, split=split, dp=dp,
+                         data_split=data_split)
     if cfg.optimizer == "sgdm":
         return sgdm(sched)
     return adamw(sched)

@@ -46,9 +46,11 @@ from repro.core.topology import compile_tree as ref_compile_tree
 from repro.models import inputs as ref_inputs
 from repro.optim.api import make_optimizer as ref_make_optimizer
 from repro_torch import tree as T
-from repro_torch.configs.base import SHAPES, get_arch, list_archs
+from repro_torch.configs.base import (SHAPES, get_arch, list_archs,
+                                      smoke_config)
 from repro_torch.core import fl_step
 from repro_torch.data.federated import FederatedTokens
+from repro_torch.dist import sharding as shd
 from repro_torch.launch import mesh as mesh_lib
 from repro_torch.launch import train
 from repro_torch.models import inputs
@@ -136,11 +138,13 @@ def test_abstract_state_is_the_whole_state_on_meta():
 
 
 def test_model_axis_and_pods_raise():
-    """A model axis runs the dense family (tests/test_torch_tp.py); what
-    still raises: pods (the shared mode), a model axis below 1, and a
-    model axis for a family it does not run yet, before any rank starts."""
-    with pytest.raises(NotImplementedError, match="5b"):
-        mesh_lib.check_axes(1, pods=2)
+    """A model axis runs the dense and MoE families (tests/test_torch_tp.py)
+    and pods the shared mode (tests/test_torch_shared.py); what still
+    raises: fewer than 0 pods, a model axis below 1, and a model axis for a
+    family it does not run yet, before any rank starts."""
+    assert mesh_lib.check_axes(1, pods=2) is None
+    with pytest.raises(ValueError, match="pods"):
+        mesh_lib.check_axes(1, pods=-1)
     with pytest.raises(ValueError, match="model axis of 0"):
         mesh_lib.init_mesh(4, 0, rank=0, device="cpu")
     with pytest.raises(NotImplementedError, match="5b"):
@@ -148,15 +152,44 @@ def test_model_axis_and_pods_raise():
                     "--model-mesh", "2"])
 
 
+def _fake_mesh(shape, rank):
+    """A mesh object as far as building a step reads one: no process
+    group (every group is the default one)."""
+    coords = dict(zip(shape, np.unravel_index(rank, tuple(shape.values()))))
+    return types.SimpleNamespace(
+        shape=shape, rank=rank, world=int(np.prod(list(shape.values()))),
+        device=torch.device("cpu"), group=lambda ax: None,
+        coord=lambda ax: int(coords[ax]))
+
+
 def test_shared_mode_on_ranks_raises():
+    """A mesh without pods in shared mode (once raising, ROADMAP item
+    5b-iii) is one client fully sharded over its 4 data ranks, as the
+    reference's ``client_axis_for`` makes it: each rank's ``init_state``
+    is its block of the K = 1 state (the embed dim in quarters) and the
+    round step builds.  A family shared mode does not run yet still raises,
+    naming its item."""
     cfg = R.adafactor_smoke()
     cfg = cfg.replace(fl=dataclasses.replace(cfg.fl, mode="shared"))
-    mesh = types.SimpleNamespace(shape={"data": 4, "model": 1}, rank=0,
-                                 world=4, device=torch.device("cpu"))
-    with pytest.raises(NotImplementedError, match="5b"):
-        fl_step.init_state(cfg, mesh, 0)
-    with pytest.raises(NotImplementedError, match="5b"):
-        fl_step.build_fl_round_step(cfg, mesh, R.schedule("flat"))
+    sizes = {"data": 4, "model": 1}
+    assert fl_step.client_axis_for(cfg, sizes) is None
+    assert fl_step.n_clients_for(cfg, sizes) == 1
+    whole = fl_step.init_state(cfg, 1, 0, "cpu")
+    specs = fl_step.state_specs(cfg, sizes, "adafactor")
+    assert specs["params"]["embed"]["in_table"] == ("model", "data")
+    for r in range(4):
+        mesh = _fake_mesh(sizes, r)
+        got = fl_step.init_state(cfg, mesh, 0)
+        for key in ("params", "opt"):
+            for a, b, s in zip(T.leaves(got[key]), T.leaves(whole[key]),
+                               T.leaves(specs[key])):
+                assert torch.equal(a, shd.local_block(b, s, sizes, r))
+    assert callable(fl_step.build_fl_round_step(cfg, mesh,
+                                                R.schedule("flat")))
+    rwkv = smoke_config(get_arch("rwkv6-7b"))
+    rwkv = rwkv.replace(fl=dataclasses.replace(rwkv.fl, mode="shared"))
+    with pytest.raises(NotImplementedError, match="5b-iv"):
+        fl_step.init_state(rwkv, _fake_mesh(sizes, 0), 0)
 
 
 def test_cuda_mesh_never_drops_to_gloo():

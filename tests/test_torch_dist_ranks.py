@@ -113,7 +113,8 @@ def qwen2_smoke():
 
 def adafactor_smoke():
     """mixtral-8x22b's smoke config (Adafactor) in ``replica`` mode, one
-    client a rank (its own config's ``shared`` mode is ROADMAP item 5b)."""
+    client a rank (its own config's ``shared`` mode, one client a pod, is
+    tests/test_torch_shared.py's)."""
     cfg = smoke_config(get_arch("mixtral-8x22b"))
     return cfg.replace(fl=dataclasses.replace(cfg.fl, mode="replica"))
 

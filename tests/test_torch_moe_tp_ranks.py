@@ -131,25 +131,28 @@ ADAFACTOR_LEAVES = {
 ADAFACTOR_STEPS, ADAFACTOR_LR = 2, 0.05
 
 
-def adafactor_case(seed: int = 11):
-    """(params, [grads per step]) as f32 numpy trees."""
+def adafactor_case(seed: int = 11, leaves=None):
+    """(params, [grads per step]) as f32 numpy trees of ``leaves`` (name
+    -> (shape, spec); ``ADAFACTOR_LEAVES`` by default)."""
+    leaves = leaves or ADAFACTOR_LEAVES
     rng = np.random.default_rng(seed)
     params = {k: rng.standard_normal(s).astype(np.float32)
-              for k, (s, _) in ADAFACTOR_LEAVES.items()}
+              for k, (s, _) in leaves.items()}
     grads = [{k: (rng.standard_normal(s) * (1 + np.arange(s[-1]))).astype(
-        np.float32) for k, (s, _) in ADAFACTOR_LEAVES.items()}
+        np.float32) for k, (s, _) in leaves.items()}
         for _ in range(ADAFACTOR_STEPS)]
     return params, grads
 
 
-def adafactor_run(params_np, grads_np, tp=None, split=None, cut=None):
+def adafactor_run(params_np, grads_np, cut=None, **axes):
     """``ADAFACTOR_STEPS`` Adafactor updates (each applied) -> (the
     updates of each step, the final factors), as numpy; ``cut`` maps a
-    whole tensor to this rank's block."""
+    whole tensor to this rank's block, and ``axes`` are ``adafactor``'s
+    (``tp``/``split``, ``dp``/``data_split``)."""
     cut = cut or (lambda k, t: t)
     take = lambda tree: {k: cut(k, torch.from_numpy(v)).clone()
                          for k, v in tree.items()}
-    opt = adafactor(constant(ADAFACTOR_LR), tp=tp, split=split)
+    opt = adafactor(constant(ADAFACTOR_LR), **axes)
     params = take(params_np)
     state = opt.init(params)
     updates = []
@@ -163,12 +166,12 @@ def adafactor_run(params_np, grads_np, tp=None, split=None, cut=None):
 
 def adafactor_rank(mesh):
     params, grads = adafactor_case()
-    tp = tpar.ModelAxis(mesh.model_group, mesh.shape["model"],
-                        mesh.model_rank, 1, 1)
+    tp = tpar.ModelAxis(mesh.group("model"), mesh.shape["model"],
+                        mesh.coord("model"), 1, 1)
     split = {k: tuple(i for i, a in enumerate(s) if a == "model")
              for k, (_, s) in ADAFACTOR_LEAVES.items()}
     cut = lambda k, t: shd.local_block(t, ADAFACTOR_LEAVES[k][1], mesh)
-    return adafactor_run(params, grads, tp, split, cut)
+    return adafactor_run(params, grads, cut, tp=tp, split=split)
 
 
 def rank_one(mesh, cases, remat):

@@ -19,9 +19,9 @@ stay whole, the mixed layout).
   chooses its clients in each model shard, as the reference does;
 * (f) the CLI's ``--data-mesh 2 --model-mesh 2`` equals ``--clients 2``,
   and resumes; a (2, 2) trainer resumes bit for bit;
-* (g) pods, the shared mode (the MoE configs' declared mode among them),
-  the other families and serving on a model axis above 1 raise, naming
-  their ROADMAP item.
+* (g) the other families and serving on a model axis above 1 raise,
+  naming their ROADMAP item; the shared mode (the MoE configs' declared
+  mode) and pods run there (tests/test_torch_shared.py holds them).
 
 The reference runs in one subprocess (jax fixes its device count at its
 first use) while the ranks run; each mesh is spawned once.  The
@@ -526,8 +526,20 @@ def _with(arch, mode="replica", **kw):
     return cfg.replace(fl=cfg.fl.__class__(mode=mode))
 
 
+def _fake_mesh(D, M, rank=0):
+    """``_grid`` with what building a step reads of a mesh: no process
+    group (every group is the default one)."""
+    d, m = divmod(rank, M)
+    return types.SimpleNamespace(
+        shape={"data": D, "model": M}, rank=rank, world=D * M,
+        device=torch.device("cpu"), group=lambda ax: None,
+        coord=lambda ax: {"data": d, "model": m}[ax])
+
+
 # the MoE configs run on a model axis in replica mode (the trainer's CLI
-# mode); in their declared shared mode they still raise
+# mode) and, since item 5b-iii, in their declared shared mode (a mesh
+# without pods: one client, FSDP over data and TP over model); the other
+# families still raise
 @pytest.mark.parametrize("arch,item,mode", [
     ("mixtral-8x22b", "5b-iii", "shared"),
     ("kimi-k2-1t-a32b", "5b-iii", "shared"),
@@ -536,6 +548,18 @@ def _with(arch, mode="replica", **kw):
     ("internvl2-2b", "5b-vii", "replica")])
 def test_other_families_on_model_axis_raise(arch, item, mode):
     cfg = _with(arch, mode, optimizer="adamw")
+    if mode == "shared":
+        sizes = {"data": 2, "model": 2}
+        for r in range(4):
+            got = fl_step.init_state(cfg, _grid(2, 2, r), 0)["params"]
+            want = fl_step.abstract_state(cfg, _grid(2, 2, r))["params"]
+            assert [t.shape for t in T.leaves(got)] == [
+                t.shape for t in T.leaves(want)]
+        assert fl_step.param_specs(cfg, sizes)["layers"]["moe"][
+            "w_gate"] == (None, "model", "data", None)
+        assert callable(fl_step.build_fl_round_step(
+            cfg, _fake_mesh(2, 2), R.schedule("flat", 2)))
+        return
     with pytest.raises(NotImplementedError, match=item):
         fl_step.init_state(cfg, _grid(2, 2), 0)
     with pytest.raises(NotImplementedError, match=item):
@@ -552,12 +576,14 @@ def test_adafactor_shared_mode_and_pods_on_model_axis_raise():
     with pytest.raises(NotImplementedError, match="stay whole"):
         fl_step.init_state(moe.replace(moe=moe.moe.__class__(
             n_experts=3, top_k=2, d_ff_expert=30)), _grid(1, 4), 0)
+    # the shared mode and pods on a model axis run (item 5b-iii): a step
+    # builds, with a data axis (FSDP) beside the model axis
     cfg = R.qwen2_smoke()
     shared = cfg.replace(fl=cfg.fl.__class__(mode="shared"))
-    with pytest.raises(NotImplementedError, match="5b-iii"):
-        fl_step.build_fl_round_step(shared, _grid(2, 2), R.schedule("flat", 2))
-    with pytest.raises(NotImplementedError, match="5b-iii"):
-        mesh_lib.check_axes(2, pods=2)
+    assert callable(fl_step.build_fl_round_step(shared, _fake_mesh(2, 2),
+                                                R.schedule("flat", 2)))
+    assert fl_step.data_axis_for(shared, _fake_mesh(2, 2)).size == 2
+    assert mesh_lib.check_axes(2, pods=2) is None
     with pytest.raises(NotImplementedError, match="5b-iv"):
         train.main(["--device", "cpu", "--smoke", "--arch", "rwkv6-7b",
                     "--model-mesh", "2"])

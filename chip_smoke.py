@@ -48,8 +48,13 @@ parameters FSDP-split over the pod's data cards): mixtral-8x22b at one
 layer on a (pod 2, data 2, model 1) mesh under four schedules and
 strategies, qwen2-7b under AdamW, and mixtral on (1, 2, 2), two rounds
 each against the single card; mixtral at the most layers that fit and
-qwen2-7b at all 28 layers on (2, 2, 1).  On one card the rank path also
-runs mixtral-8x22b under Adafactor against the single-card K = 1
+qwen2-7b at all 28 layers on (2, 2, 1).  RWKV6 and Hymba run there too:
+on the model axis rwkv6-7b (its 64 heads split, the WKV kernel on a rank's
+heads) under three schedules and strategies and hymba-1.5b (its 25 heads
+whole on every rank) at one layer on (2, 2) against the single-card K = 2
+rounds, and both at all 32 layers over four cards; in shared mode both at
+one layer on (2, 2, 1) and rwkv6-7b on (1, 2, 2).  On one card the rank
+path also runs mixtral-8x22b under Adafactor against the single-card K = 1
 trainer, bit for bit.
 Each phase prints JSON lines; then one line lists every kernel, one line
 gives the card's name and power limit as nvidia-smi reports them, and the
@@ -516,6 +521,9 @@ WKV_CASES = [  # name, B, T, H, dk, dv, chunk, use_u, per-head w, s0, dtype
     ("path_rwkv6", 1, 2048, 64, 64, 64, 128, True, False, False,
      "bfloat16"),
     ("path_hymba", 1, 2048, 25, 16, 64, 128, False, True, False, "bfloat16"),
+    # rwkv6-7b's heads on a model rank at M = 2 and 4 (``lin_time``)
+    ("tp2_rwkv6", 1, 2048, 32, 64, 64, 128, True, False, False, "bfloat16"),
+    ("tp4_rwkv6", 1, 2048, 16, 64, 64, 128, True, False, False, "bfloat16"),
     ("odd_u", 2, 200, 3, 4, 8, 64, True, False, True, "float32"),
     ("odd_ssd", 2, 200, 3, 4, 8, 64, False, True, True, "float32"),
 ]
@@ -524,7 +532,8 @@ WKV_CASES = [  # name, B, T, H, dk, dv, chunk, use_u, per-head w, s0, dtype
 def phase_wkv(torch, dev, cases=WKV_CASES, phase="wkv", seed=4):
     """The chunked WKV kernel against its plain version (``ref.chunked``)
     at the two paths' shapes (rwkv6: per-channel decay with u; hymba's SSM
-    branch: per-head decay, SSD form) and at odd shapes (B = 2, a ragged
+    branch: per-head decay, SSD form), at rwkv6's heads on a rank of a
+    model axis of 2 and 4, and at odd shapes (B = 2, a ragged
     T = 200 with chunk 64, dk 4 / dv 8, a given s0).  Tolerance: 1e-4 of
     max |o| (and of max |s_final|), f32 sums in another order.
     ``bound_share`` is the bound over the kernel's time."""
@@ -2024,6 +2033,39 @@ MOE_TIME = [((1, 4), "internlm2-20b", 48, "tree"),
             ((2, 2), MOE_ARCH, 6, "flat")]
 
 
+# RWKV6 and Hymba on the model axis (``replica`` mode, their declared
+# one).  Leg ``lin_agree`` on a (2, 2) mesh: at one layer, K = 2, batch 1,
+# AdamW, two rounds (round 0 at a learning rate of 0) against the
+# single-card K = 2 rounds on card 0, under ``_emit_agree``'s checks:
+# rwkv6-7b's 64 heads split (the WKV kernel on a rank's 32), hymba-1.5b's
+# 25 / 5 heads whole on every rank (its attention and SSM branch whole,
+# its MLP and vocab split)
+LIN_AGREE = [("rwkv6-7b", "tree", "fedavg"),
+             ("rwkv6-7b", "compressed", "fedavg"),
+             ("rwkv6-7b", "tree", "multi_krum"),
+             ("hymba-1.5b", "flat", "fedavg")]
+# leg ``lin_time``: (mesh, arch, layers, schedule), two rounds each, at
+# full depth: rwkv6-7b 1.96 B parameters a rank on (1, 4) and 3.84 B on
+# (2, 2) (AdamW's moments, the gradients, the updates and three f32
+# temporaries of the stacked ``cm.wk``: 64.19 GB a rank on H100s, so all
+# 32 layers fit under about 72 GB), hymba-1.5b 0.72 B a rank on (1, 4)
+LIN_TIME = [((1, 4), "rwkv6-7b", 32, "tree"),
+            ((1, 4), "hymba-1.5b", 32, "tree"),
+            ((2, 2), "rwkv6-7b", 32, "flat")]
+
+
+def _path_launches(arch, n_layers) -> dict:
+    """The flash and WKV launches a rank's two rounds of ``arch`` at
+    ``n_layers`` make: each attention or scan twice a layer a round (the
+    forward and remat's recompute; the backwards are plain)."""
+    from repro_torch.configs.base import get_arch
+    family = get_arch(arch).family
+    per = 2 * n_layers * ROUNDS
+    return {"flash_fwd": 0 if family == "rwkv" else per,
+            "wkv6": per if family == "rwkv" else 0,
+            "ssm_scan": per if family == "hybrid" else 0}
+
+
 def _steps_beyond(torch, got, want) -> int:
     """Elements of ``got`` more than one bf16 ulp and one int8
     quantization step of their row (2 x the row's largest ``|want|`` /
@@ -2356,6 +2398,16 @@ def _moe_agree(torch, mesh) -> list:
                          BATCH_PER_CLIENT)
 
 
+def _lin_agree(torch, mesh) -> list:
+    """Leg ``lin_agree`` on a (2, 2) mesh: two rounds of each
+    ``LIN_AGREE`` case (one layer, AdamW, ``replica`` mode) against the
+    single-card K = 2 trainer."""
+    from repro_torch.configs.base import get_arch
+    return _agree_rounds(torch, mesh, [
+        (_replica(get_arch(arch).replace(n_layers=1)), sched, strat)
+        for arch, sched, strat in LIN_AGREE], BATCH_PER_CLIENT)
+
+
 def _shared_agree(torch, mesh) -> list:
     """Leg (g) on this mesh: two rounds of each ``SHARED_AGREE`` case in
     ``shared`` mode (one layer, batch ``SHARED_BPC`` a client) against the
@@ -2414,8 +2466,8 @@ def _time_leg(torch, mesh, cfg, sched, bpc) -> dict:
 def _tp_rank(mesh, legs):
     """One rank of the model-axis and shared-mode legs (a spawned process),
     with the matmul settings of ``main``: ``tp_agree``, ``moe_agree``,
-    ``shared_agree``, each ``tp_time:<sched>`` and each
-    ``{moe,shared}_time:<arch>:<layers>:<sched>`` in ``legs``."""
+    ``lin_agree``, ``shared_agree``, each ``tp_time:<sched>`` and each
+    ``{moe,lin,shared}_time:<arch>:<layers>:<sched>`` in ``legs``."""
     import torch
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -2427,12 +2479,14 @@ def _tp_rank(mesh, legs):
             out[leg] = _tp_agree(torch, mesh)
         elif leg == "moe_agree":
             out[leg] = _moe_agree(torch, mesh)
+        elif leg == "lin_agree":
+            out[leg] = _lin_agree(torch, mesh)
         elif leg == "shared_agree":
             out[leg] = _shared_agree(torch, mesh)
-        elif leg.startswith(("moe_time:", "shared_time:")):
+        elif leg.startswith(("moe_time:", "lin_time:", "shared_time:")):
             kind, arch, n_layers, sched = leg.split(":")
-            mode, bpc = ((_replica, BATCH_PER_CLIENT) if kind == "moe_time"
-                         else (_shared, SHARED_BPC))
+            mode, bpc = ((_shared, SHARED_BPC) if kind == "shared_time"
+                         else (_replica, BATCH_PER_CLIENT))
             cfg = mode(get_arch(arch).replace(n_layers=int(n_layers)))
             out[leg] = _time_leg(torch, mesh, cfg, sched, bpc)
         else:
@@ -2541,7 +2595,8 @@ def _emit_agree(phase, shape, cases, bpc, ranks, add, faults):
     carried and new steps); the clients' dropped assignments within
     ``MOE_DROP_SHARE`` of the assignments of the single card's; equal
     blocks on the ranks that hold the same block of different clients;
-    exact flash and qagg counts.  ``cases``: (arch, schedule, strategy)."""
+    exact flash, WKV (``_path_launches``) and qagg counts.  ``cases``:
+    (arch, schedule, strategy)."""
     from repro_torch.configs.base import get_arch
     keys = ("exact", "max_abs_err", "elements_differing",
             "beyond_1_bf16_ulp", "beyond_1_bf16_ulp_max_err",
@@ -2608,9 +2663,9 @@ def _emit_agree(phase, shape, cases, bpc, ranks, add, faults):
                               f"round1 { {x: r1.get(x) for x in keys} }")
             want_qagg = r["leaves"] * ROUNDS if sched == "compressed" else 0
             got = r["launches"]
-            if (got["flash_fwd"] != 2 * ROUNDS or got["qagg"] != want_qagg
-                    or got["fedavg"] or got["quantize"]
-                    or got["dequantize"]):
+            if (any(got[k] != n for k, n in _path_launches(arch, 1).items())
+                    or got["qagg"] != want_qagg or got["fedavg"]
+                    or got["quantize"] or got["dequantize"]):
                 faults.append(f"{name}: launches {got}")
         if not same:
             faults.append(f"{name}: blocks differ across clients")
@@ -2623,11 +2678,11 @@ def _emit_agree(phase, shape, cases, bpc, ranks, add, faults):
 
 def _emit_time(phase, shape, arch, n_layers, sched, bpc, rows, add,
                faults):
-    """A time leg's line (``moe_time``, ``shared_time``) and its checks:
-    finite losses, equal blocks across the clients, the config's
-    optimizer, every peak under the card, flash exactly 2 a layer a round
-    a rank (remat's recompute), qagg a leaf a round under ``compressed``,
-    no fedavg."""
+    """A time leg's line (``moe_time``, ``lin_time``, ``shared_time``) and
+    its checks: finite losses, equal blocks across the clients, the
+    config's optimizer, every peak under the card, flash and WKV exactly 2
+    a layer a round a rank (remat's recompute, ``_path_launches``), qagg a
+    leaf a round under ``compressed``, no fedavg."""
     from repro_torch.configs.base import get_arch
     for r in rows:
         add(r["launches"])
@@ -2664,25 +2719,28 @@ def _emit_time(phase, shape, arch, n_layers, sched, bpc, rows, add,
           "aux_mean": routing["aux_mean"],
           "peak_rank": [r["peak"] for r in rows],
           "flash_rank": [r["launches"]["flash_fwd"] for r in rows],
+          "wkv6_rank": [r["launches"]["wkv6"] for r in rows],
+          "ssm_scan_rank": [r["launches"]["ssm_scan"] for r in rows],
           "qagg_rank": [r["launches"]["qagg"] for r in rows],
           "blocks_identical_across_clients": same})
-    want_flash = 2 * n_layers * ROUNDS
+    want = _path_launches(arch, n_layers)
     want_qagg = lead["leaves"] * ROUNDS if sched == "compressed" else 0
     if (not all(math.isfinite(x) for x in lead["losses"]) or not same
             or lead["optimizer"] != get_arch(arch).optimizer
             or max(r["peak"] for r in rows) >= CARD_BYTES
-            or any(r["launches"]["flash_fwd"] != want_flash
+            or any(any(r["launches"][k] != n for k, n in want.items())
                    or r["launches"]["qagg"] != want_qagg
                    or r["launches"]["fedavg"] for r in rows)):
         faults.append(f"{phase} {shape} {arch} {n_layers} {sched}: {rows}")
 
 
 def phase_tp(torch, dev) -> dict:
-    """The model axis over four cards: leg (d) ``tp_time`` and leg (f)
-    ``moe_time`` on a (1, 4) mesh, then on a (2, 2) one legs (c)
-    ``tp_agree``, (e) ``moe_agree``, (d) and (f).  Each
-    mesh's lines are printed as soon as it ends, before any check fails
-    the phase; returns the legs' launches, summed over the ranks."""
+    """The model axis over four cards: leg (d) ``tp_time``, leg (f)
+    ``moe_time`` and ``lin_time`` on a (1, 4) mesh, then on a (2, 2) one
+    legs (c) ``tp_agree``, (e) ``moe_agree``, ``lin_agree``, (d), (f) and
+    ``lin_time``.  Each mesh's lines are printed as soon as it ends, before
+    any check fails the phase; returns the legs' launches, summed over the
+    ranks."""
     from repro_torch.launch import mesh as mesh_lib
 
     launches, faults = {}, []
@@ -2694,9 +2752,10 @@ def phase_tp(torch, dev) -> dict:
     for shape in ((1, 4), (2, 2)):
         legs = [f"tp_time:{sched}" for sh, sched in TP_TIME if sh == shape]
         if shape == (2, 2):
-            legs[:0] = ["tp_agree", "moe_agree"]
-        legs += [f"moe_time:{arch}:{n}:{sched}"
-                 for sh, arch, n, sched in MOE_TIME if sh == shape]
+            legs[:0] = ["tp_agree", "moe_agree", "lin_agree"]
+        legs += [f"{kind}_time:{arch}:{n}:{sched}"
+                 for kind, table in (("moe", MOE_TIME), ("lin", LIN_TIME))
+                 for sh, arch, n, sched in table if sh == shape]
         gc.collect()
         torch.cuda.empty_cache()
         t0 = time.perf_counter()
@@ -2710,16 +2769,19 @@ def phase_tp(torch, dev) -> dict:
             _emit_agree("moe_agree", shape, [(MOE_ARCH,) + c
                                              for c in MOE_AGREE],
                         BATCH_PER_CLIENT, ranks, add, faults)
+            _emit_agree("lin_agree", shape, LIN_AGREE, BATCH_PER_CLIENT,
+                        ranks, add, faults)
         for sh, sched in TP_TIME:
             if sh == shape:
                 _emit_tp_time(shape, sched, [r[f"tp_time:{sched}"]
                                              for r in ranks], add, faults)
-        for sh, arch, n, sched in MOE_TIME:
-            if sh == shape:
-                _emit_time("moe_time", shape, arch, n, sched,
-                           BATCH_PER_CLIENT,
-                           [r[f"moe_time:{arch}:{n}:{sched}"]
-                            for r in ranks], add, faults)
+        for kind, table in (("moe", MOE_TIME), ("lin", LIN_TIME)):
+            for sh, arch, n, sched in table:
+                if sh == shape:
+                    _emit_time(f"{kind}_time", shape, arch, n, sched,
+                               BATCH_PER_CLIENT,
+                               [r[f"{kind}_time:{arch}:{n}:{sched}"]
+                                for r in ranks], add, faults)
     if faults:
         raise AssertionError("\n".join(faults))
     return launches
@@ -2731,15 +2793,18 @@ def phase_tp(torch, dev) -> dict:
 # (2, 2, 1) mesh takes one row.  Leg (g) ``shared_agree``: at one layer,
 # two rounds (round 0 at a learning rate of 0) of each case against the
 # single-card rounds on card 0, on a (2, 2, 1) mesh (K = 2) and a
-# (1, 2, 2) one (K = 1: experts on model, embed on data); the checks are
-# ``moe_agree``'s
+# (1, 2, 2) one (K = 1: experts, or rwkv6's heads, on model, embed on
+# data); the checks are ``moe_agree``'s
 SHARED_BPC = 2
 SHARED_AGREE = {(2, 2, 1): [(MOE_ARCH, "tree", "fedavg"),
                             (MOE_ARCH, "flat", "fedavg"),
                             (MOE_ARCH, "compressed", "fedavg"),
                             (MOE_ARCH, "tree", "multi_krum"),
-                            (DIST_ARCH, "tree", "fedavg")],
-                (1, 2, 2): [(MOE_ARCH, "flat", "fedavg")]}
+                            (DIST_ARCH, "tree", "fedavg"),
+                            ("rwkv6-7b", "tree", "fedavg"),
+                            ("hymba-1.5b", "tree", "fedavg")],
+                (1, 2, 2): [(MOE_ARCH, "flat", "fedavg"),
+                            ("rwkv6-7b", "flat", "fedavg")]}
 # leg (h) ``shared_time`` on (2, 2, 1), two rounds each: mixtral-8x22b at
 # the most layers under about 72 GB a rank (a layer is 2.50 B parameters,
 # 1.25 B a rank: 6 layers took 70.56 GB, and a seventh would add about 11

@@ -1,5 +1,5 @@
 """FSDP over the mesh's ``data`` axis inside a client (the ``shared`` mode),
-for the dense and MoE decoder families.
+for the dense and MoE decoder families, RWKV6 and Hymba.
 
 The reference has no file for this: in ``shared`` mode its rules put the
 ``embed`` dim of every parameter on ``data`` (``dist/sharding.rules_for``)
@@ -56,9 +56,7 @@ from repro_torch.configs.base import ArchConfig
 from repro_torch.dist.tensor_parallel import GroupAxis
 
 # family -> the ROADMAP item that puts it in shared mode
-_FAMILY_ITEM = {"rwkv": "5b-iv (RWKV6 and Hymba on the model axis)",
-                "hybrid": "5b-iv (RWKV6 and Hymba on the model axis)",
-                "encdec": "5b-vii (encoder-decoder and VLM on the model "
+_FAMILY_ITEM = {"encdec": "5b-vii (encoder-decoder and VLM on the model "
                           "axis)",
                 "vlm": "5b-vii (encoder-decoder and VLM on the model axis)"}
 

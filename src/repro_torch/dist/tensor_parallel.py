@@ -1,5 +1,5 @@
 """Tensor parallelism over the mesh's ``model`` axis inside a client, for
-the dense and MoE decoder families.
+the dense and MoE decoder families, RWKV6 and Hymba.
 
 The reference has no file for this: it declares each parameter's logical
 axes (``vocab``, ``heads``, ``kv_heads`` and ``mlp`` map to ``model``,
@@ -51,6 +51,26 @@ selects; those weights (``wk``, ``wv``, ``bk``, ``bv``) take
 ``copy_to_model`` too, so each gets the sum of its ranks' parts: its
 gradient counted once.
 
+RWKV6's time mix and Hymba's SSM branch split on heads as the attention
+does: the projections into heads column-parallel, the recurrence (the WKV
+kernel) on the rank's heads with their block of ``u``, the per-head norms
+local, the projection out of heads row-parallel.  Their inputs that a
+replicated leaf computes whole (RWKV6's ddlerp streams and its decay,
+Hymba's normed input and its conv's weights, whose ``embed`` dim a model
+axis does not split) take ``copy_to_model`` before the rank's part is
+used, so the replicated leaf gets its whole gradient on every rank.
+RWKV6's channel mix declares ``cm.wr`` (embed, mlp): its output columns
+split, and the rank's columns of the gate are gathered
+(``gather_from_model``).
+
+Each dim is decided alone, as ``sharding._spec_for`` decides it.  Where
+the heads do not divide the axis (hymba-1.5b's 25 at M = 2 or 4) they
+stay whole, and so do the kv heads: the attention, the time mix and the
+SSM branch then run their plain code on every rank, with no collective
+(``heads_axis`` returns None for them).  Only the ``mlp`` and ``vocab``
+dims (and the experts) must split; a config where one would stay whole
+raises.
+
 With a model axis of 1 there is no :class:`ModelAxis` (``axis_for``
 returns None) and the model runs its plain code.  Families that a model
 axis does not reach yet raise ``NotImplementedError`` naming their ROADMAP
@@ -69,9 +89,7 @@ import torch.distributed as dist
 from repro_torch.configs.base import ArchConfig
 
 # family -> the ROADMAP item that puts it on the model axis
-_FAMILY_ITEM = {"rwkv": "5b-iv (RWKV6 and Hymba on the model axis)",
-                "hybrid": "5b-iv (RWKV6 and Hymba on the model axis)",
-                "encdec": "5b-vii (encoder-decoder and VLM on the model "
+_FAMILY_ITEM = {"encdec": "5b-vii (encoder-decoder and VLM on the model "
                           "axis)",
                 "vlm": "5b-vii (encoder-decoder and VLM on the model axis)"}
 
@@ -93,10 +111,23 @@ def moe_split(cfg: ArchConfig, size: int) -> Optional[str]:
     return "expert_mlp" if _splits(m.d_ff_expert, size) else None
 
 
+def head_counts(cfg: ArchConfig) -> tuple:
+    """(q heads, kv heads) of the leaves on ``heads`` and ``kv_heads``:
+    RWKV6's are its ``d_model / rwkv_head_dim`` heads (both)."""
+    if cfg.family == "rwkv":
+        h = cfg.d_model // cfg.rwkv_head_dim
+        return h, h
+    return cfg.n_heads, cfg.n_kv_heads
+
+
 def _mlp_widths(cfg: ArchConfig) -> list:
     """The widths of the ``mlp`` leaves the config holds: the dense FFN, or
-    an MoE config's leading dense layers and its shared expert."""
+    an MoE config's leading dense layers and its shared expert; RWKV6's
+    channel mix also declares ``cm.wr``'s output, ``d_model``, on
+    ``mlp``."""
     m = cfg.moe
+    if cfg.family == "rwkv":
+        return [cfg.d_ff, cfg.d_model]
     if m is None:
         return [cfg.d_ff]
     return ([m.d_ff_dense] if m.first_k_dense else []) + \
@@ -111,9 +142,7 @@ def check_supported(cfg: ArchConfig, size: int):
             f"family {cfg.family!r} on a model axis of {size}: ROADMAP item "
             f"{_FAMILY_ITEM[cfg.family]}")
     from repro_torch.models.layers import pad_vocab
-    whole = [name for name, n in (("heads", cfg.n_heads),
-                                  ("vocab", pad_vocab(cfg.vocab)))
-             if not _splits(n, size)]
+    whole = [] if _splits(pad_vocab(cfg.vocab), size) else ["vocab"]
     whole += ["mlp"] if not all(_splits(n, size)
                                 for n in _mlp_widths(cfg)) else []
     if cfg.moe is not None and moe_split(cfg, size) is None:
@@ -121,10 +150,12 @@ def check_supported(cfg: ArchConfig, size: int):
     if whole:
         raise NotImplementedError(
             f"{cfg.name}: {', '.join(whole)} would stay whole on a model "
-            f"axis of {size}; tensor parallelism splits heads, mlp (or the "
-            "experts) and vocab")
-    group, local = cfg.n_heads // cfg.n_kv_heads, cfg.n_heads // size
-    if not _splits(cfg.n_kv_heads, size) and group % local:
+            f"axis of {size}; tensor parallelism splits mlp (or the "
+            "experts) and vocab (heads split or stay whole)")
+    n_heads, n_kv = head_counts(cfg)
+    group, local = n_heads // n_kv, n_heads // size
+    if (_splits(n_heads, size) and not _splits(n_kv, size)
+            and group % local):
         raise NotImplementedError(
             f"{cfg.name} on a model axis of {size}: a rank's {local} q heads "
             f"would read parts of two groups of {group}")
@@ -178,13 +209,15 @@ class GroupAxis:
 
 
 class ModelAxis(GroupAxis):
-    """A client's model axis as the dense decoder sees it: its group, this
-    rank's index ``rank`` in it, and the global head counts."""
+    """A client's model axis as the layers see it: its group, this rank's
+    index ``rank`` in it, the global head counts, and whether the heads
+    (``heads_split``) and the kv heads (``kv_split``) split over it."""
 
     def __init__(self, group, size: int, rank: int, n_heads: int,
                  n_kv: int):
         super().__init__(group, size, rank)
         self.n_heads, self.n_kv = n_heads, n_kv
+        self.heads_split = _splits(n_heads, size)
         self.kv_split = _splits(n_kv, size)
 
 
@@ -196,7 +229,21 @@ def axis_for(cfg: ArchConfig, mesh) -> Optional[ModelAxis]:
     size = mesh.shape["model"]
     check_supported(cfg, size)
     return ModelAxis(mesh.group("model"), size, mesh.coord("model"),
-                     cfg.n_heads, cfg.n_kv_heads)
+                     *head_counts(cfg))
+
+
+def heads_axis(tp: Optional[ModelAxis]) -> Optional[ModelAxis]:
+    """The axis a block over heads (the attention, RWKV6's time mix,
+    Hymba's SSM branch) splits its heads over: ``tp`` where the heads
+    divide it, else None (the block runs whole on every rank)."""
+    return tp if tp is not None and tp.heads_split else None
+
+
+def head_columns(t: torch.Tensor, axis: ModelAxis) -> torch.Tensor:
+    """This rank's block of ``t``'s last dim, a whole dim laid out as
+    (heads, per head): the columns of its heads (a view)."""
+    n = t.shape[-1] // axis.size
+    return t.narrow(-1, axis.rank * n, n)
 
 
 # --------------------------------------------------------------------------

@@ -17,7 +17,9 @@ plain PyTorch, as the reference computes it outside any Pallas kernel.
 ``project_qkv`` and ``project_out`` take an optional ``tp``
 (``dist.tensor_parallel.ModelAxis``): the rank's local heads, projected
 column-parallel, and the output projection row-parallel; the attention
-between them runs on the local heads unchanged.
+between them runs on the local heads unchanged.  Where the heads do not
+divide the axis (``tensor_parallel.heads_axis``) they stay whole: the
+weights are whole on every rank and both run the plain code.
 """
 from __future__ import annotations
 
@@ -80,6 +82,7 @@ def project_qkv(params, x, positions, theta: float, *, apply_rope: bool = True,
                 tp=None):
     """x: (B, S, D) -> q (B,S,H,hd), k/v (B,S,K,hd).  With ``tp``, H is
     this rank's q heads and K the kv heads they read."""
+    tp = tpar.heads_axis(tp)
     if tp is not None:
         x = tpar.copy_to_model(x, tp)
     kv = _kv_params(params, tp, params["wq"].shape[1])
@@ -99,6 +102,7 @@ def project_qkv(params, x, positions, theta: float, *, apply_rope: bool = True,
 def project_out(params, o, tp=None):
     """o: (B, S, H, hd) -> (B, S, D); with ``tp``, row-parallel over this
     rank's heads."""
+    tp = tpar.heads_axis(tp)
     H, hd, D = params["wo"].shape
     flat = o.reshape(*o.shape[:-2], H * hd)
     if tp is not None:

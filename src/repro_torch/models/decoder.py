@@ -18,7 +18,8 @@ mesh's ``model`` axis, and the layers run tensor-parallel (the logits it
 returns are the rank's vocab rows): the dense family, and the MoE family
 with its leading dense layers, its experts (expert or intra-expert
 parallelism) and its shared expert.  The VLM family raises, naming its
-ROADMAP item, and is never silently replicated.
+ROADMAP item, and is never silently replicated (``model_api.loss_fn``
+checks the config before it calls a family's ``forward``).
 
 It also takes an optional ``dp`` (``dist.fsdp.DataAxis``, the ``shared``
 mode): the parameters are then also split over the client's ``data``
@@ -37,7 +38,6 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch import tree as T
 from repro_torch.configs.base import ArchConfig
 from repro_torch.dist import fsdp
-from repro_torch.dist import tensor_parallel as tpar
 from repro_torch.dist.sharding import decl, stack
 from repro_torch.models import attention as attn
 from repro_torch.models import kvcache as kvc
@@ -209,10 +209,6 @@ def forward(cfg: ArchConfig, params, batch, tp=None, dp=None):
     """Full-sequence forward -> (logits (B,S,V), aux_loss); with ``tp``
     the logits are this rank's (B, S, V / M) vocab rows; with ``dp`` the
     batch is this rank's rows of its client's, and so are the logits."""
-    if tp is not None:
-        tpar.check_supported(cfg, tp.size)
-    if dp is not None:
-        fsdp.check_supported(cfg)
     x = _embed_inputs(cfg, params, batch, tp, dp)
     positions = torch.arange(x.shape[1], dtype=torch.int32, device=x.device)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)

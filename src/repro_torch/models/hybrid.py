@@ -16,6 +16,23 @@ branch at T = 1 with ``chunk=1`` and the cached state (the WKV kernel in
 SSD form) and updates the cache in place.  Prefill keeps the window's
 keys at slots 0..W-1 while decode writes position ``pos`` to slot
 ``pos % W``, as the reference does (ROADMAP R3).
+
+``forward`` takes an optional ``tp`` (``dist.tensor_parallel.ModelAxis``)
+and ``dp`` (``dist.fsdp.DataAxis``), as ``decoder.forward`` does.  Where
+the heads split over the model axis, the attention takes the decoder's
+tensor-parallel forms and the SSM branch the same: ``in_w``, ``z_w``,
+``B_w``, ``C_w`` and ``dt_w`` column-parallel from the normed input (which
+crosses ``copy_to_model``), the rank's heads of ``dt_bias``, ``A_log``,
+``D_skip`` and ``gn_scale``, the scan on its heads, ``out_w``
+row-parallel.  The causal conv's ``conv_w``/``conv_b`` are declared on
+``embed``, not on heads, so they are whole on every model rank: the rank
+takes its heads' columns of them through ``copy_to_model``.  The two
+branches' outputs are each reduced over the axis before they are
+averaged, the single device's rounding points.  Where the heads stay
+whole (hymba-1.5b's 25 at M = 2 or 4) both branches run whole on every
+rank with no collective; the SwiGLU and the vocab split.  With ``dp`` each
+layer gathers its leaves' ``embed`` blocks inside the checkpointed
+function.
 """
 from __future__ import annotations
 
@@ -25,6 +42,8 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch import tree as T
 from repro_torch.configs.base import ArchConfig
+from repro_torch.dist import fsdp
+from repro_torch.dist import tensor_parallel as tpar
 from repro_torch.dist.sharding import decl, stack
 from repro_torch.models import attention as attn
 from repro_torch.models import kvcache as kvc
@@ -110,15 +129,24 @@ def _causal_conv(u_flat, w, b, conv_state=None):
     return out + b.to(u_flat.dtype), ext[:, -(CONV_W - 1):]
 
 
-def _ssm_branch(cfg, sp, h, s0=None, conv_state=None, chunk=None):
+def _ssm_branch(cfg, sp, h, s0=None, conv_state=None, chunk=None,
+                tp=None):
     """h: (B,S,D) normed input -> (out (B,S,D), new SSM state, new conv
-    state)."""
+    state).  With ``tp`` splitting the heads, ``sp``'s head leaves are the
+    rank's, and the conv's columns are taken for its heads."""
     B, S, D = h.shape
-    H, hd, N, Din = _dims(cfg)
+    hp = tpar.heads_axis(tp)
+    H, hd = sp["D_skip"].shape
+    Din = H * hd
+    conv_w, conv_b = sp["conv_w"], sp["conv_b"]
+    if hp is not None:
+        h = tpar.copy_to_model(h, hp)
+        conv_w, conv_b = (tpar.head_columns(tpar.copy_to_model(t, hp), hp)
+                          for t in (conv_w, conv_b))
     u = _proj(h, sp["in_w"])
     z = _proj(h, sp["z_w"])
-    uc, new_conv = _causal_conv(u.reshape(B, S, Din), sp["conv_w"],
-                                sp["conv_b"], conv_state)
+    uc, new_conv = _causal_conv(u.reshape(B, S, Din), conv_w, conv_b,
+                                conv_state)
     uc = F.silu(uc.float()).to(h.dtype).reshape(B, S, H, hd)
     Bt = _proj(h, sp["B_w"])
     Ct = _proj(h, sp["C_w"])
@@ -133,21 +161,26 @@ def _ssm_branch(cfg, sp, h, s0=None, conv_state=None, chunk=None):
     yf = yf * torch.rsqrt(yf.square().mean(dim=-1, keepdim=True) + 1e-5)
     yf = yf * sp["gn_scale"]
     y = yf.to(h.dtype) * F.silu(z.float()).to(h.dtype)
-    out = y.reshape(B, S, Din) @ sp["out_w"].reshape(Din, D)
+    y, out_w = y.reshape(B, S, Din), sp["out_w"].reshape(Din, D)
+    out = y @ out_w if hp is None else tpar.row_parallel(y, out_w, hp)
     return out, s_fin, new_conv
 
 
-def _apply_layer(cfg, lp, x, positions, cache=None):
+def _apply_layer(cfg, lp, x, positions, cache=None, tp=None, dp=None):
     """One layer; with ``cache`` (the layer's views of a serving cache:
     k, v (B,W,K,hd), ssm_S, conv) the last W keys and values and the SSM
-    and conv states are copied there (prefill)."""
+    and conv states are copied there (prefill).  With ``tp`` the layer's
+    parameters are the rank's blocks; with ``dp`` they are gathered on
+    ``data`` here, inside the function ``checkpoint`` wraps."""
+    lp = fsdp.whole(dp, lp, "layers", lead=1)
     h = rmsnorm(lp["ln1"], x, cfg.norm_eps)
-    q, k, v = attn.project_qkv(lp["attn"], h, positions, cfg.rope_theta)
+    q, k, v = attn.project_qkv(lp["attn"], h, positions, cfg.rope_theta,
+                               tp=tp)
     o = attn.attention(q, k, v, positions, positions, causal=True,
                        window=cfg.window, chunk=cfg.attn_chunk,
                        chunk_threshold=cfg.attn_chunk_threshold)
-    a_out = attn.project_out(lp["attn"], o)
-    s_out, s_fin, conv = _ssm_branch(cfg, lp["ssm"], h)
+    a_out = attn.project_out(lp["attn"], o, tp)
+    s_out, s_fin, conv = _ssm_branch(cfg, lp["ssm"], h, tp=tp)
     if cache is not None:
         W = cache["k"].shape[1]
         for key, t in (("k", k[:, -W:]), ("v", v[:, -W:]), ("ssm_S", s_fin),
@@ -155,7 +188,7 @@ def _apply_layer(cfg, lp, x, positions, cache=None):
             cache[key].copy_(t)
     x = x + 0.5 * (a_out + s_out)
     h2 = rmsnorm(lp["ln2"], x, cfg.norm_eps)
-    return x + swiglu(lp["mlp"], h2)
+    return x + swiglu(lp["mlp"], h2, tp)
 
 
 def _apply_layer_decode(cfg, lp, x, cache, kv_pos, pos, slot):
@@ -180,21 +213,27 @@ def _apply_layer_decode(cfg, lp, x, cache, kv_pos, pos, slot):
 _LAYER_KEYS = ("k", "v", "ssm_S", "conv")
 
 
-def forward(cfg: ArchConfig, params, batch):
-    """Full-sequence forward -> (logits (B,S,V), aux_loss)."""
-    x = embed_lookup(params["embed"], batch["tokens"])
+def forward(cfg: ArchConfig, params, batch, tp=None, dp=None):
+    """Full-sequence forward -> (logits (B,S,V), aux_loss); with ``tp``
+    the logits are this rank's (B, S, V / M) vocab rows; with ``dp`` the
+    batch is this rank's rows of its client's, and so are the logits."""
+    table = {"in_table": fsdp.whole(dp, params["embed"]["in_table"],
+                                    "embed/in_table")}
+    x = embed_lookup(table, batch["tokens"], tp)
     positions = torch.arange(x.shape[1], dtype=torch.int32, device=x.device)
     stacked = params["layers"]
     for i in range(cfg.n_layers):
         lp = T.tree_map(lambda a: a[i], stacked)
         if cfg.remat:
-            x = checkpoint(_apply_layer, cfg, lp, x, positions,
+            x = checkpoint(_apply_layer, cfg, lp, x, positions, None, tp, dp,
                            use_reentrant=False)
         else:
-            x = _apply_layer(cfg, lp, x, positions)
+            x = _apply_layer(cfg, lp, x, positions, tp=tp, dp=dp)
     x = rmsnorm(params["final_norm"], x, cfg.norm_eps)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    return logits_out(params["embed"], x), aux
+    table = {"out_table": fsdp.whole(dp, params["embed"]["out_table"],
+                                     "embed/out_table")}
+    return logits_out(table, x, tp), aux
 
 
 def prefill(cfg: ArchConfig, params, batch):

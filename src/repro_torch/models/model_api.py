@@ -15,6 +15,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.dist import fsdp
 from repro_torch.dist import sharding as shd
 from repro_torch.dist import tensor_parallel as tpar
 from repro_torch.models import decoder, encdec, hybrid, rwkv6
@@ -76,12 +77,17 @@ def loss_fn(cfg: ArchConfig, params, batch, tp=None, dp=None):
     auxiliary loss of the client's whole batch, which is equal on every
     data rank.  The client's loss is the mean of its data ranks' losses
     (the round step averages them), so the auxiliary term counts once in
-    it, and the gradients are that mean's (``dist.fsdp``)."""
-    if tp is None and dp is None:
-        logits, aux = get_model(cfg).forward(cfg, params, batch)
-        ce = cross_entropy(logits, batch["labels"])
-    else:               # decoder.forward raises for the other families
-        logits, aux = decoder.forward(cfg, params, batch, tp, dp)
-        ce = cross_entropy(logits, batch["labels"]) if tp is None else \
-            tpar.cross_entropy(logits, batch["labels"], tp)
+    it, and the gradients are that mean's (``dist.fsdp``).
+
+    The decoder's families, RWKV6 and Hymba take ``tp`` and ``dp``; the
+    encoder-decoder and VLM families raise, naming their ROADMAP item."""
+    if tp is not None:
+        tpar.check_supported(cfg, tp.size)
+    if dp is not None:
+        fsdp.check_supported(cfg)
+    fwd = get_model(cfg).forward
+    logits, aux = (fwd(cfg, params, batch) if tp is None and dp is None
+                   else fwd(cfg, params, batch, tp, dp))
+    ce = cross_entropy(logits, batch["labels"]) if tp is None else \
+        tpar.cross_entropy(logits, batch["labels"], tp)
     return ce + aux, {"ce": ce, "aux": aux}

@@ -13,6 +13,22 @@ activations ``x_tm``/``x_cm`` (in the activations' dtype).  ``prefill``
 returns it; ``decode_step`` runs the layer on one token with
 ``chunk=1`` and the cached state (the WKV kernel at T = 1 with ``s0``),
 and writes the new state into the cache in place.
+
+``forward`` takes an optional ``tp`` (``dist.tensor_parallel.ModelAxis``)
+and ``dp`` (``dist.fsdp.DataAxis``), as ``decoder.forward`` does.  On the
+model axis the token shift, the ddlerp and the decay ``w0 + mw`` (f32)
+run whole on every rank; each stream that leaves them for the rank's
+heads (``mr``, ``mk``, ``mv``, ``mg`` and the whole decay, before the
+rank takes its heads' columns) crosses ``copy_to_model`` once, so ``mu``,
+``lora_A``/``lora_B``, ``w0`` and ``ln1`` get their whole gradient on
+every rank.  r/k/v/g are column-parallel, the WKV kernel runs on the
+rank's heads with their block of ``u``, the groupnorm is local and ``wo``
+row-parallel.  The channel mix is ``swiglu``'s form with ``cm.wr``'s
+output columns split (declared (embed, mlp)): the rank's columns of the
+gate are gathered before ``rr * kv``.  Where the heads stay whole the time
+mix runs its plain code on every rank.  With ``dp`` each layer gathers
+its leaves' ``embed`` blocks inside the checkpointed function, as the
+decoder's layers do.
 """
 from __future__ import annotations
 
@@ -21,6 +37,8 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch import tree as T
 from repro_torch.configs.base import ArchConfig
+from repro_torch.dist import fsdp
+from repro_torch.dist import tensor_parallel as tpar
 from repro_torch.dist.sharding import decl, stack
 from repro_torch.models import linear_attn as la
 from repro_torch.models.layers import (embed_decl, embed_lookup, layernorm,
@@ -118,18 +136,24 @@ def _ddlerp(tm, x, xx):
     return [mixed[:, :, i] for i in range(5)]
 
 
-def _time_mix(cfg, tm, x, x_prev=None, s0=None, chunk=None):
-    """x: (B,S,D) -> (out (B,S,D), new x_prev (B,D), new state)."""
+def _time_mix(cfg, tm, x, x_prev=None, s0=None, chunk=None, tp=None):
+    """x: (B,S,D) -> (out (B,S,D), new x_prev (B,D), new state).  With
+    ``tp`` splitting the heads, ``tm``'s head leaves are the rank's."""
     B, S, D = x.shape
-    H, hd = _heads(cfg)
+    hp = tpar.heads_axis(tp)
+    H, hd = tm["u"].shape
     xx = _shift(x, x_prev)
     mr, mk, mv, mw, mg = _ddlerp(tm, x, xx)
+    # decay: w_log <= 0 always (the chunked form relies on this)
+    ww = tm["w0"].float() + mw.float()
+    if hp is not None:          # the streams into the rank's heads
+        mr, mk, mv, mg = (tpar.copy_to_model(m, hp)
+                          for m in (mr, mk, mv, mg))
+        ww = tpar.head_columns(tpar.copy_to_model(ww, hp), hp)
     r = _proj(mr, tm["wr"])
     k = _proj(mk, tm["wk"])
     v = _proj(mv, tm["wv"])
     g = torch.nn.functional.silu(_proj(mg, tm["wg"]).float()).to(x.dtype)
-    # decay: w_log <= 0 always (the chunked form relies on this)
-    ww = tm["w0"].float() + mw.float()
     w_log = -torch.exp(torch.clamp(ww, -12.0, 6.0)).reshape(B, S, H, hd)
 
     o, s_fin = la.linear_attention(r, k, v, w_log, u=tm["u"], s0=s0,
@@ -141,48 +165,65 @@ def _time_mix(cfg, tm, x, x_prev=None, s0=None, chunk=None):
     of = (of - mean) * torch.rsqrt(var + 1e-5)
     of = of * tm["gn_scale"] + tm["gn_bias"]
     y = (of.to(x.dtype) * g).reshape(B, S, H * hd)
-    return y @ tm["wo"].reshape(H * hd, D), x[:, -1], s_fin
+    wo = tm["wo"].reshape(H * hd, D)
+    out = y @ wo if hp is None else tpar.row_parallel(y, wo, hp)
+    return out, x[:, -1], s_fin
 
 
-def _channel_mix(cm, x, x_prev=None):
+def _channel_mix(cm, x, x_prev=None, tp=None):
+    """With ``tp``: ``cm.wk`` column-parallel, ``cm.wv`` row-parallel, and
+    the rank's columns of the gate ``cm.wr`` gathered whole."""
     xx = _shift(x, x_prev)
     mk = cm["mu_k"].to(x.dtype)
     mr = cm["mu_r"].to(x.dtype)
     xk = x + (xx - x) * mk
     xr = x + (xx - x) * mr
+    if tp is not None:
+        xk, xr = tpar.copy_to_model(xk, tp), tpar.copy_to_model(xr, tp)
     k = xk @ cm["wk"]
     k = torch.square(torch.relu(k.float())).to(x.dtype)
-    kv = k @ cm["wv"]
     rr = torch.sigmoid((xr @ cm["wr"]).float()).to(x.dtype)
-    return rr * kv, x[:, -1]
+    if tp is None:
+        return rr * (k @ cm["wv"]), x[:, -1]
+    kv = tpar.row_parallel(k, cm["wv"], tp)
+    return tpar.gather_from_model(rr, tp, -1) * kv, x[:, -1]
 
 
-def _apply_layer(cfg, lp, x, state=None, chunk=None):
+def _apply_layer(cfg, lp, x, state=None, chunk=None, tp=None, dp=None):
     """state: (S, x_tm, x_cm) of the layer, or None (from scratch).
-    Returns (x, new state)."""
+    Returns (x, new state).  With ``dp`` the layer's leaves are gathered
+    on ``data`` here, inside the function ``checkpoint`` wraps."""
+    lp = fsdp.whole(dp, lp, "layers", lead=1)
     s0, xp_tm, xp_cm = state if state is not None else (None, None, None)
     tm_out, new_xtm, new_s = _time_mix(
         cfg, lp["tm"], layernorm(lp["ln1"], x, cfg.norm_eps), xp_tm, s0,
-        chunk)
+        chunk, tp)
     x = x + tm_out
     cm_out, new_xcm = _channel_mix(
-        lp["cm"], layernorm(lp["ln2"], x, cfg.norm_eps), xp_cm)
+        lp["cm"], layernorm(lp["ln2"], x, cfg.norm_eps), xp_cm, tp)
     return x + cm_out, (new_s, new_xtm, new_xcm)
 
 
-def forward(cfg: ArchConfig, params, batch):
-    """Full-sequence forward -> (logits (B,S,V), aux_loss)."""
-    x = embed_lookup(params["embed"], batch["tokens"])
+def forward(cfg: ArchConfig, params, batch, tp=None, dp=None):
+    """Full-sequence forward -> (logits (B,S,V), aux_loss); with ``tp``
+    the logits are this rank's (B, S, V / M) vocab rows; with ``dp`` the
+    batch is this rank's rows of its client's, and so are the logits."""
+    table = {"in_table": fsdp.whole(dp, params["embed"]["in_table"],
+                                    "embed/in_table")}
+    x = embed_lookup(table, batch["tokens"], tp)
     stacked = params["layers"]
     for i in range(cfg.n_layers):
         lp = T.tree_map(lambda a: a[i], stacked)
         if cfg.remat:
-            x = checkpoint(_apply_layer, cfg, lp, x, use_reentrant=False)[0]
+            x = checkpoint(_apply_layer, cfg, lp, x, None, None, tp, dp,
+                           use_reentrant=False)[0]
         else:
-            x = _apply_layer(cfg, lp, x)[0]
+            x = _apply_layer(cfg, lp, x, tp=tp, dp=dp)[0]
     x = layernorm(params["final_norm"], x, cfg.norm_eps)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    return logits_out(params["embed"], x), aux
+    table = {"out_table": fsdp.whole(dp, params["embed"]["out_table"],
+                                     "embed/out_table")}
+    return logits_out(table, x, tp), aux
 
 
 def prefill(cfg: ArchConfig, params, batch):

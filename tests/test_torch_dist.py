@@ -147,8 +147,8 @@ def test_model_axis_and_pods_raise():
         mesh_lib.check_axes(1, pods=-1)
     with pytest.raises(ValueError, match="model axis of 0"):
         mesh_lib.init_mesh(4, 0, rank=0, device="cpu")
-    with pytest.raises(NotImplementedError, match="5b"):
-        train.main(["--device", "cpu", "--smoke", "--arch", "rwkv6-7b",
+    with pytest.raises(NotImplementedError, match="5b-vii"):
+        train.main(["--device", "cpu", "--smoke", "--arch", "whisper-small",
                     "--model-mesh", "2"])
 
 
@@ -186,10 +186,10 @@ def test_shared_mode_on_ranks_raises():
                 assert torch.equal(a, shd.local_block(b, s, sizes, r))
     assert callable(fl_step.build_fl_round_step(cfg, mesh,
                                                 R.schedule("flat")))
-    rwkv = smoke_config(get_arch("rwkv6-7b"))
-    rwkv = rwkv.replace(fl=dataclasses.replace(rwkv.fl, mode="shared"))
-    with pytest.raises(NotImplementedError, match="5b-iv"):
-        fl_step.init_state(rwkv, _fake_mesh(sizes, 0), 0)
+    vlm = smoke_config(get_arch("internvl2-2b"))
+    vlm = vlm.replace(fl=dataclasses.replace(vlm.fl, mode="shared"))
+    with pytest.raises(NotImplementedError, match="5b-vii"):
+        fl_step.init_state(vlm, _fake_mesh(sizes, 0), 0)
 
 
 def test_cuda_mesh_never_drops_to_gloo():

@@ -538,8 +538,9 @@ def _fake_mesh(D, M, rank=0):
 
 # the MoE configs run on a model axis in replica mode (the trainer's CLI
 # mode) and, since item 5b-iii, in their declared shared mode (a mesh
-# without pods: one client, FSDP over data and TP over model); the other
-# families still raise
+# without pods: one client, FSDP over data and TP over model); RWKV6 and
+# Hymba run there in their declared replica mode since item 5b-iv
+# (tests/test_torch_linear_tp.py); encoder-decoder and VLM still raise
 @pytest.mark.parametrize("arch,item,mode", [
     ("mixtral-8x22b", "5b-iii", "shared"),
     ("kimi-k2-1t-a32b", "5b-iii", "shared"),
@@ -548,15 +549,20 @@ def _fake_mesh(D, M, rank=0):
     ("internvl2-2b", "5b-vii", "replica")])
 def test_other_families_on_model_axis_raise(arch, item, mode):
     cfg = _with(arch, mode, optimizer="adamw")
-    if mode == "shared":
+    if item in ("5b-iii", "5b-iv"):
         sizes = {"data": 2, "model": 2}
         for r in range(4):
             got = fl_step.init_state(cfg, _grid(2, 2, r), 0)["params"]
             want = fl_step.abstract_state(cfg, _grid(2, 2, r))["params"]
             assert [t.shape for t in T.leaves(got)] == [
                 t.shape for t in T.leaves(want)]
-        assert fl_step.param_specs(cfg, sizes)["layers"]["moe"][
-            "w_gate"] == (None, "model", "data", None)
+        layer = fl_step.param_specs(cfg, sizes)["layers"]
+        if mode == "shared":
+            assert layer["moe"]["w_gate"] == (None, "model", "data", None)
+        else:                       # the clients on data, the heads split
+            heads = layer["tm"]["wr"] if "tm" in layer else \
+                layer["ssm"]["in_w"]
+            assert heads == ("data", None, None, "model", None)
         assert callable(fl_step.build_fl_round_step(
             cfg, _fake_mesh(2, 2), R.schedule("flat", 2)))
         return
@@ -584,8 +590,8 @@ def test_adafactor_shared_mode_and_pods_on_model_axis_raise():
                                                 R.schedule("flat", 2)))
     assert fl_step.data_axis_for(shared, _fake_mesh(2, 2)).size == 2
     assert mesh_lib.check_axes(2, pods=2) is None
-    with pytest.raises(NotImplementedError, match="5b-iv"):
-        train.main(["--device", "cpu", "--smoke", "--arch", "rwkv6-7b",
+    with pytest.raises(NotImplementedError, match="5b-vii"):
+        train.main(["--device", "cpu", "--smoke", "--arch", "whisper-small",
                     "--model-mesh", "2"])
 
 

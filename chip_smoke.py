@@ -55,8 +55,15 @@ whole on every rank) at one layer on (2, 2) against the single-card K = 2
 rounds, and both at all 32 layers over four cards; in shared mode both at
 one layer on (2, 2, 1) and rwkv6-7b on (1, 2, 2).  On one card the rank
 path also runs mixtral-8x22b under Adafactor against the single-card K = 1
-trainer, bit for bit.
-Each phase prints JSON lines; then one line lists every kernel, one line
+trainer, bit for bit.  Last, ``phase_serve_tp`` serves on ranks: on one
+card each family's engine at one layer on a (1, 1) mesh against the plain
+engine, bit for bit; on four, qwen2-7b (its cache split on its sequence
+and on its kv heads), rwkv6-7b, hymba-1.5b and (on (2, 2), shared mode)
+mixtral-8x22b at one layer on (1, 4) and (2, 2) against the single card,
+teacher-forced, and mixtral-8x22b at all 56 layers, qwen2-7b at 28 (also
+at a 32 768-token context) and rwkv6-7b at 32 served on (1, 4).
+Each phase prints JSON lines, and a ``walls`` line gives each phase's
+wall time in seconds; then one line lists every kernel, one line
 gives the card's name and power limit as nvidia-smi reports them, and the
 last line is ``{"ok": true, "device": ...}``.  Any failure raises and
 exits non-zero; nothing runs on the CPU but the strategies' references.
@@ -1272,6 +1279,9 @@ SERVE_FLASH_CASES = [  # name, B, Sq, Sk, H, Kv, hd, causal, window
     ("whisper_decode_cross", 4, 1, 1500, 12, 12, 64, False, None),
     ("internvl2_b1", 1, 2048, 2048, 16, 8, 128, True, None),
     ("internvl2", 4, 2048, 2048, 16, 8, 128, True, None),
+    # a rank's heads when serving on a model axis of 4 (phase_serve_tp)
+    ("qwen2_rank4", 4, 2048, 2048, 7, 1, 128, True, None),
+    ("mixtral_rank4", 4, 2048, 2048, 12, 2, 128, True, 4096),
 ]
 SERVE_WKV_CASES = [
     ("decode_rwkv6", 4, 1, 64, 64, 64, 1, True, False, True, "bfloat16"),
@@ -1279,6 +1289,11 @@ SERVE_WKV_CASES = [
     ("prefill_rwkv6", 4, 2048, 64, 64, 64, 128, True, False, False,
      "bfloat16"),
     ("prefill_hymba", 4, 2048, 25, 16, 64, 128, False, True, False,
+     "bfloat16"),
+    # rwkv6-7b's 16 heads a rank on a model axis of 4 (phase_serve_tp)
+    ("decode_rwkv6_rank4", 4, 1, 16, 64, 64, 1, True, False, True,
+     "bfloat16"),
+    ("prefill_rwkv6_rank4", 4, 2048, 16, 64, 64, 128, True, False, False,
      "bfloat16"),
 ]
 
@@ -1377,8 +1392,9 @@ def _serve_check(torch, dev, cfg, params, params32, prompt, layouts,
                  fault=None, extra=None):
     """One request through prefill on the card (with the frontend inputs
     in ``extra``, if any), then one decode step from each cache layout in
-    ``layouts`` ({name: fn(cache, S) -> cache}, each given its own copy of
-    the prefilled cache).  -> {"prefill": prefill's
+    ``layouts`` ({name: fn(prefill, S) -> cache}, where ``prefill(slots)``
+    prefills a cache of its own, of ``slots`` slots or by default the
+    prefill's own).  -> {"prefill": prefill's
     logits against bf16 ``forward`` over the same S tokens, "noise": bf16
     ``forward`` over S + 1 tokens against the f32 one at position S,
     "decode": {name: the step against the f32 ``forward``}, "held": every
@@ -1389,7 +1405,8 @@ def _serve_check(torch, dev, cfg, params, params32, prompt, layouts,
         toks = torch.from_numpy(prompt[None].astype("int32")).to(dev)
         S = toks.shape[1]
         extra = extra or {}
-        plog, cache = mod.prefill(cfg, params, {"tokens": toks, **extra})
+        plog = mod.prefill(cfg, params, {"tokens": toks, **extra})[0]
+        prefill = _prefiller(mod, cfg, params, {"tokens": toks, **extra})
         flog = mod.forward(cfg, params, {"tokens": toks, **extra})[0][:, -1]
         pre = _logit_err(torch, plog, flog)
         del flog
@@ -1398,10 +1415,9 @@ def _serve_check(torch, dev, cfg, params, params32, prompt, layouts,
                                                  device=dev)}
         decoded = {}
         for name, fn in layouts.items():
-            copy = fn({k: v.clone() for k, v in cache.items()}, S)
-            decoded[name] = mod.decode_step(cfg, params, copy, batch)[0]
-            del copy
-        del cache
+            cache = fn(prefill, S)
+            decoded[name] = mod.decode_step(cfg, params, cache, batch)[0]
+            del cache
         ext = {"tokens": torch.cat([toks, tok], dim=1), **extra}
         f16 = mod.forward(cfg, params, ext)[0][:, -1]
         f32 = mod.forward(cfg, params32, ext)[0][:, -1]
@@ -1423,28 +1439,41 @@ def _fault_size(torch, dev, cfg, params32, prompt, fixed):
     with torch.inference_mode():
         toks = torch.from_numpy(prompt[None].astype("int32")).to(dev)
         S = toks.shape[1]
-        plog, cache = mod.prefill(cfg, params32, {"tokens": toks})
+        plog = mod.prefill(cfg, params32, {"tokens": toks})[0]
+        prefill = _prefiller(mod, cfg, params32, {"tokens": toks})
         batch = {"token": plog.argmax(-1).to(torch.int32)[:, None],
                  "pos": torch.full((1,), S, dtype=torch.int32, device=dev)}
-        steps = [mod.decode_step(cfg, params32, fn(
-            {k: v.clone() for k, v in cache.items()}, S), batch)[0]
-            for fn in (_as_is, fixed)]
+        steps = [mod.decode_step(cfg, params32, fn(prefill, S), batch)[0]
+                 for fn in (_as_is, fixed)]
     return _logit_err(torch, *steps)
 
 
-def _as_is(cache, S):
-    return cache
-
-
-def _padded(cache, S):
+def _prefiller(mod, cfg, params, batch):
+    """-> ``prefill(slots=None)``: a new prefilled cache of ``batch``, of
+    ``slots`` slots (the layout ``whole``) or by default the family's own
+    length."""
     from repro_torch.models import kvcache as kvc
-    return kvc.pad_cache(cache, S + 2)
+
+    def prefill(slots=None):
+        lay = None if slots is None else kvc.CacheLayout("whole", slots)
+        return mod.prefill(cfg, params, batch, layout=lay)[1]
+    return prefill
 
 
-def _ring(cache, S):
+def _as_is(prefill, S):
+    return prefill()
+
+
+def _padded(prefill, S):
+    """Room for the step: a full-attention cache as the engine sizes it."""
+    return prefill(S + 2)
+
+
+def _ring(prefill, S):
     """A windowed prefill cache laid out as decode's ring expects it:
     position p at slot p % W (prefill keeps position S - W + i at slot i,
     R3)."""
+    cache = prefill()
     W = cache["k"].shape[2]
     out = dict(cache)
     for key, dim in (("k", 2), ("v", 2), ("kv_pos", 1)):
@@ -1459,26 +1488,18 @@ def _profile_decode(torch, dev, engine, prompts):
     import numpy as np
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity
-    from repro_torch.models import kvcache as kvc
-    cfg, mod = engine.cfg, engine.model
     B = len(prompts)
     S = max(len(p) for p in prompts)
     toks = np.zeros((B, S), np.int32)
     for i, p in enumerate(prompts):
         toks[i, S - len(p):] = p
     with torch.inference_mode():
-        logits, cache = mod.prefill(cfg, engine.params,
-                                    {"tokens": torch.from_numpy(toks).to(dev),
-                                     **engine._extra_inputs(B, S)})
-        if cfg.window is None and cfg.family != "rwkv":
-            cache = kvc.pad_cache(cache, S + SERVE_PROFILE_STEPS + 2)
+        logits, cache = engine.prefill(toks, SERVE_PROFILE_STEPS + 1)
         cur = logits.argmax(-1).to(torch.int32)
 
         def step(i):
-            pos = torch.full((B,), S + i, dtype=torch.int32, device=dev)
-            return mod.decode_step(cfg, engine.params, cache,
-                                   {"token": cur[:, None], "pos": pos})[0] \
-                .argmax(-1).to(torch.int32)
+            return engine.decode(cache, cur, S + i).argmax(-1).to(
+                torch.int32)
         cur = step(0)                                   # warm
         torch.cuda.synchronize()
         with torch.profiler.profile(activities=[ProfilerActivity.CPU,
@@ -2858,6 +2879,406 @@ def phase_shared(torch, dev) -> dict:
     return launches
 
 
+# --------------------------------------------------------------------------
+# serving on the model and data axes: one engine a rank, NCCL between them
+# --------------------------------------------------------------------------
+
+# leg (i) ``serve_tp_agree``: at one layer, each case's batch (prompt
+# lengths from the seed's tokens; SERVE_MAX_NEW teacher-forced steps) on
+# the ranks against the single card's engine on card 0's weights, as the
+# cache layout named beside it: a full-attention cache of S + 33 slots
+# splits on its sequence where that divides M, else on qwen2-7b's 4 kv
+# heads; hymba-1.5b's window ring (min(1024, S) slots) on its sequence
+# (R3 holds at 2048 and shows at 1800), whole at 1001; mixtral-8x22b's
+# unpadded windowed cache (R4) in its declared shared mode
+SERVE_TP_AGREE = {
+    (1, 4): [("qwen2-7b", (2047, 2047, 1900, 1536), "seq"),
+             ("qwen2-7b", (2048, 2048, 1700, 2048), "heads"),
+             ("rwkv6-7b", (2048, 2048, 1800, 1536), None),
+             ("hymba-1.5b", (2048, 2048, 2048, 2048), "seq"),
+             ("hymba-1.5b", (1800, 1800, 1536, 1800), "seq"),
+             ("hymba-1.5b", (1001, 1001, 900, 1001), "whole")],
+    (2, 2): [("qwen2-7b", (2047, 2047, 1900, 1536), "seq"),
+             ("qwen2-7b", (2048, 2048, 1700, 2048), "heads"),
+             ("mixtral-8x22b", (2048, 2048, 1900, 2048), "seq"),
+             ("rwkv6-7b", (2048, 2048, 1800, 1536), None),
+             ("hymba-1.5b", (1800, 1800, 1536, 1800), "seq")]}
+# leg (j) ``serve_tp_time`` on (1, 4): the serving cells' traffic (8
+# requests at batch 4, prompts of 1536-2048 tokens, 32 new) at full depth,
+# and qwen2-7b at the reference's decode_32k context (one batch of 4
+# prompts of 32 768 tokens; 32 800 slots, which 4 divides: seq-split):
+# (arch, layers, prompt lengths, requests, max_seq)
+SERVE_TP_TIME = [("mixtral-8x22b", 56, SERVE_PROMPT, SERVE_REQUESTS, None),
+                 ("qwen2-7b", 28, SERVE_PROMPT, SERVE_REQUESTS, None),
+                 ("rwkv6-7b", 32, SERVE_PROMPT, SERVE_REQUESTS, None),
+                 ("qwen2-7b", 28, (32768, 32768), SERVE_BATCH, 32800)]
+SERVE_TP_TIMEOUT_S = 900
+
+
+def _nodrop(cfg):
+    """An MoE config at a capacity factor of E / top_k: no assignment is
+    dropped at prefill, so the single card's bf16 and f32 runs and the
+    ranks' route every token alike (a drop is a discontinuity the logits'
+    yardstick cannot measure)."""
+    import dataclasses
+    if cfg.moe is None:
+        return cfg
+    return cfg.replace(moe=dataclasses.replace(
+        cfg.moe, capacity_factor=cfg.moe.n_experts / cfg.moe.top_k))
+
+
+def _forced(torch, engine, toks, tokens):
+    """Prefill ``toks`` (B, S), then one decode step a column of
+    ``tokens`` (B, n) (None: greedy) -> (the logits of the engine's rows,
+    (n + 1, b, V) f32 on its card; the tokens fed)."""
+    B, S = toks.shape
+    n = SERVE_MAX_NEW if tokens is None else tokens.shape[1]
+    rows = engine.rows(B)
+    logits, cache = engine.prefill(toks, n)
+    out, fed = [logits.float()], []
+    for j in range(n):
+        cur = out[-1].argmax(-1) if tokens is None else \
+            torch.from_numpy(tokens[rows, j]).to(engine.device)
+        fed.append(cur)
+        out.append(engine.decode(cache, cur, S + j).float())
+    del cache
+    return torch.stack(out), torch.stack(fed, dim=1).cpu().numpy()
+
+
+def _serve_tp_agree(torch, mesh) -> list:
+    """Leg (i) on this rank: each ``SERVE_TP_AGREE`` case of its mesh at
+    one layer.  The single card's engine runs bf16 weights from the seed
+    greedily (rank 0's tokens are every rank's), then bf16 and f32 copies
+    teacher-forced on those tokens; the rank's engine, on its blocks of
+    the same weights (``init_params(..., mesh=)``), runs teacher-forced
+    with the launch counters set to 0 just before and read just after.
+    Each of the rank's logit rows, prefill and every step, is held against
+    the f32 single card's: its relative L2 distance at most
+    SERVE_NOISE_FACTOR times the bf16 single card's own."""
+    import numpy as np
+    from repro_torch import tree as T
+    from repro_torch.configs.base import get_arch
+    from repro_torch.models import model_api
+    from repro_torch.serve.engine import ServeEngine
+
+    dev, out = mesh.device, []
+    shape = (mesh.shape["data"], mesh.shape["model"])
+    for i, (arch, lens, kind) in enumerate(SERVE_TP_AGREE[shape]):
+        cfg = _nodrop(get_arch(arch).replace(n_layers=1))
+        rng = np.random.default_rng(100 + i)
+        toks = np.zeros((len(lens), max(lens)), np.int32)
+        for r, n in enumerate(lens):
+            toks[r, toks.shape[1] - n:] = rng.integers(0, cfg.vocab, n)
+        max_seq = toks.shape[1] + SERVE_MAX_NEW + 1
+        gc.collect()
+        torch.cuda.empty_cache()
+        params = model_api.init_params(cfg, 0, dev)
+        single = ServeEngine(cfg, params, batch_size=len(lens),
+                             max_seq=max_seq, device=dev)
+        bf16, tokens = _forced(torch, single, toks, None)
+        tokens = mesh.broadcast(tokens)
+        bf16 = _forced(torch, single, toks, tokens)[0]
+        params32 = T.tree_map(lambda t: t.float(), params)
+        del params, single
+        f32 = _forced(torch, ServeEngine(cfg, params32, batch_size=len(lens),
+                                         max_seq=max_seq, device=dev),
+                      toks, tokens)[0]
+        del params32
+        gc.collect()
+        torch.cuda.empty_cache()
+        engine = ServeEngine(cfg, model_api.init_params(cfg, 0, dev,
+                                                        mesh=mesh),
+                             batch_size=len(lens), max_seq=max_seq,
+                             mesh=mesh)
+        reset_launches()
+        got = _forced(torch, engine, toks, tokens)[0]
+        torch.cuda.synchronize(dev)
+        launches = read_launches(("flash_fwd", "wkv6", "ssm_scan"))
+        rows = engine.rows(len(lens))
+        want, noise = f32[:, rows], bf16[:, rows]
+        dist = lambda a: ((a - want).norm(dim=-1)
+                          / want.norm(dim=-1)).cpu().numpy()
+        err, ref = dist(got), dist(noise)
+        L = cfg.n_layers
+        flash = L if cfg.family != "rwkv" and max(lens) \
+            > cfg.attn_chunk_threshold else 0
+        scans = L * (1 + SERVE_MAX_NEW)
+        out.append({
+            "arch": arch, "mode": cfg.fl.mode, "prompt_lens": list(lens),
+            "layout": None if engine.layout is None else engine.layout.kind,
+            "layout_wanted": kind, "rows": [rows.start, rows.stop],
+            "max_rel_l2": float(err.max()),
+            "bf16_single_card_rel_l2_max": float(ref.max()),
+            "max_ratio": float((err / ref).max()),
+            "held": bool((err <= SERVE_NOISE_FACTOR * ref).all()),
+            "argmax_equal_share": float((got.argmax(-1) == want.argmax(-1))
+                                        .float().mean()),
+            "launches": launches,
+            "launches_wanted": {
+                "flash_fwd": flash,
+                "wkv6": scans if cfg.family == "rwkv" else 0,
+                "ssm_scan": scans if cfg.family == "hybrid" else 0}})
+        del engine, got, bf16, f32, want, noise
+    return out
+
+
+def _serve_tp_time(torch, mesh, arch, n_layers, lens, n_requests,
+                   max_seq) -> dict:
+    """Leg (j) on this rank: ``n_requests`` prompts of ``lens`` tokens (from
+    the seed) through the rank's engine, SERVE_MAX_NEW new tokens each, at
+    batch SERVE_BATCH: TTFT and decode time a batch, the model group's
+    collectives (CUDA event pairs), the peak, the cache a rank holds
+    beside the single card's (from the decls), and the launches.  The
+    peak is read twice: after init (each stacked leaf drawn a layer at a
+    time) and over the serving alone."""
+    import numpy as np
+    from repro_torch import tree as T
+    from repro_torch.configs.base import get_arch
+    from repro_torch.dist import sharding as shd
+    from repro_torch.models import kvcache as kvc
+    from repro_torch.models import model_api
+    from repro_torch.serve.engine import ServeEngine
+
+    dev = mesh.device
+    cfg = get_arch(arch).replace(n_layers=n_layers)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    params = model_api.init_params(cfg, 0, dev, mesh=mesh)
+    torch.cuda.synchronize(dev)
+    init_s = time.perf_counter() - t0
+    init_peak = torch.cuda.max_memory_allocated(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    nbytes = lambda t: t.numel() * t.element_size()
+    weight_bytes = sum(nbytes(t) for t in T.leaves(params))
+    rng = np.random.default_rng(0)
+    sizes = rng.integers(lens[0], lens[1] + 1, n_requests)
+    prompts = [rng.integers(0, cfg.vocab, int(n)).astype(np.int32)
+               for n in sizes]
+    max_seq = max_seq or lens[1] + SERVE_MAX_NEW + 1
+    engine = ServeEngine(cfg, params, batch_size=SERVE_BATCH,
+                         max_seq=max_seq, mesh=mesh)
+    engine.tp.events = []
+    reset_launches()
+    batches = []
+    for b in range(0, n_requests, SERVE_BATCH):
+        before = dict(engine.stats)
+        for p in prompts[b:b + SERVE_BATCH]:
+            engine.submit(p, SERVE_MAX_NEW)
+        done = engine.run()
+        S = max(len(p) for p in prompts[b:b + SERVE_BATCH])
+        decls = engine.model.cache_decl(cfg, SERVE_BATCH, max(
+            kvc.serve_cache_len(cfg, S, SERVE_MAX_NEW, max_seq), 1))
+        specs = T.leaves(kvc.cache_specs(cfg, decls, mesh))
+        batches.append({
+            "S": S, "layout": (None if engine.layout is None
+                               else engine.layout.kind),
+            "tokens_out": sum(len(r.out) for r in done),
+            **{k: engine.stats[k] - before[k] for k in
+               ("prefill_tokens", "prefill_s", "decode_steps", "decode_s")},
+            "cache_bytes_rank": sum(
+                d.dtype.itemsize * shd.local_block(
+                    torch.empty(d.shape, device="meta"), s, mesh).numel()
+                for d, s in zip(T.leaves(decls), specs)),
+            "cache_bytes_single_card": sum(d.dtype.itemsize * d.size
+                                           for d in T.leaves(decls))})
+    torch.cuda.synchronize(dev)
+    launches = read_launches(("flash_fwd", "wkv6", "ssm_scan"))
+    coll_ms = sum(s.elapsed_time(e) for s, e in engine.tp.events)
+    st = engine.stats
+    decode_ms = st["decode_s"] / st["decode_steps"] * 1e3
+    cache_rank = max(b["cache_bytes_rank"] for b in batches)
+    L, B = cfg.n_layers, len(batches)
+    scans = L * (1 + SERVE_MAX_NEW) * B
+    return {"arch": arch, "n_layers": L, "mesh": mesh.shape,
+            "reduced": [] if L == get_arch(arch).n_layers
+            else [f"depth {L} of {get_arch(arch).n_layers}"],
+            "requests": n_requests, "batch": SERVE_BATCH,
+            "max_new": SERVE_MAX_NEW, "max_seq": max_seq,
+            "prompt_lens": [int(n) for n in sizes],
+            "params_rank": sum(t.numel() for t in T.leaves(params)),
+            "weight_bytes_rank": weight_bytes, "init_s": init_s,
+            "init_peak": init_peak, "batches": batches,
+            "ttft_s_per_batch": [b["prefill_s"] for b in batches],
+            "prefill_tokens_s": st["prefill_tokens"] / st["prefill_s"],
+            "decode_ms_per_step": decode_ms,
+            "decode_ms_per_step_per_batch": [
+                b["decode_s"] / b["decode_steps"] * 1e3 for b in batches],
+            "decode_tokens_s": SERVE_BATCH * st["decode_steps"]
+            / st["decode_s"],
+            "decode_read_bytes_rank": weight_bytes + cache_rank,
+            "decode_bound_ms": (weight_bytes + cache_rank) / PEAK_BYTES_S
+            * 1e3,
+            "model_collectives_ms": coll_ms,
+            "model_collectives": len(engine.tp.events),
+            "peak": torch.cuda.max_memory_allocated(dev),
+            "launches": launches,
+            "launches_wanted": {
+                "flash_fwd": L * B if cfg.family != "rwkv" else 0,
+                "wkv6": scans if cfg.family == "rwkv" else 0,
+                "ssm_scan": scans if cfg.family == "hybrid" else 0}}
+
+
+def _serve_world1(torch, mesh) -> list:
+    """The one-card leg on a (1, 1) mesh: each family's engine at one layer
+    and published widths, the parameters through ``init_params(...,
+    mesh=)`` and the engine on the mesh, against the plain parameters and
+    engine: the weights, each step's logits and the tokens bit for bit,
+    and the mesh engine's launches."""
+    import numpy as np
+    from repro_torch import tree as T
+    from repro_torch.configs.base import get_arch
+    from repro_torch.models import model_api
+    from repro_torch.serve.engine import ServeEngine
+
+    dev, out = mesh.device, []
+    rng = np.random.default_rng(7)
+    for arch in ("qwen2-7b", "mixtral-8x22b", "rwkv6-7b", "hymba-1.5b"):
+        cfg = get_arch(arch).replace(n_layers=1)
+        toks = rng.integers(0, cfg.vocab, (SERVE_BATCH, 1800)) \
+            .astype(np.int32)
+        gc.collect()
+        torch.cuda.empty_cache()
+        runs = []
+        for on_mesh in (True, False):
+            params = model_api.init_params(cfg, 0, dev,
+                                           mesh=mesh if on_mesh else None)
+            engine = ServeEngine(cfg, params, batch_size=SERVE_BATCH,
+                                 max_seq=1800 + SERVE_MAX_NEW + 1,
+                                 mesh=mesh if on_mesh else None, device=dev)
+            reset_launches()
+            logits, tokens = _forced(torch, engine, toks, None)
+            torch.cuda.synchronize(dev)
+            runs.append((T.leaves(params), logits, tokens,
+                         read_launches(("flash_fwd", "wkv6", "ssm_scan"))))
+            del engine
+        (pm, lm, tm, launches), (pp, lp, tp_, _) = runs
+        scans = 1 + SERVE_MAX_NEW
+        out.append({"arch": arch, "n_layers": 1, "batch": SERVE_BATCH,
+                    "prompt_len": 1800, "max_new": SERVE_MAX_NEW,
+                    "params_equal": all(torch.equal(a, b)
+                                        for a, b in zip(pm, pp)),
+                    "logits_equal": bool(torch.equal(lm, lp)),
+                    "tokens_equal": bool((tm == tp_).all()),
+                    "launches": launches,
+                    "launches_wanted": {
+                        "flash_fwd": 0 if cfg.family == "rwkv" else 1,
+                        "wkv6": scans if cfg.family == "rwkv" else 0,
+                        "ssm_scan": scans if cfg.family == "hybrid" else 0}})
+        del runs, pm, pp, lm, lp
+    return out
+
+
+def _serve_tp_rank(mesh, legs):
+    """One rank of ``phase_serve_tp`` (a spawned process), with the matmul
+    settings of ``main``: ``serve_world1``, ``serve_tp_agree`` and each
+    ``serve_tp_time:<row>`` (an index into SERVE_TP_TIME) in ``legs``."""
+    import torch
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    out = {"rank": mesh.rank, "shape": mesh.shape,
+           "device": torch.cuda.get_device_name(mesh.device)}
+    for leg in legs:
+        if leg == "serve_world1":
+            out[leg] = _serve_world1(torch, mesh)
+        elif leg == "serve_tp_agree":
+            out[leg] = _serve_tp_agree(torch, mesh)
+        else:
+            out[leg] = _serve_tp_time(
+                torch, mesh, *SERVE_TP_TIME[int(leg.split(":")[1])])
+    return out
+
+
+def phase_serve_tp(torch, dev) -> dict:
+    """Serving on the model and data axes.  One card: ``_serve_world1`` on
+    a (1, 1) mesh.  Four cards: leg (i) ``serve_tp_agree`` and leg (j)
+    ``serve_tp_time`` on a (1, 4) mesh, then leg (i) on a (2, 2) one.  Each
+    mesh's lines are printed as soon as it ends, before any check fails
+    the phase; returns the legs' launches, summed over the ranks."""
+    from repro_torch.launch import mesh as mesh_lib
+
+    world = torch.cuda.device_count()
+    launches, faults = {}, []
+
+    def add(got):
+        for k, v in got.items():
+            launches[k] = launches.get(k, 0) + v
+
+    shapes = {(1, 1): ["serve_world1"]} if world < 4 else {
+        (1, 4): ["serve_tp_agree"] + [f"serve_tp_time:{i}" for i in
+                                      range(len(SERVE_TP_TIME))],
+        (2, 2): ["serve_tp_agree"]}
+    for shape, legs in shapes.items():
+        gc.collect()
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        ranks = mesh_lib.spawn(_serve_tp_rank, shape[0], (legs,),
+                               model=shape[1], device="cuda",
+                               timeout_s=SERVE_TP_TIMEOUT_S)
+        emit({"phase": "serve_tp_spawn", "mesh": list(shape), "legs": legs,
+              "wall_s": time.perf_counter() - t0})
+        if "serve_world1" in legs:
+            for case in ranks[0]["serve_world1"]:
+                emit({"phase": "serve_world1", **case})
+                add(case["launches"])
+                if not (case["params_equal"] and case["logits_equal"]
+                        and case["tokens_equal"]) or \
+                        case["launches"] != case["launches_wanted"]:
+                    faults.append(f"serve_world1: {case}")
+        if "serve_tp_agree" in legs:
+            for i, (arch, lens, kind) in enumerate(SERVE_TP_AGREE[shape]):
+                rows = [r["serve_tp_agree"][i] for r in ranks]
+                for r in rows:
+                    add(r["launches"])
+                emit({"phase": "serve_tp_agree", "mesh": list(shape),
+                      "arch": arch, "n_layers": 1, "mode": rows[0]["mode"],
+                      "prompt_lens": list(lens), "layout": rows[0]["layout"],
+                      "layout_wanted": kind,
+                      "max_new": SERVE_MAX_NEW,
+                      "noise_factor": SERVE_NOISE_FACTOR,
+                      "max_rel_l2_rank": [r["max_rel_l2"] for r in rows],
+                      "bf16_single_card_rel_l2_max": [
+                          r["bf16_single_card_rel_l2_max"] for r in rows],
+                      "max_ratio_rank": [r["max_ratio"] for r in rows],
+                      "argmax_equal_share_rank": [r["argmax_equal_share"]
+                                                  for r in rows],
+                      "held_rank": [r["held"] for r in rows],
+                      "launches_rank": [r["launches"] for r in rows]})
+                for r in rows:
+                    if (not r["held"] or r["layout"] != kind
+                            or r["launches"] != r["launches_wanted"]):
+                        faults.append(f"serve_tp_agree {shape} {arch} "
+                                      f"{lens}: {r}")
+        for i, row in enumerate(SERVE_TP_TIME):
+            leg = f"serve_tp_time:{i}"
+            if leg not in legs:
+                continue
+            rows = [r[leg] for r in ranks]
+            lead = rows[0]
+            for r in rows:
+                add(r["launches"])
+            emit({"phase": "serve_tp_time", "mesh": list(shape),
+                  **{k: v for k, v in lead.items()
+                     if k not in ("launches", "peak", "model_collectives_ms",
+                                  "init_s", "init_peak")},
+                  "init_s_rank": [r["init_s"] for r in rows],
+                  "init_peak_rank": [r["init_peak"] for r in rows],
+                  "peak_rank": [r["peak"] for r in rows],
+                  "model_collectives_ms_rank": [r["model_collectives_ms"]
+                                                for r in rows],
+                  "launches_rank": [r["launches"] for r in rows]})
+            for r in rows:
+                if (r["launches"] != r["launches_wanted"]
+                        or max(r["peak"], r["init_peak"]) >= CARD_BYTES
+                        or sum(b["tokens_out"] for b in r["batches"])
+                        != row[3] * SERVE_MAX_NEW):
+                    faults.append(f"serve_tp_time {row[:2]}: {r}")
+    if faults:
+        raise AssertionError("\n".join(faults))
+    return launches
+
+
 def _dist_rank(mesh, legs):
     """One rank of ``phase_dist`` (a spawned process): the legs it is
     given, with the matmul settings of ``main``."""
@@ -3125,30 +3546,41 @@ def run(argv=None) -> int:
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda", 0)
     smi = smi_line()
-    phase_device(torch, dev, smi)
-    fed = phase_fedavg(torch, dev)
-    flash = phase_flash(torch, dev)
-    qagg = phase_qagg(torch, dev)
-    quant8 = phase_quant8(torch, dev)
-    wkv = phase_wkv(torch, dev)
-    phase_strategies(torch, dev)
+    walls = {}
+
+    def timed(name, fn, *a):
+        """``fn(*a)``, its wall time added to ``walls[name]``."""
+        t0 = time.perf_counter()
+        out = fn(*a)
+        walls[name] = walls.get(name, 0.0) + time.perf_counter() - t0
+        return out
+
+    def add(counts):
+        for k, n in counts.items():
+            launches[k] = launches.get(k, 0) + n
+
+    timed("device", phase_device, torch, dev, smi)
+    fed = timed("fedavg", phase_fedavg, torch, dev)
+    flash = timed("flash", phase_flash, torch, dev)
+    qagg = timed("qagg", phase_qagg, torch, dev)
+    quant8 = timed("quant8", phase_quant8, torch, dev)
+    wkv = timed("wkv", phase_wkv, torch, dev)
+    timed("strategies", phase_strategies, torch, dev)
     launches = {}
     for phase, arch, n_layers, schedule, strategy, fail_at in TRAIN_CELLS:
-        for k, n in phase_train(torch, dev, phase, arch, n_layers, schedule,
-                                strategy, fail_at, args.profile).items():
-            launches[k] = launches.get(k, 0) + n
+        add(timed(phase, phase_train, torch, dev, phase, arch, n_layers,
+                  schedule, strategy, fail_at, args.profile))
     for cell in FRONTEND_TRAIN_CELLS:
-        for k, n in phase_train_frontend(torch, dev, *cell,
-                                         args.profile).items():
-            launches[k] = launches.get(k, 0) + n
-    phase_resume(torch, dev)
-    phase_resume_full(torch, dev)
-    phase_serve_kernels(torch, dev)
+        add(timed(cell[0], phase_train_frontend, torch, dev, *cell,
+                  args.profile))
+    timed("resume", phase_resume, torch, dev)
+    timed("resume_full", phase_resume_full, torch, dev)
+    timed("serve_kernels", phase_serve_kernels, torch, dev)
     for cell in SERVE_CELLS:
-        for k, n in phase_serve(torch, dev, *cell).items():
-            launches[k] = launches.get(k, 0) + n
-    for k, n in phase_dist(torch, dev).items():
-        launches[k] = launches.get(k, 0) + n
+        add(timed(cell[0], phase_serve, torch, dev, *cell))
+    add(timed("dist", phase_dist, torch, dev))
+    add(timed("serve_tp", phase_serve_tp, torch, dev))
+    emit({"phase": "walls", "s": walls})
     emit({"kernels": kernel_rows(fed, flash, qagg, quant8, wkv, launches)})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

@@ -22,6 +22,7 @@ pod's slot, its 1/D of the ``embed`` dim (FSDP, ``dist/fsdp.py``) and its
 """
 from __future__ import annotations
 
+import hashlib
 import math
 from dataclasses import dataclass
 from typing import Any
@@ -92,23 +93,71 @@ def _fan_in(d: ParamDecl) -> int:
     return max(f, 1)
 
 
-def _init_leaf(d: ParamDecl, gen: torch.Generator, device, block=None):
-    """Leaf ``d`` drawn whole from ``gen``; ``block``, when given, maps
-    the whole tensor to the part to keep (a view), taken before any
-    elementwise step so the part's bits are the whole's."""
+def _generator(seed: int, device) -> torch.Generator:
+    gen = torch.Generator(device=device)
+    gen.manual_seed(seed)
+    return gen
+
+
+def _layer_seed(seed: int, leaf: int, layer: int) -> int:
+    """The seed of layer ``layer``'s slice of stacked leaf ``leaf``: a hash
+    of the three, so no two slices (nor an unstacked leaf's
+    ``seed * 1_000_003 + leaf``, in practice) share a stream."""
+    h = hashlib.blake2b(f"{seed}/{leaf}/{layer}".encode(), digest_size=8)
+    return int.from_bytes(h.digest(), "little") >> 1
+
+
+def _std(d: ParamDecl) -> float:
+    if d.init == "embed":
+        return 0.02 * d.scale
+    if d.init == "normal":
+        return d.scale / math.sqrt(_fan_in(d))
+    raise ValueError(f"unknown init {d.init!r}")
+
+
+def _init_layers(d: ParamDecl, seed: int, i: int, device, block=None):
+    """Stacked leaf ``d`` (leading axis ``layers``), one layer at a time:
+    layer l's slice is drawn from its own generator (``_layer_seed``), and
+    only its part under ``block`` is kept, so the f32 transient is one
+    layer's slice and a rank's part equals the whole leaf's."""
+    L, std = d.shape[0], _std(d)
+    if block is None:
+        kept = list(range(L))
+        out = torch.empty(d.shape, dtype=d.dtype, device=device)
+    else:
+        # the layers the block keeps: its part of a tensor holding each
+        # element's layer index (an expanded view: nothing allocated)
+        ids = torch.arange(L).view((L,) + (1,) * (len(d.shape) - 1))
+        ids = block(ids.expand(d.shape))
+        kept = ids[(slice(None),) + (0,) * (ids.dim() - 1)].tolist()
+        out = torch.empty(ids.shape, dtype=d.dtype, device=device)
+    for p, layer in enumerate(kept):
+        x = torch.randn(d.shape[1:], generator=_generator(
+            _layer_seed(seed, i, layer), device), dtype=torch.float32,
+            device=device)
+        part = x if block is None else block(x.expand(d.shape))[0]
+        out[p].copy_(part.mul_(std) if block is None else part.mul(std))
+    return out
+
+
+def _init_leaf(d: ParamDecl, seed: int, i: int, device, block=None):
+    """Leaf ``d`` (leaf ``i`` of its tree); ``block``, when given, maps the
+    whole tensor to the part to keep (a view), taken before any
+    elementwise step so the part's bits are the whole's.  A leaf stacked
+    over ``layers`` is drawn one layer at a time (``_init_layers``); any
+    other is drawn whole from one generator seeded with
+    ``seed * 1_000_003 + i``."""
     if d.init in ("zeros", "ones", "neg_ones", "const"):
         shape = d.shape if block is None else \
             block(torch.empty(d.shape, device="meta")).shape
         fill = {"zeros": 0, "ones": 1, "neg_ones": -1}.get(d.init, d.scale)
         return torch.full(shape, fill, dtype=d.dtype, device=device)
-    if d.init == "embed":
-        std = 0.02 * d.scale
-    elif d.init == "normal":
-        std = d.scale / math.sqrt(_fan_in(d))
-    else:
-        raise ValueError(f"unknown init {d.init!r}")
-    x = torch.randn(d.shape, generator=gen, dtype=torch.float32,
-                    device=device)
+    std = _std(d)
+    if d.axes and d.axes[0] == "layers":
+        return _init_layers(d, seed, i, device, block)
+    x = torch.randn(d.shape, generator=_generator(seed * 1_000_003 + i,
+                                                  device),
+                    dtype=torch.float32, device=device)
     if block is None:
         return x.mul_(std).to(d.dtype)
     return block(x).mul_(std).to(d.dtype, copy=True)   # drops the whole
@@ -116,19 +165,20 @@ def _init_leaf(d: ParamDecl, gen: torch.Generator, device, block=None):
 
 def materialize(tree, seed: int, device, block=None):
     """Concrete tensors for a decl tree.  Deterministic: leaf ``i`` draws
-    from its own ``torch.Generator`` seeded with ``(seed, i)``.  The draws
-    differ from ``jax.random``'s; the statistics are the same.
+    from its own ``torch.Generator`` seeded from ``(seed, i)``, and a leaf
+    stacked over ``layers`` draws each layer's slice from one seeded from
+    ``(seed, i, layer)``.  The draws differ from ``jax.random``'s; the
+    statistics are the same.
 
     ``block(i, t)``, when given, keeps a part of leaf i (a rank's block):
-    the leaf is drawn whole, one leaf at a time, and only the part is
-    kept, so the part equals that of the whole tree."""
+    a leaf is drawn whole (a stacked one a layer at a time), one leaf at a
+    time, and only the part is kept, so the part equals that of the whole
+    tree and the f32 transient is one leaf (one layer's slice)."""
     device = torch.device(device)
     out = []
     for i, d in enumerate(T.leaves(tree)):
-        gen = torch.Generator(device=device)
-        gen.manual_seed(seed * 1_000_003 + i)
         keep = (lambda x, i=i: block(i, x)) if block else None
-        out.append(_init_leaf(d, gen, device, keep))
+        out.append(_init_leaf(d, seed, i, device, keep))
     return T.unflatten_like(tree, out)
 
 

@@ -232,6 +232,13 @@ def axis_for(cfg: ArchConfig, mesh) -> Optional[ModelAxis]:
                      *head_counts(cfg))
 
 
+def heads_split(cfg: ArchConfig, size: int) -> bool:
+    """Whether ``cfg``'s heads split over a model axis of ``size``; where
+    they do not, every block over heads runs whole on each rank
+    (``heads_axis``)."""
+    return _splits(head_counts(cfg)[0], size)
+
+
 def heads_axis(tp: Optional[ModelAxis]) -> Optional[ModelAxis]:
     """The axis a block over heads (the attention, RWKV6's time mix,
     Hymba's SSM branch) splits its heads over: ``tp`` where the heads

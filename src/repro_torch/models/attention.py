@@ -13,6 +13,11 @@ and keeps nothing for a backward.
 
 ``decode_attention`` attends one new token to a ring-buffer cache; it is
 plain PyTorch, as the reference computes it outside any Pallas kernel.
+``decode_block`` is a decode step's whole attention block on one device
+or a rank, for each cache layout (``kvcache.CacheLayout``); over a cache
+whose slots are split on the model axis it attends with
+``split_decode_attention``: each rank's partial softmax over its slots,
+merged across the ranks by their log-sum-exps (plain PyTorch too).
 
 ``project_qkv`` and ``project_out`` take an optional ``tp``
 (``dist.tensor_parallel.ModelAxis``): the rank's local heads, projected
@@ -31,6 +36,7 @@ import torch
 from repro_torch.dist import tensor_parallel as tpar
 from repro_torch.dist.sharding import decl
 from repro_torch.kernels.flash_attn.ops import flash_fwd
+from repro_torch.models import kvcache as kvc
 from repro_torch.models.layers import rope
 
 NEG_INF = -1e30
@@ -240,10 +246,76 @@ def decode_attention(q, k_cache, v_cache, kv_pos, pos, *,
     qg = q.reshape(B, K, G, hd)
     s = torch.einsum("bkgh,bskh->bkgs", qg.float(), k_cache.float())
     s = s / math.sqrt(hd)
-    ok = (kv_pos >= 0) & (kv_pos <= pos[:, None])
-    if window is not None:
-        ok &= pos[:, None] - kv_pos < window
-    s = torch.where(ok[:, None, None, :], s, NEG_INF)
+    s = torch.where(_valid(kv_pos, pos, window)[:, None, None, :], s,
+                    NEG_INF)
     p = torch.softmax(s, dim=-1).to(q.dtype)
     o = torch.einsum("bkgs,bskh->bkgh", p, v_cache.to(q.dtype))
     return o.reshape(B, 1, H, hd)
+
+
+def _valid(kv_pos, pos, window):
+    ok = (kv_pos >= 0) & (kv_pos <= pos[:, None])
+    if window is not None:
+        ok &= pos[:, None] - kv_pos < window
+    return ok
+
+
+def split_decode_attention(q, k_cache, v_cache, kv_pos, pos, axis, *,
+                           window: Optional[int] = None):
+    """``decode_attention`` over a cache whose slots are split over
+    ``axis``'s ranks: q (B,1,H,hd) every head, the rank's slots (B,Cl,K,hd)
+    and their ``kv_pos`` (B,Cl).  Each rank computes, in f32, its
+    unnormalised numerator over its valid slots, their running max and
+    sum; one all-gather brings every rank's, and each merges them in rank
+    order (equal on every rank).  A rank with no valid slot for a row (all
+    -1, outside the window, or later than ``pos``) has a max of ``NEG_INF``
+    and a sum of 0, so it adds exactly nothing.  -> (B,1,H,hd) in q's
+    dtype."""
+    B, _, H, hd = q.shape
+    K = k_cache.shape[2]
+    qg = q.reshape(B, K, H // K, hd).float()
+    s = torch.einsum("bkgh,bskh->bkgs", qg, k_cache.float()) / math.sqrt(hd)
+    ok = _valid(kv_pos, pos, window)[:, None, None, :]
+    s = torch.where(ok, s, -math.inf)
+    m = s.amax(dim=-1)
+    m = torch.where(torch.isfinite(m), m, NEG_INF)
+    p = torch.exp(s - m[..., None])
+    o = torch.einsum("bkgs,bskh->bkgh", p, v_cache.float())
+    part = torch.cat([o, m[..., None], p.sum(dim=-1)[..., None]], dim=-1)
+    every = axis.all_gather(part[None], 0)              # (M, B, K, G, hd+2)
+    mx = every[..., hd].amax(dim=0)
+    w = torch.exp(every[..., hd] - mx)
+    num = (w[..., None] * every[..., :hd]).sum(dim=0)
+    den = (w * every[..., hd + 1]).sum(dim=0)
+    return (num / den[..., None]).reshape(B, 1, H, hd).to(q.dtype)
+
+
+def decode_block(params, h, k_l, v_l, kv_pos, pos, slots, theta: float,
+                 window: Optional[int], lay, tp=None):
+    """A decode step's attention block: the new token's q/k/v from ``h``
+    (B,1,D) (with ``tp`` the rank's heads), its k/v written in place into
+    the cache views ``k_l``/``v_l`` (B, lay.local, k, hd) at ``slots``
+    (``kvcache.token_slot``; ``kv_pos`` already holds the token), attention
+    over the cache, the output projection.  Under layout ``seq`` every
+    rank gathers the heads' q, attends every head over its own slots
+    (``split_decode_attention``) and keeps its heads' rows of the result;
+    under ``heads`` it attends its heads over its kv heads; under
+    ``whole`` with the q heads split, over the one kv head they read."""
+    q, k, v = project_qkv(params, h, pos[:, None], theta, tp=tp)
+    kvc.write_token(k_l, slots, kvc.cache_heads(k, tp, lay)[:, 0])
+    kvc.write_token(v_l, slots, kvc.cache_heads(v, tp, lay)[:, 0])
+    hp = tpar.heads_axis(tp)
+    if lay.kind == "seq":
+        every = q if hp is None else tpar.gather_from_model(q, hp, 2)
+        o = split_decode_attention(every, k_l, v_l, kv_pos, pos, tp,
+                                   window=window)
+        if hp is not None:
+            o = o.narrow(2, hp.rank * q.shape[2], q.shape[2])
+    else:
+        idx = None if hp is None or lay.kind == "heads" else \
+            tpar.kv_index(hp, q.shape[2])
+        if idx is not None:
+            idx = idx.to(k_l.device)
+            k_l, v_l = k_l.index_select(2, idx), v_l.index_select(2, idx)
+        o = decode_attention(q, k_l, v_l, kv_pos, pos, window=window)
+    return project_out(params, o, tp)

@@ -29,6 +29,15 @@ function that ``checkpoint`` wraps (remat gathers them again in the
 backward), and the embedding tables are gathered where they are used;
 the attention's projections and ``swiglu`` receive them gathered.  The
 MoE layer routes the client's whole batch (``models/moe``).
+
+``prefill`` and ``decode_step`` take the same ``tp`` and ``dp`` to serve
+on ranks (``serve/engine.py``), and the cache's ``layout``
+(``kvcache.CacheLayout``): prefill runs ``forward``'s layer code and lays
+each layer's keys and values into the rank's block of the cache
+(``kvcache.cache_heads``, ``prefill_kv``); decode writes the token's keys
+on the rank that holds its slot and attends with
+``attention.decode_block``.  The last-token logits are gathered whole over
+the model axis (``layers.last_logits``).
 """
 from __future__ import annotations
 
@@ -41,9 +50,9 @@ from repro_torch.dist import fsdp
 from repro_torch.dist.sharding import decl, stack
 from repro_torch.models import attention as attn
 from repro_torch.models import kvcache as kvc
-from repro_torch.models.layers import (embed_decl, embed_lookup, logits_out,
-                                       rmsnorm, rmsnorm_decl, swiglu,
-                                       swiglu_decl)
+from repro_torch.models.layers import (embed_decl, embed_lookup,
+                                       last_logits, logits_out, rmsnorm,
+                                       rmsnorm_decl, swiglu, swiglu_decl)
 from repro_torch.models.moe import moe_apply, moe_decl
 
 
@@ -106,20 +115,19 @@ def _ffn(cfg: ArchConfig, lp, x, kind: str, tp=None, dp=None):
                                                  device=x.device)
 
 
-def _apply_layer(cfg: ArchConfig, lp, x, positions, kind: str, kv_out=None,
+def _apply_layer(cfg: ArchConfig, lp, x, positions, kind: str, keep=None,
                  tp=None, dp=None, path: str = "layers"):
-    """One layer; with ``kv_out`` (two (B,S,K,hd) views of a cache) its
-    keys and values are copied there (prefill).  With ``tp`` the layer's
-    parameters are the rank's blocks (local heads and mlp columns); with
-    ``dp`` they are also split on ``data``, and are gathered here (``path``
-    names the stack, whose leaves' specs say which dim)."""
+    """One layer; with ``keep`` (prefill) its keys and values are handed
+    to ``keep(k, v)``.  With ``tp`` the layer's parameters are the rank's
+    blocks (local heads and mlp columns); with ``dp`` they are also split
+    on ``data``, and are gathered here (``path`` names the stack, whose
+    leaves' specs say which dim)."""
     lp = fsdp.whole(dp, lp, path, lead=1)
     h = rmsnorm(lp["ln1"], x, cfg.norm_eps)
     q, k, v = attn.project_qkv(lp["attn"], h, positions, cfg.rope_theta,
                                tp=tp)
-    if kv_out is not None:
-        kv_out[0].copy_(k)
-        kv_out[1].copy_(v)
+    if keep is not None:
+        keep(k, v)
     o = attn.attention(q, k, v, positions, positions, causal=True,
                        window=cfg.window, chunk=cfg.attn_chunk,
                        chunk_threshold=cfg.attn_chunk_threshold)
@@ -130,16 +138,16 @@ def _apply_layer(cfg: ArchConfig, lp, x, positions, kind: str, kv_out=None,
 
 
 def _apply_layer_decode(cfg: ArchConfig, lp, x, k_l, v_l, kv_pos, pos,
-                        slot, kind: str):
-    """x: (B,1,D); k_l/v_l: (B,S,K,hd) views of the cache, written in
-    place; pos: (B,)."""
+                        slots, kind: str, lay, tp=None, dp=None,
+                        path: str = "layers"):
+    """x: (B,1,D); k_l/v_l: (B, lay.local, k, hd) views of the cache,
+    written in place at ``slots``; pos: (B,)."""
+    lp = fsdp.whole(dp, lp, path, lead=1)
     h = rmsnorm(lp["ln1"], x, cfg.norm_eps)
-    q, k, v = attn.project_qkv(lp["attn"], h, pos[:, None], cfg.rope_theta)
-    kvc.update_kv_layer(k_l, v_l, k, v, slot)
-    o = attn.decode_attention(q, k_l, v_l, kv_pos, pos, window=cfg.window)
-    x = x + attn.project_out(lp["attn"], o)
+    x = x + attn.decode_block(lp["attn"], h, k_l, v_l, kv_pos, pos, slots,
+                              cfg.rope_theta, cfg.window, lay, tp)
     h2 = rmsnorm(lp["ln2"], x, cfg.norm_eps)
-    y, _ = _ffn(cfg, lp, h2, kind)
+    y, _ = _ffn(cfg, lp, h2, kind, tp, dp)
     return x + y
 
 
@@ -152,9 +160,7 @@ def _embed_inputs(cfg: ArchConfig, params, batch, tp=None, dp=None):
     ``patches`` (B, n, feat_dim) replace the first n positions.  The
     projection runs in the weight's dtype (the reference's einsum promotes
     bf16 patches against f32 weights) and lands in the embedding's."""
-    table = {"in_table": fsdp.whole(dp, params["embed"]["in_table"],
-                                    "embed/in_table")}
-    x = embed_lookup(table, batch["tokens"], tp)
+    x = embed_lookup(params["embed"], batch["tokens"], tp, dp)
     if cfg.family == "vlm" and "patches" in batch:
         vp = params["vis_proj"]
         vis = rmsnorm(vp["norm"], batch["patches"], cfg.norm_eps)
@@ -183,10 +189,10 @@ def layer_views(stacked):
 
 
 def _layers(cfg: ArchConfig, params):
-    """(layer params, kind) of every layer in order."""
-    for stacked, kind, _ in _stacks(cfg, params):
+    """(layer params, kind, stack path) of every layer in order."""
+    for stacked, kind, path in _stacks(cfg, params):
         for lp in layer_views(stacked):
-            yield lp, kind
+            yield lp, kind, path
 
 
 def _run_layers(cfg: ArchConfig, stacked, x, positions, kind: str,
@@ -216,37 +222,49 @@ def forward(cfg: ArchConfig, params, batch, tp=None, dp=None):
         x, a = _run_layers(cfg, stacked, x, positions, kind, tp, dp, path)
         aux = aux + a
     x = rmsnorm(params["final_norm"], x, cfg.norm_eps)   # never on data
-    table = {"out_table": fsdp.whole(dp, params["embed"]["out_table"],
-                                     "embed/out_table")}
-    return logits_out(table, x, tp), aux
+    return logits_out(params["embed"], x, tp, dp), aux
 
 
-def prefill(cfg: ArchConfig, params, batch):
-    """-> (last-token logits (B,V), cache {k, v (L,B,S,K,hd), kv_pos})."""
-    x = _embed_inputs(cfg, params, batch)
+def prefill(cfg: ArchConfig, params, batch, tp=None, dp=None, layout=None):
+    """-> (last-token logits (B,V), cache {k, v (L,B,C,K,hd), kv_pos}).
+    ``layout`` (``kvcache.CacheLayout``) gives the cache's length C and
+    this rank's part of it (by default the prompt's S slots, whole); the
+    prompt's keys fill slots 0..S-1, the rest stay empty.  With ``tp`` and
+    ``dp`` the layers run as ``forward``'s, the rank's kv heads are laid
+    into its block (``kvcache.cache_heads``), and the logits are gathered
+    whole over the model axis."""
+    x = _embed_inputs(cfg, params, batch, tp, dp)
     B, S = x.shape[0], x.shape[1]
+    lay = layout or kvc.CacheLayout("whole", S)
     positions = torch.arange(S, dtype=torch.int32, device=x.device)
-    shape = (cfg.n_layers, B, S, cfg.n_kv_heads, cfg.head_dim)
-    k = torch.empty(shape, dtype=x.dtype, device=x.device)
-    v = torch.empty_like(k)
-    for i, (lp, kind) in enumerate(_layers(cfg, params)):
-        x, _ = _apply_layer(cfg, lp, x, positions, kind, kv_out=(k[i], v[i]))
+    shape = (cfg.n_layers, B, lay.local, lay.kv_heads(cfg.n_kv_heads),
+             cfg.head_dim)
+    k = torch.zeros(shape, dtype=x.dtype, device=x.device)
+    v = torch.zeros_like(k)
+    for i, (lp, kind, path) in enumerate(_layers(cfg, params)):
+        def keep(kk, vv, i=i):
+            kvc.prefill_kv(k[i], kvc.cache_heads(kk, tp, lay), lay)
+            kvc.prefill_kv(v[i], kvc.cache_heads(vv, tp, lay), lay)
+        x, _ = _apply_layer(cfg, lp, x, positions, kind, keep, tp, dp, path)
     x = rmsnorm(params["final_norm"], x, cfg.norm_eps)
-    logits = logits_out(params["embed"], x[:, -1])
-    return logits, {"k": k, "v": v,
-                    "kv_pos": kvc.prefilled_pos(B, S, x.device)}
+    return last_logits(params["embed"], x[:, -1], tp, dp), {
+        "k": k, "v": v,
+        "kv_pos": kvc.prefilled_layout_pos(B, S, lay, x.device)}
 
 
-def decode_step(cfg: ArchConfig, params, cache, batch):
+def decode_step(cfg: ArchConfig, params, cache, batch, tp=None, dp=None,
+                layout=None):
     """batch: {"token": (B,1) int32, "pos": (B,) int32} -> (logits (B,V),
-    cache).  The cache's tensors are updated in place and returned."""
+    cache).  The cache's tensors are updated in place and returned.
+    ``layout``: the cache's (``prefill``'s), by default whole."""
     token, pos = batch["token"], batch["pos"]
-    x = embed_lookup(params["embed"], token)
-    cache_len = cache["k"].shape[2]
-    slot = kvc.cache_slot(pos, cache_len)
-    kv_pos = kvc.update_kv_pos(cache["kv_pos"], pos, cache_len)
-    for i, (lp, kind) in enumerate(_layers(cfg, params)):
+    x = embed_lookup(params["embed"], token, tp, dp)
+    lay = layout or kvc.CacheLayout("whole", cache["k"].shape[2])
+    slots = kvc.token_slot(pos, lay)
+    kv_pos = cache["kv_pos"]
+    kvc.write_token(kv_pos, slots, pos)
+    for i, (lp, kind, path) in enumerate(_layers(cfg, params)):
         x = _apply_layer_decode(cfg, lp, x, cache["k"][i], cache["v"][i],
-                                kv_pos, pos, slot, kind)
+                                kv_pos, pos, slots, kind, lay, tp, dp, path)
     x = rmsnorm(params["final_norm"], x, cfg.norm_eps)
-    return logits_out(params["embed"], x[:, -1]), cache
+    return last_logits(params["embed"], x[:, -1], tp, dp), cache

@@ -159,46 +159,57 @@ def forward(cfg: ArchConfig, params, batch):
         (), dtype=torch.float32, device=x.device)
 
 
-def prefill(cfg: ArchConfig, params, batch):
-    """-> (last-token logits (B,V), cache {k, v (L,B,S,K,hd), kv_pos,
-    cross_k, cross_v (L,B,T,K,hd)})."""
+def prefill(cfg: ArchConfig, params, batch, tp=None, dp=None, layout=None):
+    """-> (last-token logits (B,V), cache {k, v (L,B,C,K,hd), kv_pos,
+    cross_k, cross_v (L,B,T,K,hd)}).  ``layout`` (``kvcache.CacheLayout``)
+    gives the self-attention cache's length C (by default the prompt's S
+    slots); the prompt's keys fill slots 0..S-1.  The encoder-decoder
+    serves on one device or a replica's data rows (ROADMAP item 5b-vii
+    puts it on the model axis), so ``tp`` is None and ``dp``, which only
+    the MoE layer and shared mode read, changes nothing here."""
     mem = encode(cfg, params, batch["frames"])
     x = embed_lookup(params["embed"], batch["tokens"])
     B, S = x.shape[0], x.shape[1]
+    lay = layout or kvc.CacheLayout("whole", S)
     positions = _arange(S, x.device)
     enc_pos = _arange(mem.shape[1], x.device)
     L, Kv, hd = cfg.n_layers, cfg.n_kv_heads, cfg.head_dim
-    k = torch.empty((L, B, S, Kv, hd), dtype=x.dtype, device=x.device)
-    v = torch.empty_like(k)
+    k = torch.zeros((L, B, lay.local, Kv, hd), dtype=x.dtype,
+                    device=x.device)
+    v = torch.zeros_like(k)
     ck = torch.empty((L, B, mem.shape[1], Kv, hd), dtype=mem.dtype,
                      device=x.device)
     cv = torch.empty_like(ck)
     for i, lp in enumerate(layer_views(params["dec_layers"])):
         x = _dec_layer(cfg, lp, x, mem, positions, enc_pos,
-                       kv_out=(k[i], v[i], ck[i], cv[i]))
+                       kv_out=(k[i, :, :S], v[i, :, :S], ck[i], cv[i]))
     x = layernorm(params["final_norm"], x, cfg.norm_eps)
     logits = logits_out(params["embed"], x[:, -1])
     return logits, {"k": k, "v": v,
-                    "kv_pos": kvc.prefilled_pos(B, S, x.device),
+                    "kv_pos": kvc.prefilled_layout_pos(B, S, lay, x.device),
                     "cross_k": ck, "cross_v": cv}
 
 
-def decode_step(cfg: ArchConfig, params, cache, batch):
+def decode_step(cfg: ArchConfig, params, cache, batch, tp=None, dp=None,
+                layout=None):
     """batch: {"token": (B,1) int32, "pos": (B,) int32} -> (logits (B,V),
     cache).  The self-attention cache is updated in place; the cross cache
-    is only read."""
+    is only read.  ``layout``: the cache's (``prefill``'s), by default
+    whole; ``tp`` and ``dp`` as in ``prefill``."""
     token, pos = batch["token"], batch["pos"]
     x = embed_lookup(params["embed"], token)
-    cache_len = cache["k"].shape[2]
-    slot = kvc.cache_slot(pos, cache_len)
-    kv_pos = kvc.update_kv_pos(cache["kv_pos"], pos, cache_len)
+    lay = layout or kvc.CacheLayout("whole", cache["k"].shape[2])
+    slots = kvc.token_slot(pos, lay)
+    kv_pos = cache["kv_pos"]
+    kvc.write_token(kv_pos, slots, pos)
     enc_pos = _arange(cache["cross_k"].shape[2], x.device)
     q_pos = pos[:, None]
     for i, lp in enumerate(layer_views(params["dec_layers"])):
         k_l, v_l = cache["k"][i], cache["v"][i]
         h = layernorm(lp["ln1"], x, cfg.norm_eps)
         q, k, v = attn.project_qkv(lp["attn"], h, q_pos, cfg.rope_theta)
-        kvc.update_kv_layer(k_l, v_l, k, v, slot)
+        kvc.write_token(k_l, slots, k[:, 0])
+        kvc.write_token(v_l, slots, v[:, 0])
         o = attn.decode_attention(q, k_l, v_l, kv_pos, pos)
         x = x + attn.project_out(lp["attn"], o)
         x = _cross_attend(cfg, lp, x, cache["cross_k"][i],

@@ -32,7 +32,11 @@ averaged, the single device's rounding points.  Where the heads stay
 whole (hymba-1.5b's 25 at M = 2 or 4) both branches run whole on every
 rank with no collective; the SwiGLU and the vocab split.  With ``dp`` each
 layer gathers its leaves' ``embed`` blocks inside the checkpointed
-function.
+function.  ``prefill`` and ``decode_step`` take them too (serving on
+ranks): the window's keys go into the rank's block of the ring
+(``kvcache.CacheLayout``, ``attention.decode_block``), the SSM and conv
+states hold the rank's heads (all of them where the heads stay whole), and
+the last-token logits are gathered whole over the model axis.
 """
 from __future__ import annotations
 
@@ -48,9 +52,9 @@ from repro_torch.dist.sharding import decl, stack
 from repro_torch.models import attention as attn
 from repro_torch.models import kvcache as kvc
 from repro_torch.models import linear_attn as la
-from repro_torch.models.layers import (embed_decl, embed_lookup, logits_out,
-                                       rmsnorm, rmsnorm_decl, swiglu,
-                                       swiglu_decl)
+from repro_torch.models.layers import (embed_decl, embed_lookup,
+                                       last_logits, logits_out, rmsnorm,
+                                       rmsnorm_decl, swiglu, swiglu_decl)
 
 CONV_W = 3
 
@@ -166,12 +170,11 @@ def _ssm_branch(cfg, sp, h, s0=None, conv_state=None, chunk=None,
     return out, s_fin, new_conv
 
 
-def _apply_layer(cfg, lp, x, positions, cache=None, tp=None, dp=None):
-    """One layer; with ``cache`` (the layer's views of a serving cache:
-    k, v (B,W,K,hd), ssm_S, conv) the last W keys and values and the SSM
-    and conv states are copied there (prefill).  With ``tp`` the layer's
-    parameters are the rank's blocks; with ``dp`` they are gathered on
-    ``data`` here, inside the function ``checkpoint`` wraps."""
+def _apply_layer(cfg, lp, x, positions, keep=None, tp=None, dp=None):
+    """One layer; with ``keep`` (prefill) its keys, values, final SSM state
+    and conv state are handed to ``keep(k, v, ssm_S, conv)``.  With ``tp``
+    the layer's parameters are the rank's blocks; with ``dp`` they are
+    gathered on ``data`` here, inside the function ``checkpoint`` wraps."""
     lp = fsdp.whole(dp, lp, "layers", lead=1)
     h = rmsnorm(lp["ln1"], x, cfg.norm_eps)
     q, k, v = attn.project_qkv(lp["attn"], h, positions, cfg.rope_theta,
@@ -181,33 +184,31 @@ def _apply_layer(cfg, lp, x, positions, cache=None, tp=None, dp=None):
                        chunk_threshold=cfg.attn_chunk_threshold)
     a_out = attn.project_out(lp["attn"], o, tp)
     s_out, s_fin, conv = _ssm_branch(cfg, lp["ssm"], h, tp=tp)
-    if cache is not None:
-        W = cache["k"].shape[1]
-        for key, t in (("k", k[:, -W:]), ("v", v[:, -W:]), ("ssm_S", s_fin),
-                       ("conv", conv)):
-            cache[key].copy_(t)
+    if keep is not None:
+        keep(k, v, s_fin, conv)
     x = x + 0.5 * (a_out + s_out)
     h2 = rmsnorm(lp["ln2"], x, cfg.norm_eps)
     return x + swiglu(lp["mlp"], h2, tp)
 
 
-def _apply_layer_decode(cfg, lp, x, cache, kv_pos, pos, slot):
+def _apply_layer_decode(cfg, lp, x, cache, kv_pos, pos, slots, lay,
+                        tp=None, dp=None):
     """x: (B,1,D); cache: the layer's views of the cache, updated in
     place; pos: (B,)."""
+    lp = fsdp.whole(dp, lp, "layers", lead=1)
     h = rmsnorm(lp["ln1"], x, cfg.norm_eps)
-    q, k, v = attn.project_qkv(lp["attn"], h, pos[:, None], cfg.rope_theta)
-    kvc.update_kv_layer(cache["k"], cache["v"], k, v, slot)
-    o = attn.decode_attention(q, cache["k"], cache["v"], kv_pos, pos,
-                              window=cfg.window)
-    a_out = attn.project_out(lp["attn"], o)
+    a_out = attn.decode_block(lp["attn"], h, cache["k"], cache["v"], kv_pos,
+                              pos, slots, cfg.rope_theta, cfg.window, lay,
+                              tp)
     s_out, s_new, conv_new = _ssm_branch(cfg, lp["ssm"], h,
                                          s0=cache["ssm_S"],
-                                         conv_state=cache["conv"], chunk=1)
+                                         conv_state=cache["conv"], chunk=1,
+                                         tp=tp)
     cache["ssm_S"].copy_(s_new)
     cache["conv"].copy_(conv_new)
     x = x + 0.5 * (a_out + s_out)
     h2 = rmsnorm(lp["ln2"], x, cfg.norm_eps)
-    return x + swiglu(lp["mlp"], h2)
+    return x + swiglu(lp["mlp"], h2, tp)
 
 
 _LAYER_KEYS = ("k", "v", "ssm_S", "conv")
@@ -217,9 +218,7 @@ def forward(cfg: ArchConfig, params, batch, tp=None, dp=None):
     """Full-sequence forward -> (logits (B,S,V), aux_loss); with ``tp``
     the logits are this rank's (B, S, V / M) vocab rows; with ``dp`` the
     batch is this rank's rows of its client's, and so are the logits."""
-    table = {"in_table": fsdp.whole(dp, params["embed"]["in_table"],
-                                    "embed/in_table")}
-    x = embed_lookup(table, batch["tokens"], tp)
+    x = embed_lookup(params["embed"], batch["tokens"], tp, dp)
     positions = torch.arange(x.shape[1], dtype=torch.int32, device=x.device)
     stacked = params["layers"]
     for i in range(cfg.n_layers):
@@ -231,51 +230,61 @@ def forward(cfg: ArchConfig, params, batch, tp=None, dp=None):
             x = _apply_layer(cfg, lp, x, positions, tp=tp, dp=dp)
     x = rmsnorm(params["final_norm"], x, cfg.norm_eps)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    table = {"out_table": fsdp.whole(dp, params["embed"]["out_table"],
-                                     "embed/out_table")}
-    return logits_out(table, x, tp), aux
+    return logits_out(params["embed"], x, tp, dp), aux
 
 
-def prefill(cfg: ArchConfig, params, batch):
+def prefill(cfg: ArchConfig, params, batch, tp=None, dp=None, layout=None):
     """-> (last-token logits (B,V), cache {k, v, kv_pos, ssm_S, conv})
-    holding the last W = min(window, S) keys at slots 0..W-1."""
-    x = embed_lookup(params["embed"], batch["tokens"])
+    holding the last W = min(window, S) keys at slots 0..W-1.  ``layout``
+    (``kvcache.CacheLayout``, of length W) gives this rank's part of the
+    keys; the SSM and conv states are the rank's heads' (all of them where
+    the heads stay whole).  With ``tp`` and ``dp`` the layers run as
+    ``forward``'s and the logits are gathered whole over the model
+    axis."""
+    x = embed_lookup(params["embed"], batch["tokens"], tp, dp)
     B, S = x.shape[0], x.shape[1]
     positions = torch.arange(S, dtype=torch.int32, device=x.device)
     W = min(cfg.window or S, S)
-    H, hd, N, Din = _dims(cfg)
+    lay = layout or kvc.CacheLayout("whole", W)
     L, dev = cfg.n_layers, x.device
     cache = {
-        "k": torch.empty((L, B, W, cfg.n_kv_heads, hd), dtype=x.dtype,
-                         device=dev),
-        "ssm_S": torch.empty((L, B, H, N, hd), dtype=torch.float32,
-                             device=dev),
-        "conv": torch.empty((L, B, CONV_W - 1, Din), dtype=x.dtype,
-                            device=dev),
-        "kv_pos": kvc.prefilled_pos(B, W, dev, start=S - W)}
-    cache["v"] = torch.empty_like(cache["k"])
+        "k": torch.zeros((L, B, lay.local, lay.kv_heads(cfg.n_kv_heads),
+                          cfg.head_dim), dtype=x.dtype, device=dev),
+        "kv_pos": kvc.prefilled_layout_pos(B, W, lay, dev, start=S - W)}
+    cache["v"] = torch.zeros_like(cache["k"])
     stacked = params["layers"]
     for i in range(L):
+        def keep(k, v, s_fin, conv, i=i):
+            kvc.prefill_kv(cache["k"][i], kvc.cache_heads(k[:, -W:], tp, lay),
+                           lay)
+            kvc.prefill_kv(cache["v"][i], kvc.cache_heads(v[:, -W:], tp, lay),
+                           lay)
+            for key, t in (("ssm_S", s_fin), ("conv", conv)):
+                if key not in cache:
+                    cache[key] = t.new_empty((L,) + t.shape)
+                cache[key][i].copy_(t)
         lp = T.tree_map(lambda a: a[i], stacked)
-        x = _apply_layer(cfg, lp, x, positions,
-                         cache={key: cache[key][i] for key in _LAYER_KEYS})
+        x = _apply_layer(cfg, lp, x, positions, keep, tp, dp)
     x = rmsnorm(params["final_norm"], x, cfg.norm_eps)
-    return logits_out(params["embed"], x[:, -1]), cache
+    return last_logits(params["embed"], x[:, -1], tp, dp), cache
 
 
-def decode_step(cfg: ArchConfig, params, cache, batch):
+def decode_step(cfg: ArchConfig, params, cache, batch, tp=None, dp=None,
+                layout=None):
     """batch: {"token": (B,1) int32, "pos": (B,) int32} -> (logits (B,V),
-    cache); the cache's tensors are updated in place and returned."""
+    cache); the cache's tensors are updated in place and returned.
+    ``layout``: the cache's (``prefill``'s), by default whole."""
     token, pos = batch["token"], batch["pos"]
-    x = embed_lookup(params["embed"], token)
-    cache_len = cache["k"].shape[2]
-    slot = kvc.cache_slot(pos, cache_len)
-    kv_pos = kvc.update_kv_pos(cache["kv_pos"], pos, cache_len)
+    x = embed_lookup(params["embed"], token, tp, dp)
+    lay = layout or kvc.CacheLayout("whole", cache["k"].shape[2])
+    slots = kvc.token_slot(pos, lay)
+    kv_pos = cache["kv_pos"]
+    kvc.write_token(kv_pos, slots, pos)
     stacked = params["layers"]
     for i in range(cfg.n_layers):
         lp = T.tree_map(lambda a: a[i], stacked)
         x = _apply_layer_decode(
             cfg, lp, x, {key: cache[key][i] for key in _LAYER_KEYS},
-            kv_pos, pos, slot)
+            kv_pos, pos, slots, lay, tp, dp)
     x = rmsnorm(params["final_norm"], x, cfg.norm_eps)
-    return logits_out(params["embed"], x[:, -1]), cache
+    return last_logits(params["embed"], x[:, -1], tp, dp), cache

@@ -4,12 +4,15 @@
 (``dist.tensor_parallel.ModelAxis``): their parameters are then this
 rank's part of a client's, split over the ``model`` axis, and they run
 column-parallel, row-parallel and vocab-parallel.  Without it they are
-the plain single-device functions.
+the plain single-device functions.  ``embed_lookup``, ``logits_out`` and
+``last_logits`` also take a ``dp`` (``dist.fsdp.DataAxis``, shared mode):
+they gather their table over ``data`` first (``fsdp.whole``).
 """
 from __future__ import annotations
 
 import torch
 
+from repro_torch.dist import fsdp
 from repro_torch.dist import tensor_parallel as tpar
 from repro_torch.dist.sharding import decl
 
@@ -125,15 +128,30 @@ def embed_decl(vocab: int, d_model: int):
     }
 
 
-def embed_lookup(params, tokens, tp=None):
+def _table(params, name, dp):
+    """The embedding table ``name``, gathered over ``dp``'s data axis
+    where its spec splits it there (shared mode)."""
+    return fsdp.whole(dp, params[name], "embed/" + name)
+
+
+def embed_lookup(params, tokens, tp=None, dp=None):
+    table = _table(params, "in_table", dp)
     if tp is not None:              # this rank's vocab rows
-        return tpar.embed_lookup(params["in_table"], tokens, tp)
-    return params["in_table"][tokens.long()]
+        return tpar.embed_lookup(table, tokens, tp)
+    return table[tokens.long()]
 
 
-def logits_out(params, x, tp=None):
+def last_logits(params, x, tp=None, dp=None):
+    """Serving's logits of the last position x (B, D) -> (B, V), with
+    ``tp`` gathered whole over the model axis (the padded vocab columns
+    included, as on one device), so every rank takes the same argmax."""
+    out = logits_out(params, x, tp, dp)
+    return out if tp is None else tpar.gather_from_model(out, tp, -1)
+
+
+def logits_out(params, x, tp=None, dp=None):
     """-> (..., V) logits, or with ``tp`` this rank's (..., V / M) vocab
     rows (``tensor_parallel.cross_entropy`` reads them)."""
     if tp is not None:
         x = tpar.copy_to_model(x, tp)
-    return x @ params["out_table"].t()
+    return x @ _table(params, "out_table", dp).t()

@@ -6,6 +6,8 @@ Every family module exposes:
     prefill(cfg, params, batch) -> (last_logits (B,V), cache)
     decode_step(cfg, params, cache, batch) -> (logits (B,V), cache), the
         cache updated in place
+    (the decoder's families, RWKV6 and Hymba also take ``tp``, ``dp`` and
+    the cache's ``layout`` there, to serve on ranks)
     cache_decl(cfg, batch, cache_len) -> ParamDecl tree
 The decoder takes the ``dense``, ``moe`` and ``vlm`` families; ``encdec``
 is the encoder-decoder, ``rwkv`` RWKV6 and ``hybrid`` Hymba.
@@ -14,6 +16,7 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch import tree as T
 from repro_torch.configs.base import ArchConfig
 from repro_torch.dist import fsdp
 from repro_torch.dist import sharding as shd
@@ -38,8 +41,24 @@ def param_decls(cfg: ArchConfig):
     return get_model(cfg).param_decls(cfg)
 
 
-def init_params(cfg: ArchConfig, seed: int, device):
-    return shd.materialize(param_decls(cfg), seed, device)
+def serve_specs(cfg: ArchConfig, mesh):
+    """The parameters' specs for serving on ``mesh``: the reference's
+    serving layout (``launch/dryrun.py``), ``specs_for`` of the decls under
+    ``rules_for(cfg.fl.mode)`` (in ``shared`` mode ``embed`` on ``data``)."""
+    return shd.specs_for(param_decls(cfg), shd.rules_for(cfg.fl.mode), mesh)
+
+
+def init_params(cfg: ArchConfig, seed: int, device, mesh=None):
+    """The parameters from ``seed``; with ``mesh``, only the rank's blocks
+    under ``serve_specs`` (each drawn as the whole tree's, a stacked leaf a
+    layer at a time: on a (1, 1) mesh the whole tree, bit for bit), on
+    ``device``."""
+    if mesh is None:
+        return shd.materialize(param_decls(cfg), seed, device)
+    specs = T.leaves(serve_specs(cfg, mesh))
+    return shd.materialize(
+        param_decls(cfg), seed, device,
+        lambda i, x: shd.local_block(x, specs[i], mesh))
 
 
 def cache_len_for(cfg: ArchConfig, seq_len: int) -> int:

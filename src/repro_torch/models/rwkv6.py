@@ -28,7 +28,10 @@ output columns split (declared (embed, mlp)): the rank's columns of the
 gate are gathered before ``rr * kv``.  Where the heads stay whole the time
 mix runs its plain code on every rank.  With ``dp`` each layer gathers
 its leaves' ``embed`` blocks inside the checkpointed function, as the
-decoder's layers do.
+decoder's layers do.  ``prefill`` and ``decode_step`` take them too
+(serving on ranks): the state ``S`` holds the rank's heads, ``x_tm`` and
+``x_cm`` stay whole, and the last-token logits are gathered whole over the
+model axis.
 """
 from __future__ import annotations
 
@@ -41,7 +44,8 @@ from repro_torch.dist import fsdp
 from repro_torch.dist import tensor_parallel as tpar
 from repro_torch.dist.sharding import decl, stack
 from repro_torch.models import linear_attn as la
-from repro_torch.models.layers import (embed_decl, embed_lookup, layernorm,
+from repro_torch.models.layers import (embed_decl, embed_lookup,
+                                       last_logits, layernorm,
                                        layernorm_decl, logits_out)
 
 LORA_R = 64
@@ -208,9 +212,7 @@ def forward(cfg: ArchConfig, params, batch, tp=None, dp=None):
     """Full-sequence forward -> (logits (B,S,V), aux_loss); with ``tp``
     the logits are this rank's (B, S, V / M) vocab rows; with ``dp`` the
     batch is this rank's rows of its client's, and so are the logits."""
-    table = {"in_table": fsdp.whole(dp, params["embed"]["in_table"],
-                                    "embed/in_table")}
-    x = embed_lookup(table, batch["tokens"], tp)
+    x = embed_lookup(params["embed"], batch["tokens"], tp, dp)
     stacked = params["layers"]
     for i in range(cfg.n_layers):
         lp = T.tree_map(lambda a: a[i], stacked)
@@ -221,43 +223,42 @@ def forward(cfg: ArchConfig, params, batch, tp=None, dp=None):
             x = _apply_layer(cfg, lp, x, tp=tp, dp=dp)[0]
     x = layernorm(params["final_norm"], x, cfg.norm_eps)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    table = {"out_table": fsdp.whole(dp, params["embed"]["out_table"],
-                                     "embed/out_table")}
-    return logits_out(table, x, tp), aux
+    return logits_out(params["embed"], x, tp, dp), aux
 
 
-def prefill(cfg: ArchConfig, params, batch):
-    """-> (last-token logits (B,V), cache {S, x_tm, x_cm})."""
-    x = embed_lookup(params["embed"], batch["tokens"])
-    B = x.shape[0]
-    H, hd = _heads(cfg)
-    L, D = cfg.n_layers, cfg.d_model
-    cache = {"S": torch.empty((L, B, H, hd, hd), dtype=torch.float32,
-                              device=x.device),
-             "x_tm": torch.empty((L, B, D), dtype=x.dtype, device=x.device),
-             "x_cm": torch.empty((L, B, D), dtype=x.dtype, device=x.device)}
+def prefill(cfg: ArchConfig, params, batch, tp=None, dp=None, layout=None):
+    """-> (last-token logits (B,V), cache {S, x_tm, x_cm}).  With ``tp``
+    and ``dp`` the layers run as ``forward``'s, ``S`` holds the rank's
+    heads and the logits are gathered whole over the model axis.  RWKV6
+    keeps no keys: ``layout`` is unused (the engine passes None)."""
+    x = embed_lookup(params["embed"], batch["tokens"], tp, dp)
+    L = cfg.n_layers
+    cache = {}
     stacked = params["layers"]
     for i in range(L):
         lp = T.tree_map(lambda a: a[i], stacked)
-        x, state = _apply_layer(cfg, lp, x)
+        x, state = _apply_layer(cfg, lp, x, tp=tp, dp=dp)
         for key, t in zip(("S", "x_tm", "x_cm"), state):
+            if key not in cache:
+                cache[key] = t.new_empty((L,) + t.shape)
             cache[key][i].copy_(t)
     x = layernorm(params["final_norm"], x, cfg.norm_eps)
-    return logits_out(params["embed"], x[:, -1]), cache
+    return last_logits(params["embed"], x[:, -1], tp, dp), cache
 
 
-def decode_step(cfg: ArchConfig, params, cache, batch):
+def decode_step(cfg: ArchConfig, params, cache, batch, tp=None, dp=None,
+                layout=None):
     """batch: {"token": (B,1) int32, "pos": (B,)} -> (logits (B,V),
     cache); the cache's tensors are updated in place and returned."""
-    x = embed_lookup(params["embed"], batch["token"])      # (B,1,D)
+    x = embed_lookup(params["embed"], batch["token"], tp, dp)   # (B,1,D)
     stacked = params["layers"]
     keys = ("S", "x_tm", "x_cm")
     for i in range(cfg.n_layers):
         lp = T.tree_map(lambda a: a[i], stacked)
         x, state = _apply_layer(cfg, lp, x,
                                 state=tuple(cache[k][i] for k in keys),
-                                chunk=1)
+                                chunk=1, tp=tp, dp=dp)
         for key, t in zip(keys, state):
             cache[key][i].copy_(t)
     x = layernorm(params["final_norm"], x, cfg.norm_eps)
-    return logits_out(params["embed"], x[:, -1]), cache
+    return last_logits(params["embed"], x[:, -1], tp, dp), cache

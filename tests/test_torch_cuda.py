@@ -589,6 +589,7 @@ def test_flash_at_mixtral_shape_matches_plain(card):
 @pytest.mark.parametrize("H,dk,dv,use_u,scalar", [
     (64, 64, 64, True, False),      # rwkv6-7b's decode step
     (25, 16, 64, False, True),      # hymba-1.5b's SSM branch at decode
+    (16, 64, 64, True, False),      # rwkv6-7b's on a rank of a model axis of 4
 ])
 def test_wkv_kernel_at_t1_with_state_matches_plain(card, dtype, H, dk, dv,
                                                    use_u, scalar):
@@ -608,10 +609,12 @@ def test_wkv_kernel_at_t1_with_state_matches_plain(card, dtype, H, dk, dv,
 
 
 @pytest.mark.parametrize("H,Kv,hd,window", [
-    (28, 4, 128, None), (25, 5, 64, 1024), (48, 8, 128, 4096)])
+    (28, 4, 128, None), (25, 5, 64, 1024), (48, 8, 128, 4096),
+    (7, 1, 128, None), (12, 2, 128, 4096)])
 def test_flash_kernel_at_batch_4_matches_plain(card, H, Kv, hd, window):
     """Prefill's shapes: B = 4, Sq = Sk = 2048, bf16, in qwen2-7b's,
-    hymba-1.5b's and mixtral-8x22b's head layouts."""
+    hymba-1.5b's and mixtral-8x22b's head layouts, and a rank's heads of
+    qwen2-7b and mixtral-8x22b on a model axis of 4."""
     rng = np.random.default_rng(H)
     q = _normal(rng, (4, 2048, H, hd), torch.bfloat16, card)
     k = _normal(rng, (4, 2048, Kv, hd), torch.bfloat16, card)
@@ -628,13 +631,16 @@ class _Recording:
     def __init__(self, mod):
         self.mod, self.logits = mod, []
 
-    def prefill(self, *a):
-        out = self.mod.prefill(*a)
+    def __getattr__(self, name):        # cache_decl and the rest
+        return getattr(self.mod, name)
+
+    def prefill(self, *a, **kw):
+        out = self.mod.prefill(*a, **kw)
         self.logits.append(out[0].float().cpu())
         return out
 
-    def decode_step(self, *a):
-        out = self.mod.decode_step(*a)
+    def decode_step(self, *a, **kw):
+        out = self.mod.decode_step(*a, **kw)
         self.logits.append(out[0].float().cpu())
         return out
 

@@ -212,8 +212,8 @@ def test_three_decode_steps_match_reference(m):
     assert rc["cross_k"].shape[2] == m.cfg.frontend.n_tokens   # not padded
     rdec = jax.jit(lambda p, c, b: ref_encdec.decode_step(m.ref_cfg, p, c, b))
     with torch.inference_mode():
-        _, own = encdec.prefill(m.cfg, m.params, as_torch(_prefill_batch(m)))
-        own = kvc.pad_cache(own, S + 8)
+        _, own = encdec.prefill(m.cfg, m.params, as_torch(_prefill_batch(m)),
+                                layout=kvc.CacheLayout("whole", S + 8))
         assert own["cross_k"].shape[2] == m.cfg.frontend.n_tokens
         cross = own["cross_k"].clone()
         for step in range(3):

@@ -75,6 +75,13 @@ def _prompt(B, S, vocab, seed):
         .astype(np.int32)
 
 
+def _grown(grow, S):
+    """The cache layout a prefill of S tokens gets to decode past them
+    (S + 8 slots, where the reference pads a prefilled cache to S + 8), or
+    None: the family's own length."""
+    return kvc.CacheLayout("whole", S + 8) if grow else None
+
+
 def _prefill_batch(cfg, toks, seed):
     """numpy prefill batch: the tokens and the frontend stub's inputs, as
     the engine shapes them (frames of every frame; patches up to S)."""
@@ -131,6 +138,8 @@ def test_kvcache_functions_match_reference():
         kvc.prefilled_pos(B, S, "cpu").numpy(),
         np.asarray(ref_kvc.prefilled_pos(B, S)))
 
+    # a decode step's writes on one device (the layout ``whole``) against
+    # the reference's update_kv_layer and update_kv_pos
     k_l = rng.standard_normal((B, S, K, hd)).astype(np.float32)
     v_l = rng.standard_normal((B, S, K, hd)).astype(np.float32)
     nk = rng.standard_normal((B, 1, K, hd)).astype(np.float32)
@@ -139,30 +148,33 @@ def test_kvcache_functions_match_reference():
     wk, wv = ref_kvc.update_kv_layer(*(jnp.asarray(a) for a in
                                        (k_l, v_l, nk, nv, slot)))
     tk, tv = (torch.from_numpy(a.copy()) for a in (k_l, v_l))
-    gk, gv = kvc.update_kv_layer(tk, tv, torch.from_numpy(nk),
-                                 torch.from_numpy(nv), torch.from_numpy(slot))
-    assert gk is tk and gv is tv                  # in place
-    np.testing.assert_array_equal(gk.numpy(), np.asarray(wk))
-    np.testing.assert_array_equal(gv.numpy(), np.asarray(wv))
+    slots = kvc.token_slot(torch.from_numpy(pos), kvc.CacheLayout("whole", S))
+    kvc.write_token(tk, slots, torch.from_numpy(nk)[:, 0])     # in place
+    kvc.write_token(tv, slots, torch.from_numpy(nv)[:, 0])
+    np.testing.assert_array_equal(tk.numpy(), np.asarray(wk))
+    np.testing.assert_array_equal(tv.numpy(), np.asarray(wv))
 
     kv_pos = np.asarray(ref_kvc.prefilled_pos(B, S))
     want_pos = ref_kvc.update_kv_pos(jnp.asarray(kv_pos), jnp.asarray(pos), S)
     tp = torch.from_numpy(kv_pos.copy())
-    assert kvc.update_kv_pos(tp, torch.from_numpy(pos), S) is tp
+    kvc.write_token(tp, slots, torch.from_numpy(pos))
     np.testing.assert_array_equal(tp.numpy(), np.asarray(want_pos))
 
+    # the reference grows a prefilled cache (pad_cache); the port's
+    # prefill lays the prompt's keys into a cache of the final length
     cache = {"k": np.stack([k_l] * L), "v": np.stack([v_l] * L),
              "kv_pos": kv_pos}
-    for max_len in (S + 5, S, S - 2):
+    for max_len in (S + 5, S):
         want_c = ref_kvc.pad_cache({k: jnp.asarray(v) for k, v in
                                     cache.items()}, max_len)
-        got_c = kvc.pad_cache({k: torch.from_numpy(v.copy()) for k, v in
-                               cache.items()}, max_len)
-        for k in cache:
-            np.testing.assert_array_equal(got_c[k].numpy(),
-                                          np.asarray(want_c[k]))
-    rec = {"S": torch.zeros(1)}
-    assert kvc.pad_cache(rec, 99) == rec          # recurrent state: as is
+        lay = kvc.CacheLayout("whole", max_len)
+        got_k = torch.zeros((L, B, lay.local, K, hd))
+        for layer in got_k:
+            kvc.prefill_kv(layer, torch.from_numpy(k_l), lay)
+        np.testing.assert_array_equal(got_k.numpy(), np.asarray(want_c["k"]))
+        np.testing.assert_array_equal(
+            kvc.prefilled_layout_pos(B, S, lay, "cpu").numpy(),
+            np.asarray(want_c["kv_pos"]))
 
 
 @pytest.mark.parametrize("window,wrapped", [(None, False), (None, True),
@@ -299,9 +311,8 @@ def test_three_decode_steps_match_reference(arch):
         rc = ref_kvc.pad_cache(rc, S + 8)
     rdec = jax.jit(lambda p, c, b: rmod.decode_step(ref_cfg, p, c, b))
     with torch.inference_mode():
-        _, own = pmod.prefill(cfg, params, as_torch(batch))
-        if pad:
-            own = kvc.pad_cache(own, S + 8)
+        _, own = pmod.prefill(cfg, params, as_torch(batch),
+                              layout=_grown(pad, S))
         # the port's prefilled cache through the reference's first step
         first = {"token": jnp.asarray(feed[:, :1]),
                  "pos": jnp.full((B,), S, jnp.int32)}
@@ -337,7 +348,13 @@ def test_arch_prefill_decode_consistency_on_the_port(arch):
     seed, 4 prompts of 32 tokens from a numpy seed (and frames or patches
     from ``inputs.make_batch``); prefill's logits equal forward's last
     position and one decode step after prefill equals forward on S + 1
-    tokens, at the reference test's rtol/atol of 5e-2."""
+    tokens, at the reference test's rtol/atol of 5e-2.  Prefill against
+    forward runs at the config's own capacity (both route the same B x S
+    tokens); the decode step against forward runs an MoE config at a
+    capacity factor of E / top_k: forward routes all B x (S + 1) tokens
+    and may drop the last token's assignments at the default capacity,
+    where decode's B tokens drop none, and then the two differ by design
+    (the reference's semantics), not by rounding."""
     cfg = smoke_config(get_arch(arch))
     params = model_api.init_params(cfg, 0, "cpu")
     mod = model_api.get_model(cfg)
@@ -345,13 +362,16 @@ def test_arch_prefill_decode_consistency_on_the_port(arch):
                               device="cpu")
     toks = batch["tokens"] = torch.from_numpy(_prompt(4, 32, cfg.vocab, 0))
     S = toks.shape[1]
+    grow = _grown(cfg.window is None and cfg.family != "rwkv", S)
     with torch.inference_mode():
-        plog, cache = mod.prefill(cfg, params, batch)
+        plog, cache = mod.prefill(cfg, params, batch, layout=grow)
         flog, _ = mod.forward(cfg, params, batch)
         torch.testing.assert_close(plog.float(), flog[:, -1].float(),
                                    rtol=5e-2, atol=5e-2)
-        if cfg.window is None and cfg.family != "rwkv":
-            cache = kvc.pad_cache(cache, S + 8)
+        if cfg.moe is not None:
+            cfg = cfg.replace(moe=dataclasses.replace(
+                cfg.moe, capacity_factor=cfg.moe.n_experts / cfg.moe.top_k))
+            plog, cache = mod.prefill(cfg, params, batch, layout=grow)
         tok = plog.argmax(-1).to(torch.int32)[:, None]
         dlog, _ = mod.decode_step(cfg, params, cache,
                                   {"token": tok,
@@ -465,10 +485,10 @@ def _first_decode_vs_forward(arch, S, pad, **kw):
     db = {"token": toks[:, S:], "pos": np.full((B,), S, np.int32)}
     with torch.inference_mode():
         tt = torch.from_numpy(toks)
-        _, cache = pmod.prefill(cfg, params, {"tokens": tt[:, :S]})
+        _, cache = pmod.prefill(cfg, params, {"tokens": tt[:, :S]},
+                                layout=_grown(pad, S))
         if pad:
-            rc, cache = ref_kvc.pad_cache(rc, S + 8), kvc.pad_cache(cache,
-                                                                    S + 8)
+            rc = ref_kvc.pad_cache(rc, S + 8)
         got, _ = pmod.decode_step(cfg, params, cache,
                                   {k: torch.from_numpy(v)
                                    for k, v in db.items()})

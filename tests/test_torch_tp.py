@@ -596,8 +596,16 @@ def test_adafactor_shared_mode_and_pods_on_model_axis_raise():
 
 
 def test_serving_on_model_axis_raises():
-    cfg = R.qwen2_smoke()
-    with pytest.raises(NotImplementedError, match="5b-v"):
-        ServeEngine(cfg, {}, mesh=_grid(1, 2))
-    engine = ServeEngine(cfg, {}, mesh=_grid(1, 1))   # a rank's card
-    assert engine.device == torch.device("cpu")
+    """Serving on a model axis runs for the dense family (ROADMAP item
+    5b-v): the engine builds on (1, 2) with its model axis; the
+    encoder-decoder and VLM families raise there, naming item 5b-vii."""
+    mesh = _grid(1, 2)
+    mesh.group = lambda ax: None
+    mesh.coord = lambda ax: 0
+    for arch in ("whisper-small", "internvl2-2b"):
+        with pytest.raises(NotImplementedError, match="5b-vii"):
+            ServeEngine(smoke_config(get_arch(arch)), {}, mesh=mesh)
+    engine = ServeEngine(R.qwen2_smoke(), {}, mesh=mesh)
+    assert engine.tp.size == 2 and engine.device == torch.device("cpu")
+    engine = ServeEngine(R.qwen2_smoke(), {}, mesh=_grid(1, 1))  # a card
+    assert engine.tp is None and engine.device == torch.device("cpu")

@@ -174,8 +174,8 @@ def test_three_decode_steps_match_reference(m):
     rdec = jax.jit(lambda p, c, b: ref_decoder.decode_step(m.ref_cfg, p, c,
                                                            b))
     with torch.inference_mode():
-        _, own = decoder.prefill(m.cfg, m.params, as_torch(_prefill_batch(m)))
-        own = kvc.pad_cache(own, S + 8)
+        _, own = decoder.prefill(m.cfg, m.params, as_torch(_prefill_batch(m)),
+                                 layout=kvc.CacheLayout("whole", S + 8))
         for step in range(3):
             db = {"token": feed[:, step:step + 1],
                   "pos": np.full((B,), S + step, np.int32)}

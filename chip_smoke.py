@@ -61,9 +61,18 @@ engine, bit for bit; on four, qwen2-7b (its cache split on its sequence
 and on its kv heads), rwkv6-7b, hymba-1.5b and (on (2, 2), shared mode)
 mixtral-8x22b at one layer on (1, 4) and (2, 2) against the single card,
 teacher-forced, and mixtral-8x22b at all 56 layers, qwen2-7b at 28 (also
-at a 32 768-token context) and rwkv6-7b at 32 served on (1, 4).
+at a 32 768-token context) and rwkv6-7b at 32 served on (1, 4).  The
+encoder-decoder and VLM families run on ranks too, through the round step
+with frames or patches (``_FrontendTrainer``): whisper-small (one encoder
+and one decoder layer) and internvl2-2b (one layer) against the single
+card on (1, 4) and (2, 2) (``fe_agree``) and in shared mode on (2, 2, 1)
+and (1, 2, 2) (``fe_shared_agree``), whisper-small at 12 + 12 layers and
+internvl2-2b at 24 of 24 on (1, 4) and (2, 2) (``fe_time``); served, both
+join the (1, 1) leg and ``serve_tp_agree`` (whisper's self cache split on
+its kv heads or its sequence, its cross cache on its 1500 frames), and
+``serve_tp_time`` serves them at full depth on (1, 4).
 Each phase prints JSON lines, and a ``walls`` line gives each phase's
-wall time in seconds; then one line lists every kernel, one line
+wall time in seconds (and rank 0's of each leg a rank spawn ran); then one line lists every kernel, one line
 gives the card's name and power limit as nvidia-smi reports them, and the
 last line is ``{"ok": true, "device": ...}``.  Any failure raises and
 exits non-zero; nothing runs on the CPU but the strategies' references.
@@ -1282,6 +1291,13 @@ SERVE_FLASH_CASES = [  # name, B, Sq, Sk, H, Kv, hd, causal, window
     # a rank's heads when serving on a model axis of 4 (phase_serve_tp)
     ("qwen2_rank4", 4, 2048, 2048, 7, 1, 128, True, None),
     ("mixtral_rank4", 4, 2048, 2048, 12, 2, 128, True, 4096),
+    # a rank's heads on a model axis of 4 (whisper-small: 3 of 12; the
+    # train cell's 448 tokens over 1500 frames) and of 4 and 2
+    # (internvl2-2b: 4 / 2 and 8 / 4 of 16 / 8), training and prefill
+    ("whisper_encoder_rank4", 4, 1500, 1500, 3, 3, 64, False, None),
+    ("whisper_cross_rank4", 4, 448, 1500, 3, 3, 64, False, None),
+    ("internvl2_rank4", 1, 2048, 2048, 4, 2, 128, True, None),
+    ("internvl2_rank2", 1, 2048, 2048, 8, 4, 128, True, None),
 ]
 SERVE_WKV_CASES = [
     ("decode_rwkv6", 4, 1, 64, 64, 64, 1, True, False, True, "bfloat16"),
@@ -2075,13 +2091,19 @@ LIN_TIME = [((1, 4), "rwkv6-7b", 32, "tree"),
             ((2, 2), "rwkv6-7b", 32, "flat")]
 
 
-def _path_launches(arch, n_layers) -> dict:
+def _path_launches(arch, n_layers, seq=DIST_SEQ) -> dict:
     """The flash and WKV launches a rank's two rounds of ``arch`` at
     ``n_layers`` make: each attention or scan twice a layer a round (the
-    forward and remat's recompute; the backwards are plain)."""
+    forward and remat's recompute; the backwards are plain).  The
+    encoder-decoder, cut to ``n_layers`` encoder and decoder layers, runs
+    flash in its encoder and its cross-attention (over 1500 frames) and in
+    its decoder's self-attention where ``seq`` is above the threshold."""
     from repro_torch.configs.base import get_arch
-    family = get_arch(arch).family
+    cfg = get_arch(arch)
+    family = cfg.family
     per = 2 * n_layers * ROUNDS
+    if family == "encdec":
+        per *= 2 + (seq > cfg.attn_chunk_threshold)
     return {"flash_fwd": 0 if family == "rwkv" else per,
             "wkv6": per if family == "rwkv" else 0,
             "ssm_scan": per if family == "hybrid" else 0}
@@ -2289,13 +2311,21 @@ def _tp_time(torch, mesh, sched) -> dict:
     return out
 
 
-def _agree_rounds(torch, mesh, cases, bpc) -> list:
+def _per(x, arch):
+    """``x``, or where it is a dict of architectures, ``x[arch]``."""
+    return x[arch] if isinstance(x, dict) else x
+
+
+def _agree_rounds(torch, mesh, cases, bpc, trainer=None,
+                  seq=DIST_SEQ) -> list:
     """Two rounds of each (config, schedule, strategy) case on this mesh
-    (batch ``bpc`` a client) against the single-card trainer of the same K
-    clients that rank 0 runs on its card first.  Slot 0 after each round
-    is broadcast from rank 0, and each rank compares its block (its place
-    on the axes other than the client axis); so are the quantization steps
-    of the initial bank's rows (``compressed``)."""
+    (batch ``bpc`` a client, ``seq`` tokens: each a number or a dict by
+    architecture) against the single-card trainer of the same K clients
+    that rank 0 runs on its card first (``trainer``: ``SDFLMQTrainer`` or
+    ``_FrontendTrainer``).  Slot 0 after each round is broadcast from rank
+    0, and each rank compares its block (its place on the axes other than
+    the client axis); so are the quantization steps of the initial bank's
+    rows (``compressed``)."""
     import torch.distributed as dist
     from repro_torch import tree as T
     from repro_torch.core import fl_step
@@ -2304,8 +2334,10 @@ def _agree_rounds(torch, mesh, cases, bpc) -> list:
     from repro_torch.models import moe
 
     dev = mesh.device
+    trainer = trainer or SDFLMQTrainer
     rows = []
     for cfg, sched, strat in cases:
+        n_bpc, n_seq = _per(bpc, cfg.name), _per(seq, cfg.name)
         K = fl_step.n_clients_for(cfg, mesh)
         axis = fl_step.client_axis_for(cfg, mesh)
         one_client = {**mesh.shape, **({axis: 1} if axis else {})}
@@ -2340,8 +2372,7 @@ def _agree_rounds(torch, mesh, cases, bpc) -> list:
         if mesh.rank == 0:
             gc.collect()
             torch.cuda.empty_cache()
-            one = SDFLMQTrainer(cfg, K, ROUNDS, bpc, DIST_SEQ, device=dev,
-                                **kw)
+            one = trainer(cfg, K, ROUNDS, n_bpc, n_seq, device=dev, **kw)
             if sched == "compressed":
                 steps = _row_steps(torch, one.state["params"])
             ms1, want, stats1 = run(one)
@@ -2354,7 +2385,7 @@ def _agree_rounds(torch, mesh, cases, bpc) -> list:
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats(dev)
         reset_launches()
-        tr = SDFLMQTrainer(cfg, K, ROUNDS, bpc, DIST_SEQ, mesh=mesh, **kw)
+        tr = trainer(cfg, K, ROUNDS, n_bpc, n_seq, mesh=mesh, **kw)
         ms, slots, stats = run(tr)
         launches = read_launches()
         del tr
@@ -2440,10 +2471,135 @@ def _shared_agree(torch, mesh) -> list:
         SHARED_BPC)
 
 
-def _time_leg(torch, mesh, cfg, sched, bpc) -> dict:
+# the encoder-decoder and VLM families on the model axis and in shared
+# mode, at their train cells' traffic: whisper-small batch 4 a client of
+# 448 tokens and 1500 frames, internvl2-2b batch 1 of 2048 tokens with 256
+# patches (2 a client in shared mode, so each of two data ranks takes a
+# row).  Leg ``fe_agree`` at one layer (whisper: one encoder and one
+# decoder layer), two rounds (round 0 at a learning rate of 0) against the
+# single-card rounds on card 0 under ``_emit_agree``'s checks, on (1, 4)
+# (K = 1) and (2, 2) (K = 2); ``fe_shared_agree`` the same on (2, 2, 1) and
+# (1, 2, 2) in shared mode
+FE_SEQ = {"whisper-small": 448, "internvl2-2b": 2048}
+FE_BPC = {"whisper-small": 4, "internvl2-2b": 1}
+FE_SHARED_BPC = {"whisper-small": 4, "internvl2-2b": 2}
+FE_AGREE = {(1, 4): [("whisper-small", "flat", "fedavg"),
+                     ("internvl2-2b", "flat", "fedavg")],
+            (2, 2): [("whisper-small", "tree", "fedavg"),
+                     ("whisper-small", "compressed", "fedavg"),
+                     ("internvl2-2b", "tree", "fedavg"),
+                     ("internvl2-2b", "tree", "multi_krum")]}
+FE_SHARED_AGREE = {(2, 2, 1): [("whisper-small", "tree", "fedavg"),
+                               ("internvl2-2b", "tree", "fedavg")],
+                   (1, 2, 2): [("whisper-small", "flat", "fedavg"),
+                               ("internvl2-2b", "flat", "fedavg")]}
+# leg ``fe_time``: (mesh, arch, layers, schedule), two rounds each, at full
+# depth: whisper-small's 12 + 12 layers (0.28 B parameters), and
+# internvl2-2b's 24 (1.89 B, about 0.95 B a rank on (2, 2) with AdamW's
+# f32 moments; the single-card K = 4 cell stops at 16 of 24)
+FE_TIME = [((1, 4), "whisper-small", 12, "tree"),
+           ((1, 4), "internvl2-2b", 24, "tree"),
+           ((2, 2), "internvl2-2b", 24, "flat")]
+
+
+def _fe_cfg(arch, n_layers, mode=None):
+    """``arch`` cut to ``n_layers`` (the encoder-decoder's encoder too), in
+    ``mode`` (by default its own)."""
+    import dataclasses
+    from repro_torch.configs.base import get_arch
+    cfg = get_arch(arch)
+    cut = {"n_layers": n_layers}
+    if cfg.family == "encdec":
+        cut["n_enc_layers"] = n_layers
+    cfg = cfg.replace(**cut)
+    return cfg if mode is None else cfg.replace(
+        fl=dataclasses.replace(cfg.fl, mode=mode))
+
+
+class _FrontendTrainer:
+    """``SDFLMQTrainer`` as the agree and time legs read it, for the
+    encoder-decoder and VLM families, whose batches carry frames or
+    patches where the trainer feeds tokens only: the rounds go through
+    ``fl_step.init_state`` and ``build_fl_round_step`` as
+    ``phase_train_frontend``'s do, each round's batch of the K clients from
+    ``inputs.make_batch`` (tokens, and frames or patches, from the round's
+    seed).  K clients on one card, or this rank's client on ``mesh``;
+    client weights ``TP_AGREE_WEIGHTS``; ``tree`` is a two-level cluster
+    tree over the clients."""
+
+    def __init__(self, cfg, n, rounds, bpc, seq, seed=0, device=None,
+                 mesh=None, schedule_kind="tree", strategy="fedavg"):
+        from repro_torch.core import fl_step
+        from repro_torch.core.clustering import build_tree
+        from repro_torch.core.topology import AggSchedule, compile_tree
+        self.cfg, self.n, self.rounds = cfg, n, rounds
+        self.bpc, self.seq, self.mesh = bpc, seq, mesh
+        self.device = device if mesh is None else mesh.device
+        where = n if mesh is None else mesh
+        if schedule_kind == "tree" and n > 1:
+            clients = [f"c{i}" for i in range(n)]
+            self.schedule = compile_tree(build_tree(
+                "s", clients, clients, aggregator_ratio=0.5, levels=3))
+        else:
+            self.schedule = AggSchedule(schedule_kind, n)
+        self.state = fl_step.init_state(cfg, where, seed, self.device,
+                                        total_steps=rounds)
+        self.step = fl_step.build_fl_round_step(
+            cfg, where, self.schedule, self.device, total_steps=rounds,
+            strategy=strategy)
+        self.who = 0 if mesh is None or n == 1 else mesh.coord(
+            fl_step.client_axis_for(cfg, mesh))
+        self.on_round_end = None
+
+    def run(self) -> list:
+        import numpy as np
+        from repro_torch.configs.base import ShapeConfig
+        from repro_torch.core import fl_step
+        from repro_torch.models import inputs
+        K, mesh = self.n, self.mesh
+        weights = np.array(TP_AGREE_WEIGHTS[:K], np.float32)
+        shape = ShapeConfig("frontend", self.seq, K * self.bpc, "train")
+        out = []
+        for r in range(self.rounds):
+            t0 = time.perf_counter()
+            batch = inputs.make_batch(self.cfg, shape, r, clients=K,
+                                      device=self.device)
+            if mesh is not None or K == 1:     # one client: no client dim
+                batch = {k: v[self.who] for k, v in batch.items()}
+            self.state, m = self.step(self.state, batch, weights)
+            loss = float(m["loss"])            # waits for the device
+            dt = time.perf_counter() - t0
+            rank_ms = fl_step.span_ms(m["spans"])
+            spans = rank_ms if mesh is None else {
+                k: mesh.all_max(v) for k, v in rank_ms.items()}
+            out.append({"round": r, "loss": loss, "time_s": dt,
+                        "tokens_per_s": K * self.bpc * self.seq
+                        * self.cfg.fl.local_steps / dt,
+                        "level_groups": self.schedule.level_groups,
+                        **spans, "rank_ms": rank_ms})
+            del batch
+            if self.on_round_end is not None:
+                self.on_round_end(r, self.state)
+        return out
+
+
+def _fe_agree(torch, mesh, table, mode, bpc) -> list:
+    """Legs ``fe_agree`` and ``fe_shared_agree`` on this mesh: two rounds
+    of each case of ``table`` at one layer in ``mode`` against the
+    single-card rounds."""
+    shape = tuple(mesh.shape.values())
+    return _agree_rounds(torch, mesh, [
+        (_fe_cfg(arch, 1, mode), sched, strat)
+        for arch, sched, strat in table[shape]], bpc,
+        trainer=_FrontendTrainer, seq=FE_SEQ)
+
+
+def _time_leg(torch, mesh, cfg, sched, bpc, trainer=None,
+              seq=DIST_SEQ) -> dict:
     """Two rounds of ``cfg`` on this mesh under ``sched`` (the config's
-    optimizer), batch ``bpc`` a client: round times, peaks, the spans a
-    rank and their maximum, routing, launches."""
+    optimizer), batch ``bpc`` a client of ``seq`` tokens (``trainer``:
+    ``SDFLMQTrainer`` or ``_FrontendTrainer``): round times, peaks, the
+    spans a rank and their maximum, routing, launches."""
     from repro_torch import tree as T
     from repro_torch.core import fl_step
     from repro_torch.launch.train import SDFLMQTrainer
@@ -2454,8 +2610,8 @@ def _time_leg(torch, mesh, cfg, sched, bpc) -> dict:
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats(dev)
     t0 = time.perf_counter()
-    tr = SDFLMQTrainer(cfg, K, ROUNDS, bpc, DIST_SEQ, seed=0, mesh=mesh,
-                       schedule_kind=sched)
+    tr = (trainer or SDFLMQTrainer)(cfg, K, ROUNDS, bpc, seq, seed=0,
+                                    mesh=mesh, schedule_kind=sched)
     torch.cuda.synchronize(dev)
     init_s = time.perf_counter() - t0
     init_peak = torch.cuda.max_memory_allocated(dev)
@@ -2484,18 +2640,35 @@ def _time_leg(torch, mesh, cfg, sched, bpc) -> dict:
     return out
 
 
+# (mesh, leg) -> rank 0's wall seconds of each leg a spawn ran, for the
+# ``walls`` line
+LEG_WALLS = {}
+
+
+def _spawned(phase, shape, legs, wall_s, ranks):
+    """A spawn's line: its legs, its wall time and rank 0's of each leg."""
+    leg_s = ranks[0]["leg_s"]
+    LEG_WALLS.update({f"{'x'.join(map(str, shape))}:{k}": v
+                      for k, v in leg_s.items()})
+    emit({"phase": phase, "mesh": list(shape), "legs": legs,
+          "wall_s": wall_s, "leg_s": leg_s})
+
+
 def _tp_rank(mesh, legs):
     """One rank of the model-axis and shared-mode legs (a spawned process),
     with the matmul settings of ``main``: ``tp_agree``, ``moe_agree``,
-    ``lin_agree``, ``shared_agree``, each ``tp_time:<sched>`` and each
-    ``{moe,lin,shared}_time:<arch>:<layers>:<sched>`` in ``legs``."""
+    ``lin_agree``, ``shared_agree``, ``fe_agree``, ``fe_shared_agree``,
+    each ``tp_time:<sched>`` and each
+    ``{moe,lin,shared,fe}_time:<arch>:<layers>:<sched>`` in ``legs``."""
     import torch
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     out = {"rank": mesh.rank, "shape": mesh.shape,
            "device": torch.cuda.get_device_name(mesh.device)}
     from repro_torch.configs.base import get_arch
+    leg_s = out["leg_s"] = {}
     for leg in legs:
+        t0 = time.perf_counter()
         if leg == "tp_agree":
             out[leg] = _tp_agree(torch, mesh)
         elif leg == "moe_agree":
@@ -2504,6 +2677,16 @@ def _tp_rank(mesh, legs):
             out[leg] = _lin_agree(torch, mesh)
         elif leg == "shared_agree":
             out[leg] = _shared_agree(torch, mesh)
+        elif leg == "fe_agree":
+            out[leg] = _fe_agree(torch, mesh, FE_AGREE, None, FE_BPC)
+        elif leg == "fe_shared_agree":
+            out[leg] = _fe_agree(torch, mesh, FE_SHARED_AGREE, "shared",
+                                 FE_SHARED_BPC)
+        elif leg.startswith("fe_time:"):
+            _, arch, n_layers, sched = leg.split(":")
+            out[leg] = _time_leg(torch, mesh, _fe_cfg(arch, int(n_layers)),
+                                 sched, FE_BPC[arch], _FrontendTrainer,
+                                 FE_SEQ[arch])
         elif leg.startswith(("moe_time:", "lin_time:", "shared_time:")):
             kind, arch, n_layers, sched = leg.split(":")
             mode, bpc = ((_shared, SHARED_BPC) if kind == "shared_time"
@@ -2512,6 +2695,7 @@ def _tp_rank(mesh, legs):
             out[leg] = _time_leg(torch, mesh, cfg, sched, bpc)
         else:
             out[leg] = _tp_time(torch, mesh, leg.split(":")[1])
+        leg_s[leg] = time.perf_counter() - t0
     return out
 
 
@@ -2605,7 +2789,7 @@ def _emit_tp_time(shape, sched, rows, add, faults):
         faults.append(f"tp_time {shape} {sched}: {rows}")
 
 
-def _emit_agree(phase, shape, cases, bpc, ranks, add, faults):
+def _emit_agree(phase, shape, cases, bpc, ranks, add, faults, seq=DIST_SEQ):
     """The lines of an agree leg (``moe_agree``, ``shared_agree``) on a mesh
     and their checks: losses within ``TP_LOSS_RTOL``; round 0 (a learning
     rate of 0: the aggregation alone) under ``_slot_compare``'s sum rule,
@@ -2617,7 +2801,8 @@ def _emit_agree(phase, shape, cases, bpc, ranks, add, faults):
     ``MOE_DROP_SHARE`` of the assignments of the single card's; equal
     blocks on the ranks that hold the same block of different clients;
     exact flash, WKV (``_path_launches``) and qagg counts.  ``cases``:
-    (arch, schedule, strategy)."""
+    (arch, schedule, strategy); ``bpc`` and ``seq``: numbers, or dicts by
+    architecture."""
     from repro_torch.configs.base import get_arch
     keys = ("exact", "max_abs_err", "elements_differing",
             "beyond_1_bf16_ulp", "beyond_1_bf16_ulp_max_err",
@@ -2630,6 +2815,7 @@ def _emit_agree(phase, shape, cases, bpc, ranks, add, faults):
             add(r["launches"])
         lead = rows[0]
         K = lead["K"]
+        n_bpc, n_seq = _per(bpc, arch), _per(seq, arch)
         period = len(rows) // K      # the client axis is the outermost
         same = all(rows[r][f"round{k}"]["checksum"]
                    == rows[r % period][f"round{k}"]["checksum"]
@@ -2641,10 +2827,10 @@ def _emit_agree(phase, shape, cases, bpc, ranks, add, faults):
         calls = sum(rows[r]["routing"]["calls"] for r in heads)
         single = lead["single_routing"]
         moe = get_arch(arch).moe
-        assignments = calls * bpc * DIST_SEQ * (moe.top_k if moe else 0)
+        assignments = calls * n_bpc * n_seq * (moe.top_k if moe else 0)
         emit({"phase": phase, "mesh": list(shape), "arch": arch,
-              "n_layers": 1, "clients": K, "batch_per_client": bpc,
-              "seq": DIST_SEQ, "optimizer": lead["optimizer"],
+              "n_layers": 1, "clients": K, "batch_per_client": n_bpc,
+              "seq": n_seq, "optimizer": lead["optimizer"],
               "schedule": sched, "strategy": strat, "rounds": ROUNDS,
               "losses": lead["losses"],
               "single_card_losses": lead["single_losses"],
@@ -2684,7 +2870,8 @@ def _emit_agree(phase, shape, cases, bpc, ranks, add, faults):
                               f"round1 { {x: r1.get(x) for x in keys} }")
             want_qagg = r["leaves"] * ROUNDS if sched == "compressed" else 0
             got = r["launches"]
-            if (any(got[k] != n for k, n in _path_launches(arch, 1).items())
+            if (any(got[k] != n
+                    for k, n in _path_launches(arch, 1, n_seq).items())
                     or got["qagg"] != want_qagg or got["fedavg"]
                     or got["quantize"] or got["dequantize"]):
                 faults.append(f"{name}: launches {got}")
@@ -2698,7 +2885,7 @@ def _emit_agree(phase, shape, cases, bpc, ranks, add, faults):
 
 
 def _emit_time(phase, shape, arch, n_layers, sched, bpc, rows, add,
-               faults):
+               faults, seq=DIST_SEQ):
     """A time leg's line (``moe_time``, ``lin_time``, ``shared_time``) and
     its checks: finite losses, equal blocks across the clients, the
     config's optimizer, every peak under the card, flash and WKV exactly 2
@@ -2714,15 +2901,14 @@ def _emit_time(phase, shape, arch, n_layers, sched, bpc, rows, add,
     total = get_arch(arch).n_layers
     routing = lead["routing"]
     moe = get_arch(arch).moe
-    assignments = routing["calls"] * bpc * DIST_SEQ * (moe.top_k if moe
-                                                       else 0)
+    assignments = routing["calls"] * bpc * seq * (moe.top_k if moe else 0)
     emit({"phase": phase, "mesh": list(shape), "arch": arch,
           "mode": lead["mode"], "optimizer": lead["optimizer"],
           "schedule": sched, "n_layers": n_layers,
           "reduced": [] if n_layers == total else
           [f"depth {n_layers} of {total}"],
           "clients": lead["K"], "batch_per_client": bpc,
-          "seq": DIST_SEQ, "rounds": ROUNDS,
+          "seq": seq, "rounds": ROUNDS,
           "params_per_rank": [r["params_per_rank"] for r in rows],
           "init_s_rank": [r["init_s"] for r in rows],
           "init_peak_rank": [r["init_peak"] for r in rows],
@@ -2744,7 +2930,7 @@ def _emit_time(phase, shape, arch, n_layers, sched, bpc, rows, add,
           "ssm_scan_rank": [r["launches"]["ssm_scan"] for r in rows],
           "qagg_rank": [r["launches"]["qagg"] for r in rows],
           "blocks_identical_across_clients": same})
-    want = _path_launches(arch, n_layers)
+    want = _path_launches(arch, n_layers, seq)
     want_qagg = lead["leaves"] * ROUNDS if sched == "compressed" else 0
     if (not all(math.isfinite(x) for x in lead["losses"]) or not same
             or lead["optimizer"] != get_arch(arch).optimizer
@@ -2757,9 +2943,9 @@ def _emit_time(phase, shape, arch, n_layers, sched, bpc, rows, add,
 
 def phase_tp(torch, dev) -> dict:
     """The model axis over four cards: leg (d) ``tp_time``, leg (f)
-    ``moe_time`` and ``lin_time`` on a (1, 4) mesh, then on a (2, 2) one
-    legs (c) ``tp_agree``, (e) ``moe_agree``, ``lin_agree``, (d), (f) and
-    ``lin_time``.  Each mesh's lines are printed as soon as it ends, before
+    ``moe_time``, ``lin_time``, ``fe_agree`` and ``fe_time`` on a (1, 4)
+    mesh, then on a (2, 2) one legs (c) ``tp_agree``, (e) ``moe_agree``,
+    ``lin_agree``, ``fe_agree``, (d), (f), ``lin_time`` and ``fe_time``.  Each mesh's lines are printed as soon as it ends, before
     any check fails the phase; returns the legs' launches, summed over the
     ranks."""
     from repro_torch.launch import mesh as mesh_lib
@@ -2774,16 +2960,17 @@ def phase_tp(torch, dev) -> dict:
         legs = [f"tp_time:{sched}" for sh, sched in TP_TIME if sh == shape]
         if shape == (2, 2):
             legs[:0] = ["tp_agree", "moe_agree", "lin_agree"]
-        legs += [f"{kind}_time:{arch}:{n}:{sched}"
-                 for kind, table in (("moe", MOE_TIME), ("lin", LIN_TIME))
-                 for sh, arch, n, sched in table if sh == shape]
+        legs += ["fe_agree"] + [
+            f"{kind}_time:{arch}:{n}:{sched}"
+            for kind, table in (("moe", MOE_TIME), ("lin", LIN_TIME),
+                                ("fe", FE_TIME))
+            for sh, arch, n, sched in table if sh == shape]
         gc.collect()
         torch.cuda.empty_cache()
         t0 = time.perf_counter()
         ranks = mesh_lib.spawn(_tp_rank, shape[0], (legs,), model=shape[1],
                                device="cuda", timeout_s=TP_TIMEOUT_S)
-        emit({"phase": "tp_spawn", "mesh": list(shape), "legs": legs,
-              "wall_s": time.perf_counter() - t0})
+        _spawned("tp_spawn", shape, legs, time.perf_counter() - t0, ranks)
         if "tp_agree" in legs:
             _emit_tp_agree(ranks, add, faults)
         if "moe_agree" in legs:
@@ -2792,17 +2979,23 @@ def phase_tp(torch, dev) -> dict:
                         BATCH_PER_CLIENT, ranks, add, faults)
             _emit_agree("lin_agree", shape, LIN_AGREE, BATCH_PER_CLIENT,
                         ranks, add, faults)
+        _emit_agree("fe_agree", shape, FE_AGREE[shape], FE_BPC, ranks, add,
+                    faults, FE_SEQ)
         for sh, sched in TP_TIME:
             if sh == shape:
                 _emit_tp_time(shape, sched, [r[f"tp_time:{sched}"]
                                              for r in ranks], add, faults)
-        for kind, table in (("moe", MOE_TIME), ("lin", LIN_TIME)):
+        for kind, table in (("moe", MOE_TIME), ("lin", LIN_TIME),
+                            ("fe", FE_TIME)):
             for sh, arch, n, sched in table:
                 if sh == shape:
                     _emit_time(f"{kind}_time", shape, arch, n, sched,
-                               BATCH_PER_CLIENT,
+                               _per(FE_BPC, arch) if kind == "fe"
+                               else BATCH_PER_CLIENT,
                                [r[f"{kind}_time:{arch}:{n}:{sched}"]
-                                for r in ranks], add, faults)
+                                for r in ranks], add, faults,
+                               _per(FE_SEQ, arch) if kind == "fe"
+                               else DIST_SEQ)
     if faults:
         raise AssertionError("\n".join(faults))
     return launches
@@ -2842,8 +3035,9 @@ def _shared(cfg):
 
 def phase_shared(torch, dev) -> dict:
     """The shared mode over four cards, one spawn a mesh shape: leg (g)
-    ``shared_agree`` and leg (h) ``shared_time`` on a (2, 2, 1) mesh, then
-    leg (g) on a (1, 2, 2) one.  Each mesh's lines are printed as soon as
+    ``shared_agree``, ``fe_shared_agree`` and leg (h) ``shared_time`` on a
+    (2, 2, 1) mesh, then legs (g) and ``fe_shared_agree`` on a (1, 2, 2)
+    one.  Each mesh's lines are printed as soon as
     it ends, before any check fails the phase; returns the legs'
     launches, summed over the ranks."""
     from repro_torch.launch import mesh as mesh_lib
@@ -2855,7 +3049,7 @@ def phase_shared(torch, dev) -> dict:
             launches[k] = launches.get(k, 0) + v
 
     for shape, cases in SHARED_AGREE.items():
-        legs = ["shared_agree"]
+        legs = ["shared_agree", "fe_shared_agree"]
         if shape == (2, 2, 1):
             legs += [f"shared_time:{arch}:{n}:{sched}"
                      for arch, n, sched in SHARED_TIME]
@@ -2865,10 +3059,11 @@ def phase_shared(torch, dev) -> dict:
         ranks = mesh_lib.spawn(_tp_rank, shape[1], (legs,), model=shape[2],
                                pods=shape[0], device="cuda",
                                timeout_s=TP_TIMEOUT_S)
-        emit({"phase": "shared_spawn", "mesh": list(shape), "legs": legs,
-              "wall_s": time.perf_counter() - t0})
+        _spawned("shared_spawn", shape, legs, time.perf_counter() - t0, ranks)
         _emit_agree("shared_agree", shape, cases, SHARED_BPC, ranks, add,
                     faults)
+        _emit_agree("fe_shared_agree", shape, FE_SHARED_AGREE[shape],
+                    FE_SHARED_BPC, ranks, add, faults, FE_SEQ)
         if shape == (2, 2, 1):
             for arch, n, sched in SHARED_TIME:
                 _emit_time("shared_time", shape, arch, n, sched, SHARED_BPC,
@@ -2897,12 +3092,22 @@ SERVE_TP_AGREE = {
              ("rwkv6-7b", (2048, 2048, 1800, 1536), None),
              ("hymba-1.5b", (2048, 2048, 2048, 2048), "seq"),
              ("hymba-1.5b", (1800, 1800, 1536, 1800), "seq"),
-             ("hymba-1.5b", (1001, 1001, 900, 1001), "whole")],
+             ("hymba-1.5b", (1001, 1001, 900, 1001), "whole"),
+             ("whisper-small", (224, 224, 100, 224), "heads"),
+             ("whisper-small", (223, 223, 223, 60), "seq"),
+             ("internvl2-2b", (2047, 2047, 1900, 1536), "seq")],
     (2, 2): [("qwen2-7b", (2047, 2047, 1900, 1536), "seq"),
              ("qwen2-7b", (2048, 2048, 1700, 2048), "heads"),
              ("mixtral-8x22b", (2048, 2048, 1900, 2048), "seq"),
              ("rwkv6-7b", (2048, 2048, 1800, 1536), None),
-             ("hymba-1.5b", (1800, 1800, 1536, 1800), "seq")]}
+             ("hymba-1.5b", (1800, 1800, 1536, 1800), "seq"),
+             ("whisper-small", (223, 223, 12, 223), "seq"),
+             ("internvl2-2b", (2048, 2048, 1700, 2048), "heads")]}
+# whisper-small's cross cache of 1500 frames splits on its sequence at a
+# model axis of 2 and of 4, whatever its self cache's layout (S + 33 slots:
+# 257 at a 224-token prompt, heads; 256 at 223, seq); frames or patches
+# from a seed (``_frontend_engine``)
+SERVE_TP_CROSS = {"whisper-small": "seq"}
 # leg (j) ``serve_tp_time`` on (1, 4): the serving cells' traffic (8
 # requests at batch 4, prompts of 1536-2048 tokens, 32 new) at full depth,
 # and qwen2-7b at the reference's decode_32k context (one batch of 4
@@ -2911,7 +3116,9 @@ SERVE_TP_AGREE = {
 SERVE_TP_TIME = [("mixtral-8x22b", 56, SERVE_PROMPT, SERVE_REQUESTS, None),
                  ("qwen2-7b", 28, SERVE_PROMPT, SERVE_REQUESTS, None),
                  ("rwkv6-7b", 32, SERVE_PROMPT, SERVE_REQUESTS, None),
-                 ("qwen2-7b", 28, (32768, 32768), SERVE_BATCH, 32800)]
+                 ("qwen2-7b", 28, (32768, 32768), SERVE_BATCH, 32800),
+                 ("whisper-small", 12, (4, 224), SERVE_REQUESTS, 448),
+                 ("internvl2-2b", 24, SERVE_PROMPT, SERVE_REQUESTS, None)]
 SERVE_TP_TIMEOUT_S = 900
 
 
@@ -2925,6 +3132,52 @@ def _nodrop(cfg):
         return cfg
     return cfg.replace(moe=dataclasses.replace(
         cfg.moe, capacity_factor=cfg.moe.n_experts / cfg.moe.top_k))
+
+
+def _frontend_engine():
+    """``ServeEngine`` with the encoder-decoder's frames or the VLM's
+    patches drawn from a seed in place of its zero stub inputs (zero ones
+    project to exactly 0 at zero-initialised biases and would leave the
+    encoder, the cross-attention and the injection unchecked): the whole
+    batch's (B, n, feat_dim) drawn on the CPU, each rank taking its rows.
+    Other families have no such inputs."""
+    import torch
+    from repro_torch.serve.engine import ServeEngine
+
+    class FrontendEngine(ServeEngine):
+        def prefill(self, tokens, max_new):
+            self._batch_rows = tokens.shape[0]
+            return super().prefill(tokens, max_new)
+
+        def _extra_inputs(self, B, S):
+            fe = self.cfg.frontend
+            if fe is None:
+                return {}
+            encdec = self.cfg.family == "encdec"
+            n = fe.n_tokens if encdec else min(fe.n_tokens, S)
+            gen = torch.Generator().manual_seed(9)
+            x = torch.randn((self._batch_rows, n, fe.feat_dim),
+                            generator=gen)[self.rows(self._batch_rows)]
+            return {"frames" if encdec else "patches":
+                    x.to(torch.bfloat16).to(self.device)}
+    return FrontendEngine
+
+
+def _serve_flash(cfg, S, steps, cross_kind) -> int:
+    """The flash launches of one served batch of S-token prompts and
+    ``steps`` decode steps: a prefill layer over more than the threshold
+    of keys; the encoder-decoder's encoder and cross-attention layers over
+    its frames at prefill, and its cross layers at every step where the
+    cross cache is not split on its sequence (decode then attends it as
+    training does)."""
+    L, thr = cfg.n_layers, cfg.attn_chunk_threshold
+    if cfg.family == "rwkv":
+        return 0
+    n = L if S > thr else 0
+    if cfg.family == "encdec" and cfg.frontend.n_tokens > thr:
+        n += cfg.n_enc_layers + L * (1 + (steps if cross_kind != "seq"
+                                           else 0))
+    return n
 
 
 def _forced(torch, engine, toks, tokens):
@@ -2954,17 +3207,20 @@ def _serve_tp_agree(torch, mesh) -> list:
     with the launch counters set to 0 just before and read just after.
     Each of the rank's logit rows, prefill and every step, is held against
     the f32 single card's: its relative L2 distance at most
-    SERVE_NOISE_FACTOR times the bf16 single card's own."""
+    SERVE_NOISE_FACTOR times the bf16 single card's own.  whisper-small
+    and internvl2-2b run at one layer (whisper: one encoder and one
+    decoder layer) with frames or patches from a seed; whisper's self and
+    cross caches each take their own layout."""
     import numpy as np
     from repro_torch import tree as T
     from repro_torch.configs.base import get_arch
     from repro_torch.models import model_api
-    from repro_torch.serve.engine import ServeEngine
 
+    ServeEngine = _frontend_engine()
     dev, out = mesh.device, []
     shape = (mesh.shape["data"], mesh.shape["model"])
     for i, (arch, lens, kind) in enumerate(SERVE_TP_AGREE[shape]):
-        cfg = _nodrop(get_arch(arch).replace(n_layers=1))
+        cfg = _nodrop(_fe_cfg(arch, 1))
         rng = np.random.default_rng(100 + i)
         toks = np.zeros((len(lens), max(lens)), np.int32)
         for r, n in enumerate(lens):
@@ -3000,13 +3256,16 @@ def _serve_tp_agree(torch, mesh) -> list:
                           / want.norm(dim=-1)).cpu().numpy()
         err, ref = dist(got), dist(noise)
         L = cfg.n_layers
-        flash = L if cfg.family != "rwkv" and max(lens) \
-            > cfg.attn_chunk_threshold else 0
+        cross = engine.cross_layout
+        cross = None if cross is None else cross.kind
+        flash = _serve_flash(cfg, max(lens), SERVE_MAX_NEW, cross)
         scans = L * (1 + SERVE_MAX_NEW)
         out.append({
             "arch": arch, "mode": cfg.fl.mode, "prompt_lens": list(lens),
             "layout": None if engine.layout is None else engine.layout.kind,
-            "layout_wanted": kind, "rows": [rows.start, rows.stop],
+            "layout_wanted": kind, "cross_layout": cross,
+            "cross_layout_wanted": SERVE_TP_CROSS.get(arch),
+            "rows": [rows.start, rows.stop],
             "max_rel_l2": float(err.max()),
             "bf16_single_card_rel_l2_max": float(ref.max()),
             "max_ratio": float((err / ref).max()),
@@ -3030,7 +3289,10 @@ def _serve_tp_time(torch, mesh, arch, n_layers, lens, n_requests,
     collectives (CUDA event pairs), the peak, the cache a rank holds
     beside the single card's (from the decls), and the launches.  The
     peak is read twice: after init (each stacked leaf drawn a layer at a
-    time) and over the serving alone."""
+    time) and over the serving alone.  The engine takes the zero stub
+    frames or patches, as ``phase_serve``'s; a decode step's read bound
+    counts the weights it reads (not the encoder's or the patch
+    projection) and the rank's cache, whisper's cross cache included."""
     import numpy as np
     from repro_torch import tree as T
     from repro_torch.configs.base import get_arch
@@ -3052,6 +3314,11 @@ def _serve_tp_time(torch, mesh, arch, n_layers, lens, n_requests,
     torch.cuda.reset_peak_memory_stats(dev)
     nbytes = lambda t: t.numel() * t.element_size()
     weight_bytes = sum(nbytes(t) for t in T.leaves(params))
+    # what a decode step reads of them: every weight but the encoder's and
+    # the patch projection (``phase_serve``'s rule)
+    step_bytes = sum(nbytes(t) for path, t in T.leaves_with_path(params)
+                     if path[0] not in ("enc_in", "enc_layers", "enc_norm",
+                                        "vis_proj"))
     rng = np.random.default_rng(0)
     sizes = rng.integers(lens[0], lens[1] + 1, n_requests)
     prompts = [rng.integers(0, cfg.vocab, int(n)).astype(np.int32)
@@ -3071,9 +3338,11 @@ def _serve_tp_time(torch, mesh, arch, n_layers, lens, n_requests,
         decls = engine.model.cache_decl(cfg, SERVE_BATCH, max(
             kvc.serve_cache_len(cfg, S, SERVE_MAX_NEW, max_seq), 1))
         specs = T.leaves(kvc.cache_specs(cfg, decls, mesh))
+        cross = engine.cross_layout
         batches.append({
             "S": S, "layout": (None if engine.layout is None
                                else engine.layout.kind),
+            "cross_layout": None if cross is None else cross.kind,
             "tokens_out": sum(len(r.out) for r in done),
             **{k: engine.stats[k] - before[k] for k in
                ("prefill_tokens", "prefill_s", "decode_steps", "decode_s")},
@@ -3091,6 +3360,8 @@ def _serve_tp_time(torch, mesh, arch, n_layers, lens, n_requests,
     cache_rank = max(b["cache_bytes_rank"] for b in batches)
     L, B = cfg.n_layers, len(batches)
     scans = L * (1 + SERVE_MAX_NEW) * B
+    flash = sum(_serve_flash(cfg, b["S"], SERVE_MAX_NEW, b["cross_layout"])
+                for b in batches)
     return {"arch": arch, "n_layers": L, "mesh": mesh.shape,
             "reduced": [] if L == get_arch(arch).n_layers
             else [f"depth {L} of {get_arch(arch).n_layers}"],
@@ -3107,35 +3378,38 @@ def _serve_tp_time(torch, mesh, arch, n_layers, lens, n_requests,
                 b["decode_s"] / b["decode_steps"] * 1e3 for b in batches],
             "decode_tokens_s": SERVE_BATCH * st["decode_steps"]
             / st["decode_s"],
-            "decode_read_bytes_rank": weight_bytes + cache_rank,
-            "decode_bound_ms": (weight_bytes + cache_rank) / PEAK_BYTES_S
+            "decode_read_bytes_rank": step_bytes + cache_rank,
+            "decode_bound_ms": (step_bytes + cache_rank) / PEAK_BYTES_S
             * 1e3,
             "model_collectives_ms": coll_ms,
             "model_collectives": len(engine.tp.events),
             "peak": torch.cuda.max_memory_allocated(dev),
             "launches": launches,
             "launches_wanted": {
-                "flash_fwd": L * B if cfg.family != "rwkv" else 0,
+                "flash_fwd": flash,
                 "wkv6": scans if cfg.family == "rwkv" else 0,
                 "ssm_scan": scans if cfg.family == "hybrid" else 0}}
 
 
 def _serve_world1(torch, mesh) -> list:
     """The one-card leg on a (1, 1) mesh: each family's engine at one layer
-    and published widths, the parameters through ``init_params(...,
-    mesh=)`` and the engine on the mesh, against the plain parameters and
-    engine: the weights, each step's logits and the tokens bit for bit,
-    and the mesh engine's launches."""
+    (whisper-small: one encoder and one decoder layer) and published
+    widths, the parameters through ``init_params(..., mesh=)`` and the
+    engine on the mesh, against the plain parameters and engine (frames
+    or patches from a seed, ``_frontend_engine``): the weights, each
+    step's logits and the tokens bit for bit, and the mesh engine's
+    launches."""
     import numpy as np
     from repro_torch import tree as T
     from repro_torch.configs.base import get_arch
     from repro_torch.models import model_api
-    from repro_torch.serve.engine import ServeEngine
 
+    ServeEngine = _frontend_engine()
     dev, out = mesh.device, []
     rng = np.random.default_rng(7)
-    for arch in ("qwen2-7b", "mixtral-8x22b", "rwkv6-7b", "hymba-1.5b"):
-        cfg = get_arch(arch).replace(n_layers=1)
+    for arch in ("qwen2-7b", "mixtral-8x22b", "rwkv6-7b", "hymba-1.5b",
+                 "whisper-small", "internvl2-2b"):
+        cfg = _fe_cfg(arch, 1)
         toks = rng.integers(0, cfg.vocab, (SERVE_BATCH, 1800)) \
             .astype(np.int32)
         gc.collect()
@@ -3150,6 +3424,7 @@ def _serve_world1(torch, mesh) -> list:
             reset_launches()
             logits, tokens = _forced(torch, engine, toks, None)
             torch.cuda.synchronize(dev)
+            cross = engine.cross_layout
             runs.append((T.leaves(params), logits, tokens,
                          read_launches(("flash_fwd", "wkv6", "ssm_scan"))))
             del engine
@@ -3163,7 +3438,9 @@ def _serve_world1(torch, mesh) -> list:
                     "tokens_equal": bool((tm == tp_).all()),
                     "launches": launches,
                     "launches_wanted": {
-                        "flash_fwd": 0 if cfg.family == "rwkv" else 1,
+                        "flash_fwd": _serve_flash(
+                            cfg, 1800, SERVE_MAX_NEW,
+                            None if cross is None else cross.kind),
                         "wkv6": scans if cfg.family == "rwkv" else 0,
                         "ssm_scan": scans if cfg.family == "hybrid" else 0}})
         del runs, pm, pp, lm, lp
@@ -3179,7 +3456,9 @@ def _serve_tp_rank(mesh, legs):
     torch.backends.cudnn.allow_tf32 = False
     out = {"rank": mesh.rank, "shape": mesh.shape,
            "device": torch.cuda.get_device_name(mesh.device)}
+    leg_s = out["leg_s"] = {}
     for leg in legs:
+        t0 = time.perf_counter()
         if leg == "serve_world1":
             out[leg] = _serve_world1(torch, mesh)
         elif leg == "serve_tp_agree":
@@ -3187,6 +3466,7 @@ def _serve_tp_rank(mesh, legs):
         else:
             out[leg] = _serve_tp_time(
                 torch, mesh, *SERVE_TP_TIME[int(leg.split(":")[1])])
+        leg_s[leg] = time.perf_counter() - t0
     return out
 
 
@@ -3216,8 +3496,7 @@ def phase_serve_tp(torch, dev) -> dict:
         ranks = mesh_lib.spawn(_serve_tp_rank, shape[0], (legs,),
                                model=shape[1], device="cuda",
                                timeout_s=SERVE_TP_TIMEOUT_S)
-        emit({"phase": "serve_tp_spawn", "mesh": list(shape), "legs": legs,
-              "wall_s": time.perf_counter() - t0})
+        _spawned("serve_tp_spawn", shape, legs, time.perf_counter() - t0, ranks)
         if "serve_world1" in legs:
             for case in ranks[0]["serve_world1"]:
                 emit({"phase": "serve_world1", **case})
@@ -3235,6 +3514,7 @@ def phase_serve_tp(torch, dev) -> dict:
                       "arch": arch, "n_layers": 1, "mode": rows[0]["mode"],
                       "prompt_lens": list(lens), "layout": rows[0]["layout"],
                       "layout_wanted": kind,
+                      "cross_layout": rows[0]["cross_layout"],
                       "max_new": SERVE_MAX_NEW,
                       "noise_factor": SERVE_NOISE_FACTOR,
                       "max_rel_l2_rank": [r["max_rel_l2"] for r in rows],
@@ -3247,6 +3527,7 @@ def phase_serve_tp(torch, dev) -> dict:
                       "launches_rank": [r["launches"] for r in rows]})
                 for r in rows:
                     if (not r["held"] or r["layout"] != kind
+                            or r["cross_layout"] != r["cross_layout_wanted"]
                             or r["launches"] != r["launches_wanted"]):
                         faults.append(f"serve_tp_agree {shape} {arch} "
                                       f"{lens}: {r}")
@@ -3547,6 +3828,7 @@ def run(argv=None) -> int:
     dev = torch.device("cuda", 0)
     smi = smi_line()
     walls = {}
+    LEG_WALLS.clear()
 
     def timed(name, fn, *a):
         """``fn(*a)``, its wall time added to ``walls[name]``."""
@@ -3580,7 +3862,7 @@ def run(argv=None) -> int:
         add(timed(cell[0], phase_serve, torch, dev, *cell))
     add(timed("dist", phase_dist, torch, dev))
     add(timed("serve_tp", phase_serve_tp, torch, dev))
-    emit({"phase": "walls", "s": walls})
+    emit({"phase": "walls", "s": walls, "legs_s": LEG_WALLS})
     emit({"kernels": kernel_rows(fed, flash, qagg, quant8, wkv, launches)})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

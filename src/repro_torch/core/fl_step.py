@@ -297,10 +297,8 @@ def split_dims(cfg: ArchConfig, mesh, axis: str):
 def _rank_clients(cfg: ArchConfig, mesh) -> int:
     """K on a mesh of ranks: one client a row of the data axis in
     ``replica`` mode, one a pod in ``shared`` mode (the whole mesh without
-    pods); raises for what the mesh does not run yet
-    (``fsdp.check_supported``, ``tensor_parallel.check_supported``)."""
-    if cfg.fl.mode == "shared":
-        fsdp.check_supported(cfg)
+    pods); raises for a config the model axis does not run yet
+    (``tensor_parallel.check_supported``)."""
     if mesh.shape["model"] > 1:
         tpar.check_supported(cfg, mesh.shape["model"])
     return n_clients_for(cfg, mesh)

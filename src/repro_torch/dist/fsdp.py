@@ -1,5 +1,5 @@
 """FSDP over the mesh's ``data`` axis inside a client (the ``shared`` mode),
-for the dense and MoE decoder families, RWKV6 and Hymba.
+for every family.
 
 The reference has no file for this: in ``shared`` mode its rules put the
 ``embed`` dim of every parameter on ``data`` (``dist/sharding.rules_for``)
@@ -38,9 +38,9 @@ writes out the ``model`` axis:
 
 Every collective runs in f32 where it sums, and rounds to the leaf's or
 activation's dtype once after the sum.  Adafactor's means over a dim on
-``data`` sum over the data group (``optim/api.adafactor``).  Families that
-``shared`` mode does not reach yet raise ``NotImplementedError`` naming
-their ROADMAP item (``check_supported``).
+``data`` sum over the data group (``optim/api.adafactor``).  Leaves used
+outside a layer are gathered where they are used: the embedding tables,
+the encoder-decoder's ``enc_in`` and the VLM's patch projection.
 """
 from __future__ import annotations
 
@@ -52,23 +52,7 @@ import torch
 import torch.distributed as dist
 
 from repro_torch import tree as T
-from repro_torch.configs.base import ArchConfig
 from repro_torch.dist.tensor_parallel import GroupAxis
-
-# family -> the ROADMAP item that puts it in shared mode
-_FAMILY_ITEM = {"encdec": "5b-vii (encoder-decoder and VLM on the model "
-                          "axis)",
-                "vlm": "5b-vii (encoder-decoder and VLM on the model axis)"}
-
-
-def check_supported(cfg: ArchConfig):
-    """Raises ``NotImplementedError``, naming the ROADMAP item, for a
-    family that ``shared`` mode does not run on ranks yet."""
-    if cfg.family in _FAMILY_ITEM:
-        raise NotImplementedError(
-            f"family {cfg.family!r} in the shared (FSDP) mode on ranks: "
-            f"ROADMAP item {_FAMILY_ITEM[cfg.family]}")
-
 
 class DataAxis(GroupAxis):
     """A client's data axis as the decoder sees it: the process group of

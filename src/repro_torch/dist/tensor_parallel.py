@@ -1,5 +1,6 @@
 """Tensor parallelism over the mesh's ``model`` axis inside a client, for
-the dense and MoE decoder families, RWKV6 and Hymba.
+every family: the dense, MoE and VLM decoders, the encoder-decoder, RWKV6
+and Hymba.
 
 The reference has no file for this: it declares each parameter's logical
 axes (``vocab``, ``heads``, ``kv_heads`` and ``mlp`` map to ``model``,
@@ -71,10 +72,17 @@ SSM branch then run their plain code on every rank, with no collective
 dims (and the experts) must split; a config where one would stay whole
 raises.
 
+The encoder-decoder splits its encoder's and its decoder's attention on
+heads, its GELU MLP as ``swiglu`` (the replicated output bias added once,
+after the row-parallel sum), and its cross-attention as the attention,
+the encoder's memory taken through ``copy_to_model`` by every decoder
+layer's key and value projection.  The VLM's patch projection, declared
+(``mlp``, ``embed``), is row-parallel over its ``feat_dim`` input.
+
 With a model axis of 1 there is no :class:`ModelAxis` (``axis_for``
-returns None) and the model runs its plain code.  Families that a model
-axis does not reach yet raise ``NotImplementedError`` naming their ROADMAP
-item (``check_supported``).  In ``shared`` mode the parameters are also
+returns None) and the model runs its plain code.  A config whose ``mlp``
+or ``vocab`` would stay whole raises ``NotImplementedError``
+(``check_supported``).  In ``shared`` mode the parameters are also
 split on ``data`` (``dist/fsdp.py``), and each layer gathers them there
 before this code sees them: a gathered leaf is a model block as here.
 """
@@ -87,12 +95,6 @@ import torch
 import torch.distributed as dist
 
 from repro_torch.configs.base import ArchConfig
-
-# family -> the ROADMAP item that puts it on the model axis
-_FAMILY_ITEM = {"encdec": "5b-vii (encoder-decoder and VLM on the model "
-                          "axis)",
-                "vlm": "5b-vii (encoder-decoder and VLM on the model axis)"}
-
 
 def _splits(n: int, size: int) -> bool:
     """Whether a dim of ``n`` takes a mesh axis of ``size`` (the rule of
@@ -121,13 +123,16 @@ def head_counts(cfg: ArchConfig) -> tuple:
 
 
 def _mlp_widths(cfg: ArchConfig) -> list:
-    """The widths of the ``mlp`` leaves the config holds: the dense FFN, or
-    an MoE config's leading dense layers and its shared expert; RWKV6's
-    channel mix also declares ``cm.wr``'s output, ``d_model``, on
-    ``mlp``."""
+    """The widths of the ``mlp`` leaves the config holds: the dense FFN
+    (Whisper's GELU MLP too), or an MoE config's leading dense layers and
+    its shared expert; RWKV6's channel mix also declares ``cm.wr``'s
+    output, ``d_model``, on ``mlp``, and the VLM its patch projection's
+    input, ``frontend.feat_dim``."""
     m = cfg.moe
     if cfg.family == "rwkv":
         return [cfg.d_ff, cfg.d_model]
+    if cfg.family == "vlm":
+        return [cfg.d_ff, cfg.frontend.feat_dim]
     if m is None:
         return [cfg.d_ff]
     return ([m.d_ff_dense] if m.first_k_dense else []) + \
@@ -135,12 +140,10 @@ def _mlp_widths(cfg: ArchConfig) -> list:
 
 
 def check_supported(cfg: ArchConfig, size: int):
-    """Raises ``NotImplementedError``, naming the ROADMAP item, for what a
-    model axis of ``size`` > 1 does not run yet."""
-    if cfg.family in _FAMILY_ITEM:
-        raise NotImplementedError(
-            f"family {cfg.family!r} on a model axis of {size}: ROADMAP item "
-            f"{_FAMILY_ITEM[cfg.family]}")
+    """Raises ``NotImplementedError`` for a config that a model axis of
+    ``size`` > 1 does not run yet: one whose ``mlp`` or ``vocab`` (or its
+    experts) would stay whole, or whose rank's q heads would read two kv
+    groups."""
     from repro_torch.models.layers import pad_vocab
     whole = [] if _splits(pad_vocab(cfg.vocab), size) else ["vocab"]
     whole += ["mlp"] if not all(_splits(n, size)

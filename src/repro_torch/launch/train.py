@@ -23,9 +23,11 @@ control plane, since its stats (the round's wall-clock time among them)
 drive the role optimizer, and each round broadcasts the schedule and the
 weights to the other ranks.  Every rank of client d trains on
 ``FederatedTokens.client_batch(d, ...)``, row d of the global batch; with
-M > 1 the client's layers are split over its ranks (tensor parallelism:
-the dense family, and the MoE family with its experts split or each
-expert's width, under the config's optimizer, Adafactor included).
+M > 1 the client's layers are split over its ranks (tensor parallelism,
+``dist/tensor_parallel.py``: an MoE family's experts split or each
+expert's width), under the config's optimizer, Adafactor included.  The
+trainer feeds tokens only, as the reference's does; the encoder-decoder
+and VLM families take frames or patches through ``fl_step`` directly.
 In ``shared`` mode (``--pod-mesh P``, the MoE configs' declared mode) a
 client is a pod of D x M ranks (rank ``(p*D + d)*M + m``): K = P clients,
 each fully sharded over its D data ranks (its parameters' ``embed`` dim
@@ -81,7 +83,6 @@ from repro_torch.core.stats import StatsSimulator
 from repro_torch.core.topology import AggSchedule, compile_tree
 from repro_torch.data.federated import FederatedTokens
 from repro_torch.device import resolve
-from repro_torch.dist import fsdp
 from repro_torch.dist import tensor_parallel as tpar
 from repro_torch.dist.sharding import local_block
 from repro_torch.ft.failures import FailurePlan
@@ -363,7 +364,7 @@ def main(argv=None):
                          "every client on one device")
     ap.add_argument("--model-mesh", type=int, default=1,
                     help="the mesh's model axis: ranks a client, its "
-                         "layers (dense or MoE) split over them (tensor and "
+                         "layers split over them (tensor and "
                          "expert parallelism); data x model ranks in all")
     ap.add_argument("--pod-mesh", type=int, default=0,
                     help="the mesh's pod axis, one client a pod: the "
@@ -374,9 +375,7 @@ def main(argv=None):
     args = ap.parse_args(argv)
     M, P = args.model_mesh, args.pod_mesh
     mesh_lib.check_axes(M, P)
-    if P:                           # before any rank starts
-        fsdp.check_supported(_config(args))
-    if M > 1:
+    if M > 1:                       # before any rank starts
         tpar.check_supported(_config(args), M)
     if args.data_mesh or M > 1 or P or mesh_lib.in_torchrun():
         per = M * max(P, 1)

@@ -22,7 +22,10 @@ merged across the ranks by their log-sum-exps (plain PyTorch too).
 ``project_qkv`` and ``project_out`` take an optional ``tp``
 (``dist.tensor_parallel.ModelAxis``): the rank's local heads, projected
 column-parallel, and the output projection row-parallel; the attention
-between them runs on the local heads unchanged.  Where the heads do not
+between them runs on the local heads unchanged.  The encoder-decoder's
+cross-attention projects its query and its keys and values from two
+inputs (``project_q``, ``project_kv``), each column-parallel the same
+way.  Where the heads do not
 divide the axis (``tensor_parallel.heads_axis``) they stay whole: the
 weights are whole on every rank and both run the plain code.
 """
@@ -89,8 +92,7 @@ def project_qkv(params, x, positions, theta: float, *, apply_rope: bool = True,
     """x: (B, S, D) -> q (B,S,H,hd), k/v (B,S,K,hd).  With ``tp``, H is
     this rank's q heads and K the kv heads they read."""
     tp = tpar.heads_axis(tp)
-    if tp is not None:
-        x = tpar.copy_to_model(x, tp)
+    x = _heads_input(x, tp)
     kv = _kv_params(params, tp, params["wq"].shape[1])
     q = project_heads(x, params["wq"])
     k = project_heads(x, kv["wk"])
@@ -103,6 +105,29 @@ def project_qkv(params, x, positions, theta: float, *, apply_rope: bool = True,
         q = rope(q, positions, theta)
         k = rope(k, positions, theta)
     return q, k, v
+
+
+def _heads_input(x, tp):
+    """x as a projection into ``tp``'s heads takes it: through
+    ``copy_to_model``, so its gradient sums the ranks' parts."""
+    return x if tp is None else tpar.copy_to_model(x, tp)
+
+
+def project_q(params, x, tp=None):
+    """The cross-attention's query: x (B,S,D) -> q (B,S,H,hd), no bias
+    and no RoPE; with ``tp``, H is this rank's q heads."""
+    tp = tpar.heads_axis(tp)
+    return project_heads(_heads_input(x, tp), params["wq"])
+
+
+def project_kv(params, x, tp=None):
+    """The cross-attention's keys and values of the encoder's memory x
+    (B,T,D) -> k, v (B,T,K,hd), no bias and no RoPE; with ``tp``, K is the
+    kv heads this rank's q heads read (``_kv_params``)."""
+    tp = tpar.heads_axis(tp)
+    kv = _kv_params(params, tp, params["wq"].shape[1])
+    x = _heads_input(x, tp)
+    return project_heads(x, kv["wk"]), project_heads(x, kv["wv"])
 
 
 def project_out(params, o, tp=None):
@@ -254,6 +279,10 @@ def decode_attention(q, k_cache, v_cache, kv_pos, pos, *,
 
 
 def _valid(kv_pos, pos, window):
+    """(B, S) slots a query at ``pos`` reads; None where ``kv_pos`` is None
+    (a cross cache: every slot valid, no position)."""
+    if kv_pos is None:
+        return None
     ok = (kv_pos >= 0) & (kv_pos <= pos[:, None])
     if window is not None:
         ok &= pos[:, None] - kv_pos < window
@@ -269,14 +298,16 @@ def split_decode_attention(q, k_cache, v_cache, kv_pos, pos, axis, *,
     sum; one all-gather brings every rank's, and each merges them in rank
     order (equal on every rank).  A rank with no valid slot for a row (all
     -1, outside the window, or later than ``pos``) has a max of ``NEG_INF``
-    and a sum of 0, so it adds exactly nothing.  -> (B,1,H,hd) in q's
-    dtype."""
+    and a sum of 0, so it adds exactly nothing.  ``kv_pos`` None: every
+    slot is valid, unmasked (the encoder-decoder's cross cache).  ->
+    (B,1,H,hd) in q's dtype."""
     B, _, H, hd = q.shape
     K = k_cache.shape[2]
     qg = q.reshape(B, K, H // K, hd).float()
     s = torch.einsum("bkgh,bskh->bkgs", qg, k_cache.float()) / math.sqrt(hd)
-    ok = _valid(kv_pos, pos, window)[:, None, None, :]
-    s = torch.where(ok, s, -math.inf)
+    ok = _valid(kv_pos, pos, window)
+    if ok is not None:
+        s = torch.where(ok[:, None, None, :], s, -math.inf)
     m = s.amax(dim=-1)
     m = torch.where(torch.isfinite(m), m, NEG_INF)
     p = torch.exp(s - m[..., None])
@@ -304,18 +335,35 @@ def decode_block(params, h, k_l, v_l, kv_pos, pos, slots, theta: float,
     q, k, v = project_qkv(params, h, pos[:, None], theta, tp=tp)
     kvc.write_token(k_l, slots, kvc.cache_heads(k, tp, lay)[:, 0])
     kvc.write_token(v_l, slots, kvc.cache_heads(v, tp, lay)[:, 0])
-    hp = tpar.heads_axis(tp)
     if lay.kind == "seq":
-        every = q if hp is None else tpar.gather_from_model(q, hp, 2)
-        o = split_decode_attention(every, k_l, v_l, kv_pos, pos, tp,
-                                   window=window)
-        if hp is not None:
-            o = o.narrow(2, hp.rank * q.shape[2], q.shape[2])
+        o = seq_attention(q, k_l, v_l, kv_pos, pos, tp, window)
     else:
-        idx = None if hp is None or lay.kind == "heads" else \
-            tpar.kv_index(hp, q.shape[2])
-        if idx is not None:
-            idx = idx.to(k_l.device)
-            k_l, v_l = k_l.index_select(2, idx), v_l.index_select(2, idx)
+        k_l, v_l = local_kv(k_l, v_l, lay, tp, q.shape[2])
         o = decode_attention(q, k_l, v_l, kv_pos, pos, window=window)
     return project_out(params, o, tp)
+
+
+def seq_attention(q, k_l, v_l, kv_pos, pos, tp, window=None):
+    """One decode step's attention of q (B,1,h,hd), the rank's heads, over
+    a cache split on its sequence: every rank gathers the heads' q,
+    attends every head over its own slots (``split_decode_attention``;
+    ``kv_pos`` None: all of them, unmasked) and keeps its heads' rows."""
+    hp = tpar.heads_axis(tp)
+    every = q if hp is None else tpar.gather_from_model(q, hp, 2)
+    o = split_decode_attention(every, k_l, v_l, kv_pos, pos, tp,
+                               window=window)
+    return o if hp is None else o.narrow(2, hp.rank * q.shape[2],
+                                         q.shape[2])
+
+
+def local_kv(k_l, v_l, lay, tp, local_heads: int):
+    """A rank's block of a cache under ``heads`` or ``whole`` as its
+    ``local_heads`` q heads read it: as held, but under ``whole`` with the
+    q heads split, the one kv head they read (``kv_index``)."""
+    hp = tpar.heads_axis(tp)
+    idx = None if hp is None or lay.kind == "heads" else \
+        tpar.kv_index(hp, local_heads)
+    if idx is None:
+        return k_l, v_l
+    idx = idx.to(k_l.device)
+    return k_l.index_select(2, idx), v_l.index_select(2, idx)

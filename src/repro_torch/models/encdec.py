@@ -14,6 +14,32 @@ loop over views of the stacked ``(L, ...)`` leaves, ``cfg.remat`` is
 self-attention cache in place.  Prefill returns each decoder layer's cross
 keys and values (``cross_k``/``cross_v``, (L, B, n_frames, K, hd)); decode
 reads them and never writes them.
+
+Every entry point takes ``decoder.py``'s ``tp`` and ``dp``.  With ``tp``
+(``dist.tensor_parallel.ModelAxis``) the parameters are this rank's
+blocks of a client's, split over the ``model`` axis: the encoder's and the
+decoder's self-attention through the tensor-parallel projections, the
+GELU MLP column- and row-parallel (its replicated ``b_out`` added once,
+after the sum), the embedding and the logits vocab-parallel.  The
+cross-attention projects its query from the decoder's stream and its keys
+and values from the encoder's memory, each through ``copy_to_model``
+(``attention.project_q``/``project_kv``, the kv heads a rank's q heads
+read where the kv heads stay whole): the memory's gradient is summed over
+the model group once a decoder layer that reads it.  ``enc_in``, the
+LayerNorms and ``b_out`` are whole on ``model`` and get their whole
+gradient on every rank.  With ``dp`` (``dist.fsdp.DataAxis``, shared
+mode) each checkpointed layer gathers its weights on ``data``
+(``fsdp.whole``), and so do ``enc_in`` and the embedding tables.
+
+Serving on ranks holds two caches of two layouts
+(``kvcache.layout_for``): the self-attention's (``layout``: ``seq``,
+``heads`` or ``whole`` by its length) and the cross cache's
+(``cross_layout``: 1500 frames split on their sequence where they divide
+the model axis).  Prefill gathers each layer's cross keys and values over
+the rank's heads (``kvcache.cache_heads``) before it keeps the rank's
+frames; decode's cross-attention over a sequence-split cache is a
+non-causal ``attention.split_decode_attention`` over slots that are all
+valid (the cache has no ``cross_kv_pos``, as the reference's decl).
 """
 from __future__ import annotations
 
@@ -21,13 +47,15 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.dist import fsdp
 from repro_torch.dist.sharding import decl, stack
 from repro_torch.models import attention as attn
 from repro_torch.models import kvcache as kvc
 from repro_torch.models.decoder import layer_views
 from repro_torch.models.layers import (embed_decl, embed_lookup, gelu_mlp,
-                                       gelu_mlp_decl, layernorm,
-                                       layernorm_decl, logits_out)
+                                       gelu_mlp_decl, last_logits,
+                                       layernorm, layernorm_decl,
+                                       logits_out)
 
 
 def _enc_layer_decl(cfg: ArchConfig):
@@ -83,27 +111,29 @@ def _attend(cfg: ArchConfig, q, k, v, q_pos, kv_pos, causal: bool):
 # Encoder
 # --------------------------------------------------------------------------
 
-def _enc_layer(cfg: ArchConfig, lp, x, positions):
+def _enc_layer(cfg: ArchConfig, lp, x, positions, tp=None, dp=None):
+    lp = fsdp.whole(dp, lp, "enc_layers", lead=1)
     h = layernorm(lp["ln1"], x, cfg.norm_eps)
-    q, k, v = attn.project_qkv(lp["attn"], h, positions, cfg.rope_theta)
+    q, k, v = attn.project_qkv(lp["attn"], h, positions, cfg.rope_theta,
+                               tp=tp)
     x = x + attn.project_out(lp["attn"], _attend(cfg, q, k, v, positions,
-                                                 positions, causal=False))
+                                                 positions, causal=False), tp)
     h = layernorm(lp["ln2"], x, cfg.norm_eps)
-    return x + gelu_mlp(lp["mlp"], h)
+    return x + gelu_mlp(lp["mlp"], h, tp)
 
 
-def encode(cfg: ArchConfig, params, frames):
+def encode(cfg: ArchConfig, params, frames, tp=None, dp=None):
     """frames (B, T, feat_dim) -> memory (B, T, D).  The frames are rounded
     to bf16 first, whatever the weights' dtype, as the reference does."""
-    w = params["enc_in"]["w"]
+    w = fsdp.whole(dp, params["enc_in"], "enc_in")["w"]
     x = frames.to(torch.bfloat16).to(w.dtype) @ w
     positions = _arange(x.shape[1], x.device)
     for lp in layer_views(params["enc_layers"]):
         if cfg.remat:
-            x = checkpoint(_enc_layer, cfg, lp, x, positions,
+            x = checkpoint(_enc_layer, cfg, lp, x, positions, tp, dp,
                            use_reentrant=False)
         else:
-            x = _enc_layer(cfg, lp, x, positions)
+            x = _enc_layer(cfg, lp, x, positions, tp, dp)
     return layernorm(params["enc_norm"], x, cfg.norm_eps)
 
 
@@ -111,110 +141,127 @@ def encode(cfg: ArchConfig, params, frames):
 # Decoder
 # --------------------------------------------------------------------------
 
-def _cross_attend(cfg: ArchConfig, lp, x, mem_k, mem_v, dec_pos, enc_pos):
-    h = layernorm(lp["ln_x"], x, cfg.norm_eps)
-    q = attn.project_heads(h, lp["cross"]["wq"])
-    o = _attend(cfg, q, mem_k, mem_v, dec_pos, enc_pos, causal=False)
-    return x + attn.project_out(lp["cross"], o)
-
-
-def _cross_kv(lp, mem):
-    return (attn.project_heads(mem, lp["cross"]["wk"]),
-            attn.project_heads(mem, lp["cross"]["wv"]))
-
-
-def _dec_layer(cfg: ArchConfig, lp, x, mem, positions, enc_pos,
-               kv_out=None):
-    """One decoder layer; with ``kv_out`` (four (B,S,K,hd) views of a
-    cache: self k, v, cross k, v) its keys and values are copied there
-    (prefill)."""
+def _dec_layer(cfg: ArchConfig, lp, x, mem, positions, enc_pos, tp=None,
+               dp=None, keep=None):
+    """One decoder layer; with ``keep`` (prefill) its self keys and values
+    and its cross keys and values, as the layer projects them, are handed
+    to ``keep(k, v, cross_k, cross_v)``."""
+    lp = fsdp.whole(dp, lp, "dec_layers", lead=1)
     h = layernorm(lp["ln1"], x, cfg.norm_eps)
-    q, k, v = attn.project_qkv(lp["attn"], h, positions, cfg.rope_theta)
+    q, k, v = attn.project_qkv(lp["attn"], h, positions, cfg.rope_theta,
+                               tp=tp)
     x = x + attn.project_out(lp["attn"], _attend(cfg, q, k, v, positions,
-                                                 positions, causal=True))
-    mk, mv = _cross_kv(lp, mem)
-    if kv_out is not None:
-        for dst, src in zip(kv_out, (k, v, mk, mv)):
-            dst.copy_(src)
-    x = _cross_attend(cfg, lp, x, mk, mv, positions, enc_pos)
+                                                 positions, causal=True), tp)
+    mk, mv = attn.project_kv(lp["cross"], mem, tp)
+    if keep is not None:
+        keep(k, v, mk, mv)
+    h = layernorm(lp["ln_x"], x, cfg.norm_eps)
+    q = attn.project_q(lp["cross"], h, tp)
+    o = _attend(cfg, q, mk, mv, positions, enc_pos, causal=False)
+    x = x + attn.project_out(lp["cross"], o, tp)
     h = layernorm(lp["ln2"], x, cfg.norm_eps)
-    return x + gelu_mlp(lp["mlp"], h)
+    return x + gelu_mlp(lp["mlp"], h, tp)
 
 
-def forward(cfg: ArchConfig, params, batch):
-    """-> (logits (B,S,V), aux_loss 0).  Every decoder layer projects its
-    cross keys and values from the memory anew."""
-    mem = encode(cfg, params, batch["frames"])
-    x = embed_lookup(params["embed"], batch["tokens"])
+def forward(cfg: ArchConfig, params, batch, tp=None, dp=None):
+    """-> (logits (B,S,V), aux_loss 0); with ``tp`` the logits are this
+    rank's (B, S, V / M) vocab rows, with ``dp`` its rows of the client's
+    batch.  Every decoder layer projects its cross keys and values from
+    the memory anew."""
+    mem = encode(cfg, params, batch["frames"], tp, dp)
+    x = embed_lookup(params["embed"], batch["tokens"], tp, dp)
     positions = _arange(x.shape[1], x.device)
     enc_pos = _arange(mem.shape[1], x.device)
     for lp in layer_views(params["dec_layers"]):
         if cfg.remat:
             x = checkpoint(_dec_layer, cfg, lp, x, mem, positions, enc_pos,
-                           use_reentrant=False)
+                           tp, dp, use_reentrant=False)
         else:
-            x = _dec_layer(cfg, lp, x, mem, positions, enc_pos)
+            x = _dec_layer(cfg, lp, x, mem, positions, enc_pos, tp, dp)
     x = layernorm(params["final_norm"], x, cfg.norm_eps)
-    return logits_out(params["embed"], x), torch.zeros(
+    return logits_out(params["embed"], x, tp, dp), torch.zeros(
         (), dtype=torch.float32, device=x.device)
 
 
-def prefill(cfg: ArchConfig, params, batch, tp=None, dp=None, layout=None):
+def prefill(cfg: ArchConfig, params, batch, tp=None, dp=None, layout=None,
+            cross_layout=None):
     """-> (last-token logits (B,V), cache {k, v (L,B,C,K,hd), kv_pos,
     cross_k, cross_v (L,B,T,K,hd)}).  ``layout`` (``kvcache.CacheLayout``)
-    gives the self-attention cache's length C (by default the prompt's S
-    slots); the prompt's keys fill slots 0..S-1.  The encoder-decoder
-    serves on one device or a replica's data rows (ROADMAP item 5b-vii
-    puts it on the model axis), so ``tp`` is None and ``dp``, which only
-    the MoE layer and shared mode read, changes nothing here."""
-    mem = encode(cfg, params, batch["frames"])
-    x = embed_lookup(params["embed"], batch["tokens"])
-    B, S = x.shape[0], x.shape[1]
+    gives the self-attention cache's length C and this rank's part of it
+    (by default the prompt's S slots, whole); the prompt's keys fill slots
+    0..S-1.  ``cross_layout`` gives the rank's part of the cross cache's T
+    frames (by default whole).  With ``tp`` and ``dp`` the layers run as
+    ``forward``'s, each cache takes the kv heads its layout holds
+    (``kvcache.cache_heads``), and the logits are gathered whole over the
+    model axis."""
+    mem = encode(cfg, params, batch["frames"], tp, dp)
+    x = embed_lookup(params["embed"], batch["tokens"], tp, dp)
+    B, S, T = x.shape[0], x.shape[1], mem.shape[1]
     lay = layout or kvc.CacheLayout("whole", S)
+    clay = cross_layout or kvc.CacheLayout("whole", T)
     positions = _arange(S, x.device)
-    enc_pos = _arange(mem.shape[1], x.device)
+    enc_pos = _arange(T, x.device)
     L, Kv, hd = cfg.n_layers, cfg.n_kv_heads, cfg.head_dim
-    k = torch.zeros((L, B, lay.local, Kv, hd), dtype=x.dtype,
+    k = torch.zeros((L, B, lay.local, lay.kv_heads(Kv), hd), dtype=x.dtype,
                     device=x.device)
     v = torch.zeros_like(k)
-    ck = torch.empty((L, B, mem.shape[1], Kv, hd), dtype=mem.dtype,
-                     device=x.device)
+    ck = torch.empty((L, B, clay.local, clay.kv_heads(Kv), hd),
+                     dtype=mem.dtype, device=x.device)
     cv = torch.empty_like(ck)
     for i, lp in enumerate(layer_views(params["dec_layers"])):
-        x = _dec_layer(cfg, lp, x, mem, positions, enc_pos,
-                       kv_out=(k[i, :, :S], v[i, :, :S], ck[i], cv[i]))
+        def keep(kk, vv, mk, mv, i=i):
+            for dst, src, at in ((k, kk, lay), (v, vv, lay), (ck, mk, clay),
+                                 (cv, mv, clay)):
+                kvc.prefill_kv(dst[i], kvc.cache_heads(src, tp, at), at)
+        x = _dec_layer(cfg, lp, x, mem, positions, enc_pos, tp, dp, keep)
     x = layernorm(params["final_norm"], x, cfg.norm_eps)
-    logits = logits_out(params["embed"], x[:, -1])
-    return logits, {"k": k, "v": v,
-                    "kv_pos": kvc.prefilled_layout_pos(B, S, lay, x.device),
-                    "cross_k": ck, "cross_v": cv}
+    return last_logits(params["embed"], x[:, -1], tp, dp), {
+        "k": k, "v": v,
+        "kv_pos": kvc.prefilled_layout_pos(B, S, lay, x.device),
+        "cross_k": ck, "cross_v": cv}
+
+
+def _cross_decode(cfg: ArchConfig, lp, x, ck, cv, pos, enc_pos, clay,
+                  tp=None):
+    """A decode step's cross-attention block over the rank's block ``ck``,
+    ``cv`` (B, clay.local, k, hd) of the cross cache: split over its
+    frames (``seq``) a non-causal ``attention.seq_attention`` over every
+    slot; else the training path's attention on the rank's heads."""
+    h = layernorm(lp["ln_x"], x, cfg.norm_eps)
+    q = attn.project_q(lp["cross"], h, tp)
+    if clay.kind == "seq":
+        o = attn.seq_attention(q, ck, cv, None, pos, tp)
+    else:
+        ck, cv = attn.local_kv(ck, cv, clay, tp, q.shape[2])
+        o = _attend(cfg, q, ck, cv, pos[:, None], enc_pos, causal=False)
+    return x + attn.project_out(lp["cross"], o, tp)
 
 
 def decode_step(cfg: ArchConfig, params, cache, batch, tp=None, dp=None,
-                layout=None):
+                layout=None, cross_layout=None):
     """batch: {"token": (B,1) int32, "pos": (B,) int32} -> (logits (B,V),
-    cache).  The self-attention cache is updated in place; the cross cache
-    is only read.  ``layout``: the cache's (``prefill``'s), by default
-    whole; ``tp`` and ``dp`` as in ``prefill``."""
+    cache).  The self-attention cache is updated in place
+    (``attention.decode_block``); the cross cache is only read.
+    ``layout`` and ``cross_layout``: the caches' (``prefill``'s), by
+    default whole; ``tp`` and ``dp`` as in ``prefill``."""
     token, pos = batch["token"], batch["pos"]
-    x = embed_lookup(params["embed"], token)
+    x = embed_lookup(params["embed"], token, tp, dp)
     lay = layout or kvc.CacheLayout("whole", cache["k"].shape[2])
+    clay = cross_layout or kvc.CacheLayout("whole",
+                                           cache["cross_k"].shape[2])
     slots = kvc.token_slot(pos, lay)
     kv_pos = cache["kv_pos"]
     kvc.write_token(kv_pos, slots, pos)
     enc_pos = _arange(cache["cross_k"].shape[2], x.device)
-    q_pos = pos[:, None]
     for i, lp in enumerate(layer_views(params["dec_layers"])):
-        k_l, v_l = cache["k"][i], cache["v"][i]
+        lp = fsdp.whole(dp, lp, "dec_layers", lead=1)
         h = layernorm(lp["ln1"], x, cfg.norm_eps)
-        q, k, v = attn.project_qkv(lp["attn"], h, q_pos, cfg.rope_theta)
-        kvc.write_token(k_l, slots, k[:, 0])
-        kvc.write_token(v_l, slots, v[:, 0])
-        o = attn.decode_attention(q, k_l, v_l, kv_pos, pos)
-        x = x + attn.project_out(lp["attn"], o)
-        x = _cross_attend(cfg, lp, x, cache["cross_k"][i],
-                          cache["cross_v"][i], q_pos, enc_pos)
+        x = x + attn.decode_block(lp["attn"], h, cache["k"][i],
+                                  cache["v"][i], kv_pos, pos, slots,
+                                  cfg.rope_theta, None, lay, tp)
+        x = _cross_decode(cfg, lp, x, cache["cross_k"][i],
+                          cache["cross_v"][i], pos, enc_pos, clay, tp)
         h = layernorm(lp["ln2"], x, cfg.norm_eps)
-        x = x + gelu_mlp(lp["mlp"], h)
+        x = x + gelu_mlp(lp["mlp"], h, tp)
     x = layernorm(params["final_norm"], x, cfg.norm_eps)
-    return logits_out(params["embed"], x[:, -1]), cache
+    return last_logits(params["embed"], x[:, -1], tp, dp), cache

@@ -10,7 +10,8 @@ of the cache.
 On a mesh a rank holds its block of each leaf under the reference's
 serving rules (``cache_specs``: ``batch`` on ``data``, ``cache_seq`` on
 ``model``, and, where ``cache_seq`` does not take it, ``kv_heads``), which
-gives a full-attention cache one of three layouts (``CacheLayout``):
+gives a full-attention cache one of three layouts (``CacheLayout``; the
+encoder-decoder's self and cross caches one each, ``layout_for``):
 
 * ``seq``: the cache length C divides the model axis M; rank m holds slots
   ``[m C/M, (m+1) C/M)`` of every kv head.  Decode writes a token only on
@@ -129,15 +130,20 @@ def cache_specs(cfg, decls, mesh):
     return T.tree_map(follow, decls, specs)
 
 
-def layout_for(cfg, decls, mesh=None):
-    """The layout of cache ``decls``' keys on ``mesh`` (``whole`` on one
-    device), or None for a cache without keys (RWKV6's state)."""
-    if "k" not in decls:
+def layout_for(cfg, decls, mesh=None, prefix: str = ""):
+    """The layout of cache ``decls``' keys ``prefix + "k"`` on ``mesh``
+    (``whole`` on one device), or None for a cache without them (RWKV6's
+    state; ``prefix="cross_"`` outside the encoder-decoder).  Each pair of
+    keys takes its own spec: the encoder-decoder's cross cache of
+    n_frames slots can split on its sequence where its self cache of
+    another length splits on its kv heads."""
+    key = prefix + "k"
+    if key not in decls:
         return None
-    length = decls["k"].shape[2]
+    length = decls[key].shape[2]
     if mesh is None or shd.mesh_shape(mesh).get("model", 1) == 1:
         return CacheLayout("whole", length)
-    spec = cache_specs(cfg, decls, mesh)["k"]
+    spec = cache_specs(cfg, decls, mesh)[key]
     kind = ("seq" if spec[2] == "model" else
             "heads" if spec[3] == "model" else "whole")
     sizes = shd.mesh_shape(mesh)

@@ -1,9 +1,9 @@
 """Shared neural-net building blocks (plain PyTorch, decl-based params).
 
-``swiglu``, ``embed_lookup`` and ``logits_out`` take an optional ``tp``
-(``dist.tensor_parallel.ModelAxis``): their parameters are then this
-rank's part of a client's, split over the ``model`` axis, and they run
-column-parallel, row-parallel and vocab-parallel.  Without it they are
+``swiglu``, ``gelu_mlp``, ``embed_lookup`` and ``logits_out`` take an
+optional ``tp`` (``dist.tensor_parallel.ModelAxis``): their parameters
+are then this rank's part of a client's, split over the ``model`` axis,
+and they run column-parallel, row-parallel and vocab-parallel.  Without it they are
 the plain single-device functions.  ``embed_lookup``, ``logits_out`` and
 ``last_logits`` also take a ``dp`` (``dist.fsdp.DataAxis``, shared mode):
 they gather their table over ``data`` first (``fsdp.whole``).
@@ -103,12 +103,19 @@ def gelu_mlp_decl(d_model: int, d_ff: int):
     }
 
 
-def gelu_mlp(params, x):
+def gelu_mlp(params, x, tp=None):
     """``jax.nn.gelu``'s default is the tanh approximation (PyTorch's is
-    erf), computed in f32; the f32 biases are cast to x's dtype."""
+    erf), computed in f32; the f32 biases are cast to x's dtype.  With
+    ``tp``, ``swiglu``'s form: ``w_in`` and its bias ``b_in`` (both on
+    ``mlp``) column-parallel, ``w_out`` row-parallel, and the replicated
+    ``b_out`` added once, after the sum over the model axis."""
+    if tp is not None:
+        x = tpar.copy_to_model(x, tp)
     h = x @ params["w_in"] + params["b_in"].to(x.dtype)
     h = torch.nn.functional.gelu(h.float(), approximate="tanh").to(x.dtype)
-    return h @ params["w_out"] + params["b_out"].to(x.dtype)
+    y = h @ params["w_out"] if tp is None else \
+        tpar.row_parallel(h, params["w_out"], tp)
+    return y + params["b_out"].to(x.dtype)
 
 
 # --------------------------------------------------------------------------

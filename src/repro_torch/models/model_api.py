@@ -6,8 +6,9 @@ Every family module exposes:
     prefill(cfg, params, batch) -> (last_logits (B,V), cache)
     decode_step(cfg, params, cache, batch) -> (logits (B,V), cache), the
         cache updated in place
-    (the decoder's families, RWKV6 and Hymba also take ``tp``, ``dp`` and
-    the cache's ``layout`` there, to serve on ranks)
+    (every family also takes ``tp``, ``dp`` and the cache's ``layout``
+    there, to serve on ranks; the encoder-decoder also its cross cache's
+    ``cross_layout``)
     cache_decl(cfg, batch, cache_len) -> ParamDecl tree
 The decoder takes the ``dense``, ``moe`` and ``vlm`` families; ``encdec``
 is the encoder-decoder, ``rwkv`` RWKV6 and ``hybrid`` Hymba.
@@ -18,7 +19,6 @@ import torch
 
 from repro_torch import tree as T
 from repro_torch.configs.base import ArchConfig
-from repro_torch.dist import fsdp
 from repro_torch.dist import sharding as shd
 from repro_torch.dist import tensor_parallel as tpar
 from repro_torch.models import decoder, encdec, hybrid, rwkv6
@@ -98,15 +98,11 @@ def loss_fn(cfg: ArchConfig, params, batch, tp=None, dp=None):
     (the round step averages them), so the auxiliary term counts once in
     it, and the gradients are that mean's (``dist.fsdp``).
 
-    The decoder's families, RWKV6 and Hymba take ``tp`` and ``dp``; the
-    encoder-decoder and VLM families raise, naming their ROADMAP item."""
+    Every family takes ``tp`` and ``dp``; a config the model axis does
+    not run raises (``tensor_parallel.check_supported``)."""
     if tp is not None:
         tpar.check_supported(cfg, tp.size)
-    if dp is not None:
-        fsdp.check_supported(cfg)
-    fwd = get_model(cfg).forward
-    logits, aux = (fwd(cfg, params, batch) if tp is None and dp is None
-                   else fwd(cfg, params, batch, tp, dp))
+    logits, aux = get_model(cfg).forward(cfg, params, batch, tp, dp)
     ce = cross_entropy(logits, batch["labels"]) if tp is None else \
         tpar.cross_entropy(logits, batch["labels"], tp)
     return ce + aux, {"ce": ce, "aux": aux}

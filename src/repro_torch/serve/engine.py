@@ -19,8 +19,9 @@ its kv heads, or whole).  The layers run tensor-parallel over ``model``
 weights over ``data`` (``dist/fsdp.py``); an MoE layer routes the whole
 batch.  Every rank takes the argmax of the whole logits, and at a batch's
 end the rows' tokens are gathered over ``data``, so ``run`` returns the
-same completed requests on every rank.  The encoder-decoder and VLM
-families raise on a model axis (ROADMAP item 5b-vii).
+same completed requests on every rank.  The encoder-decoder's cache
+holds two layouts, its self-attention's (``layout``) and its cross
+cache's (``cross_layout``), each from its own keys' spec.
 """
 from __future__ import annotations
 
@@ -65,8 +66,6 @@ class ServeEngine:
         self.tp = tpar.axis_for(cfg, mesh)      # raises on what it lacks
         self.data = None
         if mesh is not None and mesh.shape["data"] > 1:
-            if cfg.fl.mode == "shared":
-                fsdp.check_supported(cfg)
             self.data = fsdp.DataAxis(
                 mesh.group("data"), mesh.shape["data"], mesh.coord("data"),
                 fsdp.data_dims(model_api.serve_specs(cfg, mesh)))
@@ -77,7 +76,8 @@ class ServeEngine:
         self.B = batch_size
         self.max_seq = max_seq
         self.model = model_api.get_model(cfg)
-        self.layout = None              # the current batch's cache layout
+        self.layout = None              # the current batch's cache layout,
+        self.cross_layout = None        # its cross cache's (encoder-decoder)
         self._dp = None                 # and its data axis
         self.queue: collections.deque[Request] = collections.deque()
         self.stats = {"prefill_tokens": 0, "decode_steps": 0,
@@ -132,9 +132,12 @@ class ServeEngine:
 
     def _kw(self):
         """The rank's arguments of a family's prefill and decode: the
-        model and data axes and the cache layout (none, and ``whole``, on
+        model and data axes and the cache layouts (none, and ``whole``, on
         one device)."""
-        return {"tp": self.tp, "dp": self._dp, "layout": self.layout}
+        kw = {"tp": self.tp, "dp": self._dp, "layout": self.layout}
+        if self.cross_layout is not None:
+            kw["cross_layout"] = self.cross_layout
+        return kw
 
     @torch.inference_mode()
     def prefill(self, tokens: np.ndarray, max_new: int):
@@ -150,8 +153,9 @@ class ServeEngine:
         self._dp = None if self.data is None else self.data.with_split(
             self._split(B))
         C = kvc.serve_cache_len(cfg, S, max_new, self.max_seq)
-        self.layout = kvc.layout_for(
-            cfg, self.model.cache_decl(cfg, B, max(C, 1)), self.mesh)
+        decls = self.model.cache_decl(cfg, B, max(C, 1))
+        self.layout = kvc.layout_for(cfg, decls, self.mesh)
+        self.cross_layout = kvc.layout_for(cfg, decls, self.mesh, "cross_")
         return self.model.prefill(cfg, self.params, batch, **self._kw())
 
     @torch.inference_mode()

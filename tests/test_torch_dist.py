@@ -138,18 +138,19 @@ def test_abstract_state_is_the_whole_state_on_meta():
 
 
 def test_model_axis_and_pods_raise():
-    """A model axis runs the dense and MoE families (tests/test_torch_tp.py)
-    and pods the shared mode (tests/test_torch_shared.py); what still
-    raises: fewer than 0 pods, a model axis below 1, and a model axis for a
-    family it does not run yet, before any rank starts."""
+    """A model axis runs every family (tests/test_torch_tp.py,
+    tests/test_torch_encdec_tp.py) and pods the shared mode
+    (tests/test_torch_shared.py); what still raises: fewer than 0 pods, a
+    model axis below 1, and a model axis that would leave an MLP or the
+    vocab whole (ROADMAP item 3), before any rank starts."""
     assert mesh_lib.check_axes(1, pods=2) is None
     with pytest.raises(ValueError, match="pods"):
         mesh_lib.check_axes(1, pods=-1)
     with pytest.raises(ValueError, match="model axis of 0"):
         mesh_lib.init_mesh(4, 0, rank=0, device="cpu")
-    with pytest.raises(NotImplementedError, match="5b-vii"):
+    with pytest.raises(NotImplementedError, match="would stay whole"):
         train.main(["--device", "cpu", "--smoke", "--arch", "whisper-small",
-                    "--model-mesh", "2"])
+                    "--model-mesh", "3"])
 
 
 def _fake_mesh(shape, rank):
@@ -167,8 +168,9 @@ def test_shared_mode_on_ranks_raises():
     5b-iii) is one client fully sharded over its 4 data ranks, as the
     reference's ``client_axis_for`` makes it: each rank's ``init_state``
     is its block of the K = 1 state (the embed dim in quarters) and the
-    round step builds.  A family shared mode does not run yet still raises,
-    naming its item."""
+    round step builds.  The VLM, which raised there before ROADMAP item
+    5b-vii, does the same: its patch projection's ``embed`` dim in
+    quarters too."""
     cfg = R.adafactor_smoke()
     cfg = cfg.replace(fl=dataclasses.replace(cfg.fl, mode="shared"))
     sizes = {"data": 4, "model": 1}
@@ -188,8 +190,15 @@ def test_shared_mode_on_ranks_raises():
                                                 R.schedule("flat")))
     vlm = smoke_config(get_arch("internvl2-2b"))
     vlm = vlm.replace(fl=dataclasses.replace(vlm.fl, mode="shared"))
-    with pytest.raises(NotImplementedError, match="5b-vii"):
-        fl_step.init_state(vlm, _fake_mesh(sizes, 0), 0)
+    whole = fl_step.init_state(vlm, 1, 0, "cpu")["params"]
+    specs = fl_step.param_specs(vlm, sizes)
+    assert specs["vis_proj"]["w"] == ("model", "data")
+    for r in range(4):
+        got = fl_step.init_state(vlm, _fake_mesh(sizes, r), 0)["params"]
+        for a, b, s in zip(T.leaves(got), T.leaves(whole), T.leaves(specs)):
+            assert torch.equal(a, shd.local_block(b, s, sizes, r))
+    assert callable(fl_step.build_fl_round_step(vlm, _fake_mesh(sizes, 0),
+                                                R.schedule("flat")))
 
 
 def test_cuda_mesh_never_drops_to_gloo():

@@ -129,7 +129,10 @@ def test_cache_specs_match_reference(arch, size, shape):
     model axis and batches that do and do not divide the data axis; where
     Hymba's heads stay whole its ``conv`` stays whole too (the reference
     splits its Din dim).  The layout is ``seq`` exactly where the keys'
-    ``cache_seq`` dim takes ``model``, ``heads`` where their kv heads do."""
+    ``cache_seq`` dim takes ``model``, ``heads`` where their kv heads do.
+    The encoder-decoder's cross cache (``cross_k``/``cross_v``, whisper's
+    1500 frames) takes its own layout from its own spec, ``seq`` wherever
+    its frames divide the model axis, whatever the self cache's."""
     ref_cfg, cfg = ref_get_arch(arch), get_arch(arch)
     if size == "smoke":
         ref_cfg, cfg = ref_smoke_config(ref_cfg), smoke_config(cfg)
@@ -159,6 +162,19 @@ def test_cache_specs_match_reference(arch, size, shape):
             assert (lay.kind, lay.length, lay.size, lay.rank) == (
                 kind, C, M, M - 1)
             assert lay.local * (M if kind == "seq" else 1) == C
+            cross = kvc.layout_for(cfg, decls, mesh, "cross_")
+            if "cross_k" not in decls:
+                assert cross is None and cfg.family != "encdec"
+                continue
+            # the encoder-decoder's cross cache: its own layout from its
+            # own spec, split on its frames wherever they divide M
+            ck, T_ = got["cross_k"], cfg.frontend.n_tokens
+            assert (ck[2] == "model") == (T_ % M == 0)
+            kind = ("seq" if ck[2] == "model" else "heads" if ck[3]
+                    == "model" else "whole")
+            assert (cross.kind, cross.length, cross.size, cross.rank) == (
+                kind, T_, M, M - 1)
+            assert "cross_kv_pos" not in decls
 
 
 # ---------------------------------------------------------------------------

@@ -81,18 +81,18 @@ def whole_params(params_np):
     return T.tree_map(lambda a: torch.from_numpy(np.array(a)), params_np)
 
 
-def serve(cfg, params, lens, seed, mesh=None):
-    """One case through ``ServeEngine`` (one device, or this rank's blocks
-    of ``params`` on ``mesh``): prefill, MAX_NEW decode steps on the
-    teacher-forced tokens, then the prompts' greedy tokens from ``run``.
-    -> the rank's rows, its logits (prefill, then each step), the cache
-    layout and leaf shapes, the greedy tokens."""
+def serve(cfg, params, lens, seed, mesh=None, engine_cls=ServeEngine):
+    """One case through ``ServeEngine`` (or ``engine_cls``; one device, or
+    this rank's blocks of ``params`` on ``mesh``): prefill, MAX_NEW decode
+    steps on the teacher-forced tokens, then the prompts' greedy tokens
+    from ``run``.  -> the rank's rows, its logits (prefill, then each
+    step), the cache layouts and leaf shapes, the greedy tokens."""
     if mesh is not None:
         specs = model_api.serve_specs(cfg, mesh)
         params = T.tree_map(lambda t, s: shd.local_block(t, s, mesh),
                             params, specs)
-    engine = ServeEngine(cfg, params, batch_size=len(lens), device="cpu",
-                         mesh=mesh)
+    engine = engine_cls(cfg, params, batch_size=len(lens), device="cpu",
+                        mesh=mesh)
     prompts, toks, forced = case_inputs(cfg.vocab, lens, seed)
     rows = engine.rows(len(lens))
     logits, cache = engine.prefill(toks, MAX_NEW)
@@ -101,13 +101,13 @@ def serve(cfg, params, lens, seed, mesh=None):
         out.append(engine.decode(cache, torch.from_numpy(forced[rows, j]),
                                  toks.shape[1] + j).float().numpy())
     shapes = {k: tuple(v.shape) for k, v in cache.items()}
-    layout = engine.layout
+    layout, cross_layout = engine.layout, engine.cross_layout
     for p in prompts:
         engine.submit(p, MAX_NEW)
     done = engine.run()
     return {"rows": (rows.start, rows.stop), "logits": out,
-            "layout": layout, "shapes": shapes,
-            "tokens": [r.out for r in done]}
+            "layout": layout, "cross_layout": cross_layout,
+            "shapes": shapes, "tokens": [r.out for r in done]}
 
 
 def serve_rank(mesh, cases, params_np):
@@ -128,20 +128,22 @@ def serve_rank(mesh, cases, params_np):
     return out
 
 
-def world1_rank(mesh, names):
+def world1_rank(mesh, names, config_of=config, serve_of=serve):
     """On a (1, 1) mesh: each config's parameters from a seed through
     ``init_params(..., mesh=)`` against the plain ``init_params``, and its
-    engine's logits and tokens against the plain engine's, bit for bit."""
+    engine's logits and tokens against the plain engine's, bit for bit
+    (``config_of`` and ``serve_of``: this module's ``config`` and ``serve``
+    or another's)."""
     out = []
     for name in names:
-        cfg = config(name)
+        cfg = config_of(name)
         blocks = model_api.init_params(cfg, 3, "cpu", mesh=mesh)
         plain = model_api.init_params(cfg, 3, "cpu")
         same = all(torch.equal(a, b) for a, b in zip(T.leaves(blocks),
                                                      T.leaves(plain)))
         lens = (30, 12, 30, 30)
-        got = serve(cfg, blocks, lens, seed=5, mesh=mesh)
-        want = serve(cfg, plain, lens, seed=5)
+        got = serve_of(cfg, blocks, lens, seed=5, mesh=mesh)
+        want = serve_of(cfg, plain, lens, seed=5)
         out.append({"params_equal": same,
                     "logits_equal": all(np.array_equal(a, b) for a, b in zip(
                         got["logits"], want["logits"])),

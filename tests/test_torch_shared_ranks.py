@@ -238,11 +238,12 @@ def by_block(cfg, sizes):
     return agg
 
 
-def f32_rounds(cfg, kind, K, mesh=None, blocks=None):
+def f32_rounds(cfg, kind, K, mesh=None, blocks=None, make=None):
     """``ROUNDS`` f32 rounds of the round step under ``kind``, K clients on
     one device or this rank's on ``mesh`` -> (losses, state as numpy).
     ``blocks`` (one device): aggregate per block of a mesh of these sizes
-    (``by_block``)."""
+    (``by_block``).  ``make(K, vocab)``: the rounds' batches, by default
+    ``batches``'."""
     st = f32_state(cfg, mesh or K)
     sched = R.schedule(kind, K) if K > 1 else R.schedule("flat", 1)
     step = fl_step.build_fl_round_step(cfg, mesh or K, sched, "cpu",
@@ -255,7 +256,7 @@ def f32_rounds(cfg, kind, K, mesh=None, blocks=None):
     if blocks is not None:
         fl_step.aggregate_params = by_block(cfg, blocks)
     try:
-        for b in batches(K, cfg.vocab):
+        for b in (make or batches)(K, cfg.vocab):
             if mesh is not None or K == 1:
                 b = {k: v[who] for k, v in b.items()}
             st, m = step(st, b, WEIGHTS[:K])

@@ -19,9 +19,11 @@ stay whole, the mixed layout).
   chooses its clients in each model shard, as the reference does;
 * (f) the CLI's ``--data-mesh 2 --model-mesh 2`` equals ``--clients 2``,
   and resumes; a (2, 2) trainer resumes bit for bit;
-* (g) the other families and serving on a model axis above 1 raise,
-  naming their ROADMAP item; the shared mode (the MoE configs' declared
-  mode) and pods run there (tests/test_torch_shared.py holds them).
+* (g) the other families and serving on a model axis above 1 build
+  (tests/test_torch_linear_tp.py, tests/test_torch_encdec_tp.py hold
+  them), and a config whose MLP or vocab would stay whole raises; the
+  shared mode (the MoE configs' declared mode) and pods run there
+  (tests/test_torch_shared.py holds them).
 
 The reference runs in one subprocess (jax fixes its device count at its
 first use) while the ranks run; each mesh is spawned once.  The
@@ -540,7 +542,8 @@ def _fake_mesh(D, M, rank=0):
 # mode) and, since item 5b-iii, in their declared shared mode (a mesh
 # without pods: one client, FSDP over data and TP over model); RWKV6 and
 # Hymba run there in their declared replica mode since item 5b-iv
-# (tests/test_torch_linear_tp.py); encoder-decoder and VLM still raise
+# (tests/test_torch_linear_tp.py), and so do the encoder-decoder and the
+# VLM since item 5b-vii (tests/test_torch_encdec_tp.py)
 @pytest.mark.parametrize("arch,item,mode", [
     ("mixtral-8x22b", "5b-iii", "shared"),
     ("kimi-k2-1t-a32b", "5b-iii", "shared"),
@@ -549,30 +552,26 @@ def _fake_mesh(D, M, rank=0):
     ("internvl2-2b", "5b-vii", "replica")])
 def test_other_families_on_model_axis_raise(arch, item, mode):
     cfg = _with(arch, mode, optimizer="adamw")
-    if item in ("5b-iii", "5b-iv"):
-        sizes = {"data": 2, "model": 2}
-        for r in range(4):
-            got = fl_step.init_state(cfg, _grid(2, 2, r), 0)["params"]
-            want = fl_step.abstract_state(cfg, _grid(2, 2, r))["params"]
-            assert [t.shape for t in T.leaves(got)] == [
-                t.shape for t in T.leaves(want)]
-        layer = fl_step.param_specs(cfg, sizes)["layers"]
-        if mode == "shared":
-            assert layer["moe"]["w_gate"] == (None, "model", "data", None)
-        else:                       # the clients on data, the heads split
-            heads = layer["tm"]["wr"] if "tm" in layer else \
-                layer["ssm"]["in_w"]
-            assert heads == ("data", None, None, "model", None)
-        assert callable(fl_step.build_fl_round_step(
-            cfg, _fake_mesh(2, 2), R.schedule("flat", 2)))
-        return
-    with pytest.raises(NotImplementedError, match=item):
-        fl_step.init_state(cfg, _grid(2, 2), 0)
-    with pytest.raises(NotImplementedError, match=item):
-        fl_step.build_fl_round_step(cfg, _grid(2, 2), R.schedule("flat", 2))
-    axis = tpar.ModelAxis(None, 2, 0, cfg.n_heads, cfg.n_kv_heads)
-    with pytest.raises(NotImplementedError, match=item):
-        model_api.loss_fn(cfg, {}, {}, axis)
+    sizes = {"data": 2, "model": 2}
+    for r in range(4):
+        got = fl_step.init_state(cfg, _grid(2, 2, r), 0)["params"]
+        want = fl_step.abstract_state(cfg, _grid(2, 2, r))["params"]
+        assert [t.shape for t in T.leaves(got)] == [
+            t.shape for t in T.leaves(want)]
+    specs = fl_step.param_specs(cfg, sizes)
+    layer = specs.get("layers")
+    if mode == "shared":
+        assert layer["moe"]["w_gate"] == (None, "model", "data", None)
+    elif item == "5b-iv":           # the clients on data, the heads split
+        heads = layer["tm"]["wr"] if "tm" in layer else layer["ssm"]["in_w"]
+        assert heads == ("data", None, None, "model", None)
+    elif cfg.family == "encdec":    # the cross-attention's heads split
+        assert specs["dec_layers"]["cross"]["wq"] == (
+            "data", None, None, "model", None)
+    else:                           # the patch projection's feat_dim
+        assert specs["vis_proj"]["w"] == ("data", "model", None)
+    assert callable(fl_step.build_fl_round_step(
+        cfg, _fake_mesh(2, 2), R.schedule("flat", 2)))
 
 
 def test_adafactor_shared_mode_and_pods_on_model_axis_raise():
@@ -590,21 +589,26 @@ def test_adafactor_shared_mode_and_pods_on_model_axis_raise():
                                                 R.schedule("flat", 2)))
     assert fl_step.data_axis_for(shared, _fake_mesh(2, 2)).size == 2
     assert mesh_lib.check_axes(2, pods=2) is None
-    with pytest.raises(NotImplementedError, match="5b-vii"):
+    # a model axis that would leave the smoke vocab (256) whole raises
+    # before any rank starts (ROADMAP item 3)
+    with pytest.raises(NotImplementedError, match="vocab, mlp would stay"):
         train.main(["--device", "cpu", "--smoke", "--arch", "whisper-small",
-                    "--model-mesh", "2"])
+                    "--model-mesh", "3"])
 
 
 def test_serving_on_model_axis_raises():
     """Serving on a model axis runs for the dense family (ROADMAP item
-    5b-v): the engine builds on (1, 2) with its model axis; the
-    encoder-decoder and VLM families raise there, naming item 5b-vii."""
+    5b-v) and, since item 5b-vii, for the encoder-decoder and the VLM: the
+    engine builds on (1, 2) with its model axis; a config whose MLP would
+    stay whole on the axis raises (ROADMAP item 3)."""
     mesh = _grid(1, 2)
     mesh.group = lambda ax: None
     mesh.coord = lambda ax: 0
     for arch in ("whisper-small", "internvl2-2b"):
-        with pytest.raises(NotImplementedError, match="5b-vii"):
-            ServeEngine(smoke_config(get_arch(arch)), {}, mesh=mesh)
+        cfg = smoke_config(get_arch(arch))
+        assert ServeEngine(cfg, {}, mesh=mesh).tp.size == 2
+        with pytest.raises(NotImplementedError, match="mlp would stay"):
+            ServeEngine(cfg.replace(d_ff=129), {}, mesh=mesh)
     engine = ServeEngine(R.qwen2_smoke(), {}, mesh=mesh)
     assert engine.tp.size == 2 and engine.device == torch.device("cpu")
     engine = ServeEngine(R.qwen2_smoke(), {}, mesh=_grid(1, 1))  # a card

@@ -70,7 +70,11 @@ and (1, 2, 2) (``fe_shared_agree``), whisper-small at 12 + 12 layers and
 internvl2-2b at 24 of 24 on (1, 4) and (2, 2) (``fe_time``); served, both
 join the (1, 1) leg and ``serve_tp_agree`` (whisper's self cache split on
 its kv heads or its sequence, its cross cache on its 1500 frames), and
-``serve_tp_time`` serves them at full depth on (1, 4).
+``serve_tp_time`` serves them at full depth on (1, 4).  Last, the
+``dryrun`` phase traces the ``tp_time`` and 32k serving cells on the meta
+device (``launch/dryrun.py``, in a subprocess that sees no card) and, on
+four cards, holds each rank's parameters, state and cache bytes, kernel
+launches, op counts and peak against what those legs measured.
 Each phase prints JSON lines, and a ``walls`` line gives each phase's
 wall time in seconds (and rank 0's of each leg a rank spawn ran); then one line lists every kernel, one line
 gives the card's name and power limit as nvidia-smi reports them, and the
@@ -94,8 +98,6 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 OUT = ROOT / "chiprun_out"
-PEAK_BYTES_S = 3.35e12        # H100 SXM HBM3
-PEAK_BF16_FLOP_S = 989e12     # H100 SXM dense bf16 tensor cores
 
 
 def emit(obj):
@@ -176,6 +178,17 @@ def smi_line() -> str:
          "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60)
     return out.stdout.strip().splitlines()[0]
+
+
+def bound(cost) -> tuple[float, str]:
+    """(ms, what bounds it) of a kernel call whose ``ops.cost()`` is
+    ``cost`` = (FLOPs, bytes): the larger of its FLOPs over the card's dense
+    bf16 peak and its bytes over its HBM rate (``launch/mesh.py``), and
+    ``"operations"`` or ``"bytes"``, whichever that is."""
+    from repro_torch.launch.mesh import HBM_BW, PEAK_FLOPS_BF16
+    t_ops, t_bytes = cost[0] / PEAK_FLOPS_BF16, cost[1] / HBM_BW
+    return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops > t_bytes
+                                       else "bytes")
 
 
 def time_ms(torch, fn, iters: int, warmup: int = 1) -> float:
@@ -261,8 +274,8 @@ def phase_fedavg(torch, dev):
             ok = bool((err <= ulp).all())
         else:
             ok = bool((err <= 1e-6 + 1e-6 * want.float().abs()).all())
-        esize = x.element_size()
-        nbytes = (K * N + N) * esize
+        cost = ops.cost(K, N, dtype)
+        bound_ms, bound_by = bound(cost)
         ms = time_ms(torch, lambda: ops.fedavg(x, w), 10 if N > 1e8 else 50)
         plain_ms = time_ms(torch, lambda: fedavg_ref(x, w),
                            3 if N > 1e8 else 20)
@@ -270,8 +283,8 @@ def phase_fedavg(torch, dev):
                "max_abs_err": float(err.max()),
                "bit_exact": bool(torch.equal(got, want)),
                "kernel_ms": ms, "plain_ms": plain_ms,
-               "bound_ms": nbytes / PEAK_BYTES_S * 1e3,
-               "gb_s": nbytes / (ms * 1e-3) / 1e9}
+               "bound_ms": bound_ms, "bound_by": bound_by,
+               "gb_s": cost[1] / (ms * 1e-3) / 1e9}
         if name == "path_largest_leaf":
             # the one PyTorch call for the same weighted mean: the (1, K)
             # normalized weight row times the (K, N) view (it rounds
@@ -286,19 +299,6 @@ def phase_fedavg(torch, dev):
         del x, got, want, err
         torch.cuda.empty_cache()
     return rows[0]
-
-
-def _flash_flops(B, Sq, Sk, H, hd, causal, window, q_offset=0, kv_offset=0):
-    """4*hd flops per unmasked (q, k) pair (QK^T and PV)."""
-    import numpy as np
-    qp = q_offset + np.arange(Sq)[:, None]
-    kp = kv_offset + np.arange(Sk)[None, :]
-    ok = np.ones((Sq, Sk), bool)
-    if causal:
-        ok &= qp >= kp
-    if window is not None:
-        ok &= qp - kp < window
-    return 4.0 * B * H * hd * float(ok.sum())
 
 
 def phase_flash(torch, dev):
@@ -369,9 +369,9 @@ def phase_flash(torch, dev):
                     "moe_local_heads_mixtral", "local_heads_internlm2",
                     "moe_local_heads_kimi",
                     "shared_local_heads_mixtral_m2"):
-            flops = _flash_flops(B, Sq, Sk, H, hd, causal, window)
-            nbytes = (q.numel() + k.numel() + v.numel() + o.numel()) \
-                * q.element_size() + lse.numel() * 4
+            flops, nbytes = ops.cost(B, Sq, Sk, H, Kv, hd, dtype, causal,
+                                     window, qo)
+            bound_ms, bound_by = bound((flops, nbytes))
             ms = time_ms(torch, lambda: ops.flash_fwd(q, k, v, causal,
                                                       window), 10)
             plain_ms = time_ms(
@@ -387,13 +387,10 @@ def phase_flash(torch, dev):
                 lib = lambda: F.scaled_dot_product_attention(
                     qt, kt, vt, attn_mask=keep, enable_gqa=True)
             lib_ms = time_ms(torch, lib, 10)
-            bound_ms = max(flops / PEAK_BF16_FLOP_S,
-                           nbytes / PEAK_BYTES_S) * 1e3
             row.update({
                 "kernel_ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
                 "flops": flops, "bytes": nbytes, "bound_ms": bound_ms,
-                "bound_by": "operations" if flops / PEAK_BF16_FLOP_S
-                > nbytes / PEAK_BYTES_S else "bytes",
+                "bound_by": bound_by,
                 "bound_share": bound_ms / ms,
                 "tflop_s": flops / (ms * 1e-3) / 1e12})
         if name == "path":
@@ -446,11 +443,13 @@ def phase_qagg(torch, dev):
         got = ops.qagg(q, s, wk)
         want = qagg_ref(q, s, wk)
         torch.cuda.synchronize()
-        nbytes = K * R * G + 4 * K * R + 4 * R * G
+        cost = ops.qagg_cost(K, R, G)
+        nbytes = cost[1]
+        bound_ms, bound_by = bound(cost)
         row = {"case": name, "K": K, "R": R, "G": G,
                "bit_exact": bool(torch.equal(got, want)),
                "max_abs_err": float((got - want).abs().max()),
-               "bytes": nbytes, "bound_ms": nbytes / PEAK_BYTES_S * 1e3}
+               "bytes": nbytes, "bound_ms": bound_ms, "bound_by": bound_by}
         if name in ("path_embed", "large_G", "shared_block"):
             ms = time_ms(torch, lambda: ops.qagg(q, s, wk), 10)
             row.update({"kernel_ms": ms,
@@ -493,13 +492,13 @@ def phase_quant8(torch, dev):
         err = max(float((q.reshape(-1).float() - want_q.float()).abs().max()),
                   float((s - want_s).abs().max()),
                   float((out - want_out).abs().max()))
-        q_bytes = n * x.element_size() + n + 4 * n / 256
-        d_bytes = n + 4 * n / 256 + 4 * n
+        q_bytes = ops.quantize_cost(n, dtype)[1]
+        d_bytes = ops.dequantize_cost(n)[1]
         row = {"case": name, "n": n, "dtype": str(dtype),
                "padded_rows": q.shape[0] - -(-n // 256),
                "bit_exact": bool(exact), "max_abs_err": err,
-               "quantize_bound_ms": q_bytes / PEAK_BYTES_S * 1e3,
-               "dequantize_bound_ms": d_bytes / PEAK_BYTES_S * 1e3}
+               "quantize_bound_ms": bound(ops.quantize_cost(n, dtype))[0],
+               "dequantize_bound_ms": bound(ops.dequantize_cost(n))[0]}
         if n > 1e8:
             qms = time_ms(torch, lambda: ops.quantize(x), 10)
             dms = time_ms(torch, lambda: ops.dequantize(q, s, n), 10)
@@ -518,19 +517,6 @@ def phase_quant8(torch, dev):
         del x, q, s, flat, want_q, want_s, out, want_out
         torch.cuda.empty_cache()
     return rows["path_bf16"]
-
-
-def _wkv_work(B, T, H, dk, dv, C, use_u):
-    """(FLOPs, exps) of one chunked WKV call in the plain chunked form: per
-    chunk and head the pairwise scores (3 per channel of each pair s < t, 2
-    per channel on the diagonal, one exp per channel of each pair s < t),
-    r*exp(base) @ S, A @ v over s <= t and the state update.  The kernel
-    factors most of the pairwise exps away; the bound is its bytes."""
-    n = -(-T // C)
-    pairs = C * (C - 1) // 2
-    per_chunk = (3 * pairs * dk + (3 if use_u else 2) * C * dk
-                 + 2 * C * dk * dv + C * (C + 1) * dv + 2 * C * dk * dv)
-    return float(B * H * n * per_chunk), float(B * H * n * pairs * dk)
 
 
 WKV_CASES = [  # name, B, T, H, dk, dv, chunk, use_u, per-head w, s0, dtype
@@ -552,7 +538,10 @@ def phase_wkv(torch, dev, cases=WKV_CASES, phase="wkv", seed=4):
     model axis of 2 and 4, and at odd shapes (B = 2, a ragged
     T = 200 with chunk 64, dk 4 / dv 8, a given s0).  Tolerance: 1e-4 of
     max |o| (and of max |s_final|), f32 sums in another order.
-    ``bound_share`` is the bound over the kernel's time."""
+    ``bound_share`` is the bound over the kernel's time.  At rwkv6's path
+    shape the kernel must refuse a scratch one float short of
+    ``ops.scratch_floats``."""
+    from repro_torch.kernels import _build
     from repro_torch.kernels.ssm_scan.ops import ssm_scan
     from repro_torch.kernels.wkv6 import ops
     from repro_torch.kernels.wkv6.ref import chunked
@@ -575,21 +564,17 @@ def phase_wkv(torch, dev, cases=WKV_CASES, phase="wkv", seed=4):
         s_err = float((sf - sf_ref).abs().max())
         o_tol = 1e-4 * float(o_ref.abs().max())
         s_tol = 1e-4 * float(sf_ref.abs().max())
-        flops, exps = _wkv_work(B, T, H, dk, dv, min(C, T), use_u)
-        nbytes = (3 * r.numel() * r.element_size() + w.numel() * 4
-                  + (u.numel() * 4 if use_u else 0)
-                  + (2 * sf.numel() * 4 if with_s0 else sf.numel() * 4)
-                  + o.numel() * 4)
+        flops, nbytes = ops.cost(B, T, H, dk, dv, C, w.shape[-1], use_u,
+                                 with_s0, dtype)
+        exps = ops.work(B, T, H, dk, dv, min(C, T), use_u)[1]
+        bound_ms, bound_by = bound((flops, nbytes))
         row = {"case": name, "shape_rk": [B, T, H, dk],
                "shape_v": [B, T, H, dv], "w_last_dim": w.shape[-1],
                "chunk": C, "use_u": use_u, "s0": with_s0,
                "dtype": str(dtype), "o_max_abs_err": o_err,
                "s_final_max_abs_err": s_err, "o_tol": o_tol, "s_tol": s_tol,
                "bytes": nbytes, "flops": flops, "exps": exps,
-               "bound_ms": max(nbytes / PEAK_BYTES_S,
-                               flops / PEAK_BF16_FLOP_S) * 1e3,
-               "bound_by": "operations" if flops / PEAK_BF16_FLOP_S
-               > nbytes / PEAK_BYTES_S else "bytes"}
+               "bound_ms": bound_ms, "bound_by": bound_by}
         ms = time_ms(torch, lambda: ops.wkv_f32(r, k, v, w, u=u, s0=s0,
                                                 chunk=C), 10)
         row.update({
@@ -599,6 +584,21 @@ def phase_wkv(torch, dev, cases=WKV_CASES, phase="wkv", seed=4):
             "bound_share": row["bound_ms"] / ms,
             "gb_s": nbytes / (ms * 1e-3) / 1e9,
             "gexp_s": exps / (ms * 1e-3) / 1e9})
+        if name == "path_rwkv6":
+            # chunks of 64 rows here, so ``scratch_floats`` is exact: the
+            # kernel must refuse one float less (cudaErrorInvalidValue)
+            n = ops.scratch_floats(B, T, H, dk, dv, C)
+            scratch = torch.empty(n, dtype=torch.float32, device=dev)
+            row["short_scratch_status"] = getattr(_build.load(),
+                                                  ops._FN[dtype])(
+                r.data_ptr(), k.data_ptr(), v.data_ptr(), w.data_ptr(),
+                u.data_ptr(), None, o.data_ptr(), sf.data_ptr(),
+                scratch.data_ptr(), n - 1, B, T, H, dk, dv, dk, C,
+                _build.stream_ptr(r))
+            del scratch
+            if row["short_scratch_status"] != 1:
+                raise AssertionError(f"wkv kernel took too small a "
+                                     f"scratch: {row}")
         if name == "path_hymba":       # the ssm_scan wrapper: same kernel
             before = ops.launches_ssd
             y, h = ssm_scan(r, k, v, w, chunk=C)
@@ -1334,10 +1334,9 @@ def phase_serve_kernels(torch, dev):
         torch.cuda.synchronize()
         o_err = float((o.float() - o_ref.float()).abs().max())
         lse_err = float((lse - lse_ref).abs().max())
-        flops = _flash_flops(B, Sq, Sk, H, hd, causal, window)
-        nbytes = (q.numel() + k.numel() + v.numel() + o.numel()) * 2 \
-            + lse.numel() * 4
-        bound_ms = max(flops / PEAK_BF16_FLOP_S, nbytes / PEAK_BYTES_S) * 1e3
+        flops, nbytes = ops.cost(B, Sq, Sk, H, Kv, hd, q.dtype, causal,
+                                 window)
+        bound_ms, bound_by = bound((flops, nbytes))
         qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
         keep = None
         if causal:
@@ -1358,9 +1357,7 @@ def phase_serve_kernels(torch, dev):
                    torch, lambda: F.scaled_dot_product_attention(
                        qt, kt, vt, attn_mask=keep, enable_gqa=True), 10),
                "flops": flops, "bytes": nbytes, "bound_ms": bound_ms,
-               "bound_by": "operations" if flops / PEAK_BF16_FLOP_S
-               > nbytes / PEAK_BYTES_S else "bytes",
-               "bound_share": bound_ms / ms}
+               "bound_by": bound_by, "bound_share": bound_ms / ms}
         emit({"phase": "serve_flash", **row})
         if o_err > 2e-2 or lse_err > 1e-3:
             raise AssertionError(f"flash kernel disagrees: {row}")
@@ -1566,6 +1563,7 @@ def phase_serve(torch, dev, phase, arch, n_layers, prompt_lens=SERVE_PROMPT,
     import numpy as np
     from repro_torch import tree as T
     from repro_torch.configs.base import get_arch
+    from repro_torch.launch.mesh import HBM_BW
     from repro_torch.models import model_api, moe
     from repro_torch.serve.engine import ServeEngine
 
@@ -1615,7 +1613,7 @@ def phase_serve(torch, dev, phase, arch, n_layers, prompt_lens=SERVE_PROMPT,
     moe_calls = moe.read_stats()["calls"]
     peak = torch.cuda.max_memory_allocated(dev)
     st = engine.stats
-    bound_ms = step_bytes / PEAK_BYTES_S * 1e3
+    bound_ms = step_bytes / HBM_BW * 1e3
     decode_ms = st["decode_s"] / st["decode_steps"] * 1e3
     profile = _profile_decode(torch, dev, engine, prompts[:SERVE_BATCH])
 
@@ -2305,10 +2303,32 @@ def _tp_time(torch, mesh, sched) -> dict:
            "model_collectives_ms_max": [m.get("model_collectives_ms")
                                         for m in ms],
            "peak": torch.cuda.max_memory_allocated(dev),
+           "round1_max_memory_allocated": ms[1]["max_memory_allocated"],
+           "state_bytes": sum(t.numel() * t.element_size() for t in T.leaves(
+               {k: tr.state[k] for k in ("params", "opt")})),
            "launches": read_launches(),
            "checksum": _checksum(torch, tr.state["params"])}
+    if (tuple(mesh.shape.values()), sched) == DRYRUN_OP_ROUND:
+        out["op_cost"] = _counted_round(torch, tr)
     del tr
     return out
+
+
+def _counted_round(torch, tr) -> dict:
+    """One more round of the trainer's step under ``OpCounter`` on the
+    card (``launch/op_analysis.py``): the counts the dry run's meta trace
+    of the same cell must equal.  The batch is on the card before the
+    count starts, as the meta trace's is on the meta device."""
+    from repro_torch.launch.op_analysis import OpCounter
+    step = next(iter(tr._steps.values()))
+    batch = {k: torch.from_numpy(v).to(tr.device) for k, v in
+             tr.data.client_batch(tr._client(), tr.batch_per_client,
+                                  tr.seq, tr.rounds).items()}
+    torch.cuda.synchronize(tr.device)
+    with OpCounter() as oc:
+        tr.state, _ = step(tr.state, batch, tr.weights)
+        torch.cuda.synchronize(tr.device)
+    return oc.cost.to_dict()
 
 
 def _per(x, arch):
@@ -2753,10 +2773,12 @@ def _emit_tp_agree(ranks, add, faults):
 
 
 def _emit_tp_time(shape, sched, rows, add, faults):
-    """A ``tp_time`` line and its checks."""
+    """A ``tp_time`` line and its checks; rank 0's row is kept for
+    ``phase_dryrun``."""
     for r in rows:
         add(r["launches"])
     lead = rows[0]
+    MEASURED[("tp_time", shape, sched)] = lead
     M = shape[1]
     same = all(rows[r]["checksum"] == rows[r % M]["checksum"]
                for r in range(len(rows)))
@@ -3297,6 +3319,7 @@ def _serve_tp_time(torch, mesh, arch, n_layers, lens, n_requests,
     from repro_torch import tree as T
     from repro_torch.configs.base import get_arch
     from repro_torch.dist import sharding as shd
+    from repro_torch.launch.mesh import HBM_BW
     from repro_torch.models import kvcache as kvc
     from repro_torch.models import model_api
     from repro_torch.serve.engine import ServeEngine
@@ -3379,7 +3402,7 @@ def _serve_tp_time(torch, mesh, arch, n_layers, lens, n_requests,
             "decode_tokens_s": SERVE_BATCH * st["decode_steps"]
             / st["decode_s"],
             "decode_read_bytes_rank": step_bytes + cache_rank,
-            "decode_bound_ms": (step_bytes + cache_rank) / PEAK_BYTES_S
+            "decode_bound_ms": (step_bytes + cache_rank) / HBM_BW
             * 1e3,
             "model_collectives_ms": coll_ms,
             "model_collectives": len(engine.tp.events),
@@ -3536,7 +3559,7 @@ def phase_serve_tp(torch, dev) -> dict:
             if leg not in legs:
                 continue
             rows = [r[leg] for r in ranks]
-            lead = rows[0]
+            lead = MEASURED[("serve_tp_time", shape, i)] = rows[0]
             for r in rows:
                 add(r["launches"])
             emit({"phase": "serve_tp_time", "mesh": list(shape),
@@ -3742,6 +3765,152 @@ def phase_dist(torch, dev) -> dict:
     return launches
 
 
+# ---- the dry run (``launch/dryrun.py``) against the four-card legs ------
+# the cells, traced on the meta device in a subprocess on the host (its
+# ``fake`` process group cannot share a process with NCCL's): tp_time's
+# qwen2-7b at 28 layers (batch 1 a client, DIST_SEQ tokens) on (1, 4) tree
+# and (2, 2) flat, and serve_tp_time's 32k context on (1, 4) (4 prompts of
+# 32 768 tokens, the cache at 32 800 slots): (cell, mesh, schedule)
+DRYRUN_CELLS = [("tp_time", (1, 4), "tree"), ("tp_time", (2, 2), "flat"),
+                ("serve_tp_time", (1, 4), None)]
+DRYRUN_SERVE_ROW = next(i for i, row in enumerate(SERVE_TP_TIME)
+                        if row[4] == 32800)
+# the cell whose extra round is also counted on the card
+DRYRUN_OP_ROUND = ((1, 4), "tree")
+DRYRUN_PEAK_RTOL = 0.15     # predicted peak against max_memory_allocated
+DRYRUN_TIMEOUT_S = 600
+MEASURED = {}               # rank 0's rows of the legs the dry run predicts
+
+
+def dryrun_cells(path: str) -> None:
+    """The dry run of ``DRYRUN_CELLS`` (``launch/dryrun.lower_cell``),
+    written to ``path`` as JSON; ``phase_dryrun`` runs it in a subprocess
+    that sees no card."""
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.launch import dryrun
+    recs = []
+    for cell, (D, M), sched in DRYRUN_CELLS:
+        if cell == "tp_time":
+            shape = ShapeConfig(cell, DIST_SEQ, D * BATCH_PER_CLIENT, "train")
+            layers = TP_TIME_LAYERS
+        else:
+            arch, layers, lens, _, max_seq = SERVE_TP_TIME[DRYRUN_SERVE_ROW]
+            shape = ShapeConfig(cell, max_seq, SERVE_BATCH, "decode")
+        recs.append(dryrun.lower_cell(
+            DIST_ARCH, shape, False, schedule=sched,
+            overrides={"n_layers": layers},
+            mesh_shape={"data": D, "model": M}))
+    Path(path).write_text(json.dumps(recs))
+
+
+def _op_diff(meta: dict, card: dict) -> dict:
+    """Where the meta trace's ``OpCost`` and the card's round's differ
+    (each op's calls apart)."""
+    out = {k: (v, card[k]) for k, v in meta.items()
+           if k != "op_counts" and v != card[k]}
+    ops = set(meta["op_counts"]) | set(card["op_counts"])
+    out["op_counts"] = {o: (meta["op_counts"].get(o, 0),
+                            card["op_counts"].get(o, 0)) for o in sorted(ops)
+                        if meta["op_counts"].get(o) != card["op_counts"].get(o)}
+    return out
+
+
+def phase_dryrun(torch, dev) -> None:
+    """The dry run of ``DRYRUN_CELLS`` in a subprocess on the host, against
+    what the four-card legs measured (rank 0's rows): exactly, each
+    rank's parameters and state bytes and a round's kernel launches; for
+    (1, 4) tree, every count of the card's extra round under ``OpCounter``
+    (aten FLOPs and bytes, each aten op's calls, the collectives by kind and
+    group size, the kernels' calls, FLOPs and bytes); within
+    ``DRYRUN_PEAK_RTOL`` the predicted peak against round 1's
+    ``max_memory_allocated``; exactly the 32k cell's cache bytes a rank.
+    Printed beside them: the roofline's bound and dominant term against
+    round 1's time, the whole-step share model FLOPs / (cards x 989 TFLOP/s
+    x round s), and the NVLink rate ``nvidia-smi nvlink -s`` reads beside
+    ``NVLINK_BW``.  On fewer than four cards there are no legs to hold it
+    against, and the phase does not run (the CPU tests cover the records'
+    own checks)."""
+    from repro_torch.launch.mesh import NVLINK_BW, PEAK_FLOPS_BF16
+    if torch.cuda.device_count() < 4:
+        return
+    OUT.mkdir(exist_ok=True)
+    path = OUT / "dryrun_cells.json"
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, str(ROOT / "chip_smoke.py"), "--dryrun-cells",
+         str(path)], env=dict(os.environ, CUDA_VISIBLE_DEVICES=""),
+        capture_output=True, text=True, timeout=DRYRUN_TIMEOUT_S)
+    if proc.returncode:
+        raise AssertionError(f"dryrun: the subprocess exited "
+                             f"{proc.returncode}:\n{proc.stderr[-4000:]}")
+    recs = json.loads(path.read_text())
+    wall_s = time.perf_counter() - t0
+    smi = smi_line()
+    link = _nvlink()
+    faults = []
+    for (cell, shape, sched), rec in zip(DRYRUN_CELLS, recs):
+        if rec["status"] != "ok":
+            faults.append(f"dryrun {cell} {shape}: {rec}")
+            continue
+        rf, mem = rec["roofline"], rec["memory"]
+        line = {"phase": "dryrun", "cell": cell, "mesh": list(shape),
+                "schedule": sched, "arch": DIST_ARCH, "trace_s":
+                rec["trace_s"], "subprocess_s": wall_s,
+                "params_per_rank": rec["params_per_rank"],
+                "memory": mem, "kernels": rec["kernels"],
+                "roofline": {k: rf[k] for k in (
+                    "flops_per_dev", "hbm_bytes_per_dev", "collective_bytes",
+                    "collective_cross_node_bytes", "collective_by_group",
+                    "compute_s", "memory_s", "collective_s", "bound_s",
+                    "dominant", "model_flops_total")},
+                "nvidia_smi": smi}
+        if cell == "tp_time":
+            flash = rec["kernels"].get("flash_fwd", {}).get("launches", 0)
+            if flash != 2 * TP_TIME_LAYERS or set(rec["kernels"]) != {
+                    "flash_fwd"}:
+                faults.append(f"dryrun {cell} {shape}: kernels "
+                              f"{rec['kernels']}")
+            got = MEASURED[("tp_time", shape, sched)]
+            round_s = got["round_s"][1]
+            peak = got["round1_max_memory_allocated"]
+            line["measured"] = {
+                "params_per_rank": got["params_per_rank"],
+                "state_bytes": got["state_bytes"],
+                "launches_per_round": {k: n / ROUNDS for k, n in
+                                       got["launches"].items()},
+                "round1_s": round_s, "round1_max_memory_allocated": peak,
+                "peak_ratio": mem["total_per_device"] / peak,
+                "bound_s_over_round1_s": rf["bound_s"] / round_s,
+                "whole_step_share": rf["model_flops_total"] / (
+                    rec["n_devices"] * PEAK_FLOPS_BF16 * round_s)}
+            if (got["params_per_rank"] != rec["params_per_rank"]
+                    or got["state_bytes"] != mem["state_bytes"]
+                    or got["launches"]["flash_fwd"] != flash * ROUNDS
+                    or abs(mem["total_per_device"] / peak - 1)
+                    > DRYRUN_PEAK_RTOL):
+                faults.append(f"dryrun {cell} {shape}: {line}")
+            if (shape, sched) == DRYRUN_OP_ROUND:
+                diff = _op_diff(rec["op_cost"], got["op_cost"])
+                line["op_counts_equal"] = not any(diff.values())
+                line["op_diff"] = diff
+                if not line["op_counts_equal"]:
+                    faults.append(f"dryrun {cell} {shape}: the card's "
+                                  f"round counts differ: {diff}")
+        else:
+            got = MEASURED[("serve_tp_time", shape, DRYRUN_SERVE_ROW)]
+            line["measured"] = {"cache_bytes_rank":
+                                got["batches"][0]["cache_bytes_rank"]}
+            if got["batches"][0]["cache_bytes_rank"] != \
+                    mem["cache_bytes"]:
+                faults.append(f"dryrun {cell} {shape}: {line}")
+        line["nvlink"] = {"nvidia_smi_bytes_s": link["bytes_s"],
+                          "NVLINK_BW": NVLINK_BW}
+        emit(line)
+    if faults:
+        raise AssertionError("\n".join(faults))
+
+
 def kernel_rows(fed, flash, qagg, quant8, wkv, launches):
     """The ``kernels`` line: every kernel with its launches summed over the
     train cells (quant8 is on none: its launches there are read, and are
@@ -3755,7 +3924,7 @@ def kernel_rows(fed, flash, qagg, quant8, wkv, launches):
          "launches": launches["fedavg"],
          "max_abs_err": fed["max_abs_err"], "ms": fed["kernel_ms"],
          "plain_ms": fed["plain_ms"], "bound_ms": fed["bound_ms"],
-         "bound_by": "bytes", "library_ms": fed["library_ms"]},
+         "bound_by": fed["bound_by"], "library_ms": fed["library_ms"]},
         {"name": "flash_attn_fwd", "route": "cuda",
          "source": "src/repro_torch/csrc/flash_attn_fwd.cu",
          "replaces": "src/repro/kernels/flash_attn/flash_attn.py:60",
@@ -3770,7 +3939,7 @@ def kernel_rows(fed, flash, qagg, quant8, wkv, launches):
          "launches": launches["qagg"],
          "max_abs_err": qagg["max_abs_err"], "ms": qagg["kernel_ms"],
          "plain_ms": qagg["plain_ms"], "bound_ms": qagg["bound_ms"],
-         "bound_by": "bytes", "library_ms": None}]
+         "bound_by": qagg["bound_by"], "library_ms": None}]
     for op, line in (("quantize", 33), ("dequantize", 50)):
         rows.append({
             "name": op, "route": "cuda",
@@ -3810,7 +3979,11 @@ def run(argv=None) -> int:
     ap.add_argument("--profile", action="store_true",
                     help="trace each training round with torch.profiler "
                          "(tables under chiprun_out/; slows the rounds)")
+    ap.add_argument("--dryrun-cells", metavar="JSON", help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
+    if args.dryrun_cells:              # phase_dryrun's subprocess
+        dryrun_cells(args.dryrun_cells)
+        return 0
 
     # before the first cuBLAS call: the resume phase runs with
     # torch.use_deterministic_algorithms, which needs a fixed workspace
@@ -3862,6 +4035,7 @@ def run(argv=None) -> int:
         add(timed(cell[0], phase_serve, torch, dev, *cell))
     add(timed("dist", phase_dist, torch, dev))
     add(timed("serve_tp", phase_serve_tp, torch, dev))
+    timed("dryrun", phase_dryrun, torch, dev)
     emit({"phase": "walls", "s": walls, "legs_s": LEG_WALLS})
     emit({"kernels": kernel_rows(fed, flash, qagg, quant8, wkv, launches)})
     print(smi, flush=True)

@@ -201,8 +201,9 @@ def abstract_state(cfg: ArchConfig, mesh):
     if _is_count(mesh) or isinstance(mesh, dict):
         return {"params": params, "opt": init_opt_state(opt, params, n),
                 "step": 0}
-    params = T.tree_map(lambda t, s: shd.local_block(t, s, mesh), params,
-                        param_specs(cfg, mesh))
+    params = T.tree_map(lambda t, s: torch.empty(
+        shd.local_block(t, s, mesh).shape, dtype=t.dtype, device="meta"),
+        params, param_specs(cfg, mesh))
     return {"params": params, "opt": (_per_client_opt_state(opt, params)
                                       if n > 1 else opt.init(params)),
             "step": 0}

@@ -809,8 +809,8 @@ __host__ inline Scratch scratch_size(int B, int T, int H, int dk, int dv,
 template <typename T>
 int launch(const void* r, const void* k, const void* v, const void* w,
            const void* u, const void* s0, void* o, void* sf, void* scratch,
-           int B, int Tn, int H, int dk, int dv, int wd, int C,
-           void* stream) {
+           long long scratch_floats, int B, int Tn, int H, int dk, int dv,
+           int wd, int C, void* stream) {
   if (B < 1 || H < 1 || Tn < 1 || C < 1 || C > kMaxChunk || Tn % C != 0 ||
       dk < 1 || dk > kMaxDk || dv < 1 || dv > kMaxDv ||
       (wd != 1 && wd != dk))
@@ -831,6 +831,7 @@ int launch(const void* r, const void* k, const void* v, const void* w,
   const long long blocks = (long long)B * H * D.n * D.nvtiles;
   if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
   const Scratch S = scratch_size(B, Tn, H, dk, dv, wd, C);
+  if (S.states + S.flags > scratch_floats) return (int)cudaErrorInvalidValue;
   float* states = (float*)scratch;
   int* sync = (int*)(states + S.states);
   cudaStream_t st = (cudaStream_t)stream;
@@ -853,31 +854,27 @@ int launch(const void* r, const void* k, const void* v, const void* w,
 
 extern "C" {
 
-// The floats of scratch that wkv6_bf16 / wkv6_f32 take for these sizes.
-long long wkv6_scratch_floats(int B, int T, int H, int dk, int dv, int wd,
-                              int C) {
-  const Scratch S = scratch_size(B, T, H, dk, dv, wd, C);
-  return S.states + S.flags;
-}
-
 // r/k: (B, T, H, dk), v: (B, T, H, dv), w: (B, T, H, wd) f32 with wd 1 or
 // dk, u: (H, dk) f32 or null (SSD), s0: (B, H, dk, dv) f32 or null (zero),
-// o: (B, T, H, dv) f32, sf: (B, H, dk, dv) f32, scratch: as many f32 as
-// wkv6_scratch_floats says; all contiguous on the device, T % C == 0.
+// o: (B, T, H, dv) f32, sf: (B, H, dk, dv) f32, scratch: scratch_floats
+// f32 (the wrapper sizes it for chunks of min(C, kKernelChunk) rows and
+// value tiles of kVTile; a launch that needs more is refused); all
+// contiguous on the device, T % C == 0.
 int wkv6_bf16(const void* r, const void* k, const void* v, const void* w,
               const void* u, const void* s0, void* o, void* sf,
-              void* scratch, int B, int T, int H, int dk, int dv, int wd,
-              int C, void* stream) {
-  return launch<__nv_bfloat16>(r, k, v, w, u, s0, o, sf, scratch, B, T, H,
-                               dk, dv, wd, C, stream);
+              void* scratch, long long scratch_floats, int B, int T, int H,
+              int dk, int dv, int wd, int C, void* stream) {
+  return launch<__nv_bfloat16>(r, k, v, w, u, s0, o, sf, scratch,
+                               scratch_floats, B, T, H, dk, dv, wd, C,
+                               stream);
 }
 
 int wkv6_f32(const void* r, const void* k, const void* v, const void* w,
              const void* u, const void* s0, void* o, void* sf, void* scratch,
-             int B, int T, int H, int dk, int dv, int wd, int C,
-             void* stream) {
-  return launch<float>(r, k, v, w, u, s0, o, sf, scratch, B, T, H, dk, dv,
-                       wd, C, stream);
+             long long scratch_floats, int B, int T, int H, int dk, int dv,
+             int wd, int C, void* stream) {
+  return launch<float>(r, k, v, w, u, s0, o, sf, scratch, scratch_floats, B,
+                       T, H, dk, dv, wd, C, stream);
 }
 
 }  // extern "C"

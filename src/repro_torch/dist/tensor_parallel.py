@@ -291,10 +291,10 @@ def _mm_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """``a @ b`` (2-D, or batched 3-D) with an f32 result: on a card, bf16
     or f16 operands go through the GEMM with an f32 output (no rounding to
     bf16); on the CPU, the product of the operands in f32 (the same
-    value)."""
+    value).  A meta tensor (a dry run) stands for the card's."""
     mm = torch.bmm if b.dim() == 3 else torch.mm
-    if a.device.type == "cuda" and a.dtype in (torch.bfloat16,
-                                               torch.float16):
+    if a.device.type in ("cuda", "meta") and a.dtype in (torch.bfloat16,
+                                                         torch.float16):
         return mm(a, b, out_dtype=torch.float32)
     return mm(a.float(), b.float())
 

@@ -35,11 +35,9 @@ SIGNATURES = {
     "quant8_quantize_bf16": [_P, _P, _P, _L, _P],
     "quant8_quantize_f32": [_P, _P, _P, _L, _P],
     "quant8_dequantize": [_P, _P, _P, _L, _P],
-    "wkv6_bf16": [_P] * 9 + [_I] * 7 + [_P],
-    "wkv6_f32": [_P] * 9 + [_I] * 7 + [_P],
-    "wkv6_scratch_floats": [_I] * 7,
+    "wkv6_bf16": [_P] * 9 + [_L] + [_I] * 7 + [_P],
+    "wkv6_f32": [_P] * 9 + [_L] + [_I] * 7 + [_P],
 }
-RESTYPES = {"wkv6_scratch_floats": _L}   # every other function: cudaError_t
 
 _lib = None
 build_log = ""          # ptxas register/shared-memory report of the last build
@@ -112,9 +110,24 @@ def load() -> ctypes.CDLL:
         for name, argtypes in SIGNATURES.items():
             fn = getattr(lib, name)
             fn.argtypes = argtypes
-            fn.restype = RESTYPES.get(name, ctypes.c_int)
+            fn.restype = ctypes.c_int      # cudaError_t
         _lib = lib
     return _lib
+
+
+# the active op counters (``launch.op_analysis.OpCounter``): a kernel's
+# launch on a card, and a meta call that stands for one, reports its
+# ``cost()`` to each
+counters: list = []
+
+
+def record(name: str, cost, *args) -> None:
+    """Reports one call of kernel ``name`` to every active op counter:
+    ``cost(*args)`` = (FLOPs, bytes), worked out only when one is."""
+    if counters:
+        flops, nbytes = cost(*args)
+        for c in counters:
+            c.kernel(name, flops, nbytes)
 
 
 def check_device(t, what: str) -> None:

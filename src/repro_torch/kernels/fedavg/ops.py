@@ -4,7 +4,11 @@ dequantize-aggregate kernel qagg (``csrc/qagg.cu``).
 A CPU tensor takes the plain version in ``ref.py``; a CUDA tensor launches
 the kernel or raises (wrong card, failed build, failed launch, unsupported
 dtype or shape).  ``launches`` and ``qagg_launches`` count kernel launches,
-so a run can show that its aggregation went through the kernels."""
+so a run can show that its aggregation went through the kernels.  A meta
+tensor (a dry run, ``launch/dryrun.py``) gets the kernel's output shape
+and dtype and launches nothing.  ``cost`` and ``qagg_cost`` give one
+launch's (FLOPs, bytes); each launch, and each meta call, reports them to
+the active op counters (``_build.record``)."""
 from __future__ import annotations
 
 import torch
@@ -20,6 +24,19 @@ _FN = {torch.bfloat16: "fedavg_bf16", torch.float32: "fedavg_f32"}
 MAX_CLIENTS = 256
 
 
+def cost(K: int, N: int, dtype) -> tuple[float, float]:
+    """(FLOPs, bytes) of one fedavg launch over a (K, N) stack: a multiply
+    and an add per element; the stack read and the mean written once."""
+    return 2.0 * K * N, float((K * N + N) * dtype.itemsize)
+
+
+def qagg_cost(K: int, R: int, G: int) -> tuple[float, float]:
+    """(FLOPs, bytes) of one qagg launch over K (R, G) int8 payloads: a
+    scale, a weight and an add per element; q and the f32 row scales read,
+    the f32 sum written."""
+    return 3.0 * K * R * G, float(K * R * G + 4 * K * R + 4 * R * G)
+
+
 def fedavg(stacked: torch.Tensor, weights: torch.Tensor) -> torch.Tensor:
     """Weighted mean over the leading (clients) axis of (K, N) -> (N,), in
     the input dtype, accumulated in f32."""
@@ -29,7 +46,9 @@ def fedavg(stacked: torch.Tensor, weights: torch.Tensor) -> torch.Tensor:
                          f"(K, N) and weights (K,), got {tuple(weights.shape)}")
     if stacked.device.type == "cpu":
         return fedavg_ref(stacked, weights)
-    _build.check_device(stacked, "fedavg")
+    meta = stacked.device.type == "meta"
+    if not meta:
+        _build.check_device(stacked, "fedavg")
     K, N = stacked.shape
     if stacked.dtype not in _FN:
         raise TypeError(f"fedavg kernel takes bf16 or f32, got {stacked.dtype}")
@@ -42,11 +61,13 @@ def fedavg(stacked: torch.Tensor, weights: torch.Tensor) -> torch.Tensor:
         raise ValueError("fedavg kernel takes f32 weights on the stack's card")
     w = weights.contiguous()
     out = torch.empty((N,), dtype=stacked.dtype, device=stacked.device)
-    status = getattr(_build.load(), _FN[stacked.dtype])(
-        stacked.data_ptr(), w.data_ptr(), out.data_ptr(), K, N,
-        _build.stream_ptr(stacked))
-    _build.check_status(status, "fedavg")
-    launches += 1
+    if not meta:
+        status = getattr(_build.load(), _FN[stacked.dtype])(
+            stacked.data_ptr(), w.data_ptr(), out.data_ptr(), K, N,
+            _build.stream_ptr(stacked))
+        _build.check_status(status, "fedavg")
+        launches += 1
+    _build.record("fedavg", cost, K, N, stacked.dtype)
     return out
 
 
@@ -70,7 +91,9 @@ def qagg(q: torch.Tensor, scales: torch.Tensor,
                          f"{tuple(scales.shape)} and {tuple(weights.shape)}")
     if q.device.type == "cpu":
         return qagg_ref(q3, s3, weights).reshape(shape)
-    _build.check_device(q, "qagg")
+    meta = q.device.type == "meta"
+    if not meta:
+        _build.check_device(q, "qagg")
     R = q3.shape[1]
     if q.dtype != torch.int8 or scales.dtype != torch.float32:
         raise TypeError(f"qagg kernel takes int8 q and f32 scales, got "
@@ -85,11 +108,13 @@ def qagg(q: torch.Tensor, scales: torch.Tensor,
         raise ValueError("qagg kernel takes f32 weights and scales on q's card")
     w = weights.contiguous()
     out = torch.empty((R, G), dtype=torch.float32, device=q.device)
-    status = _build.load().qagg(
-        q3.data_ptr(), s3.data_ptr(), w.data_ptr(), out.data_ptr(), K, R, G,
-        _build.stream_ptr(q))
-    _build.check_status(status, "qagg")
-    qagg_launches += 1
+    if not meta:
+        status = _build.load().qagg(
+            q3.data_ptr(), s3.data_ptr(), w.data_ptr(), out.data_ptr(), K, R,
+            G, _build.stream_ptr(q))
+        _build.check_status(status, "qagg")
+        qagg_launches += 1
+    _build.record("qagg", qagg_cost, K, R, G)
     return out.reshape(shape)
 
 

@@ -2,8 +2,11 @@
 flat API of the JAX package's ``kernels/quant8/ops.py``.
 
 A CPU tensor takes the plain version in ``ref.py``; a CUDA tensor launches
-the kernel or raises.  ``quantize_launches`` and ``dequantize_launches``
-count kernel launches."""
+the kernel or raises; a meta tensor (a dry run) gets the outputs' shapes
+and dtypes and launches nothing.  ``quantize_launches`` and
+``dequantize_launches`` count kernel launches; ``quantize_cost`` and
+``dequantize_cost`` give one launch's (FLOPs, bytes), which each launch
+and each meta call reports to the active op counters (``_build.record``)."""
 from __future__ import annotations
 
 import torch
@@ -20,6 +23,19 @@ dequantize_launches = 0
 
 _QFN = {torch.bfloat16: "quant8_quantize_bf16",
         torch.float32: "quant8_quantize_f32"}
+
+
+def quantize_cost(n: int, dtype) -> tuple[float, float]:
+    """(FLOPs, bytes) of quantizing ``n`` values of ``dtype``: an absmax
+    compare and a scaled round a value; the input read, the int8 values
+    and one f32 scale a block written."""
+    return 2.0 * n, n * dtype.itemsize + n + 4 * n / QBLOCK
+
+
+def dequantize_cost(n: int) -> tuple[float, float]:
+    """(FLOPs, bytes) of dequantizing ``n`` values: a multiply a value; the
+    int8 values and the scales read, the f32 values written."""
+    return float(n), n + 4 * n / QBLOCK + 4 * n
 
 
 def _to_rows(x_flat: torch.Tensor) -> torch.Tensor:
@@ -39,17 +55,22 @@ def quantize(x: torch.Tensor):
     if x.device.type == "cpu":
         q, s = quantize_ref(rows.reshape(-1), QBLOCK)
         return q.reshape(-1, QBLOCK), s, n
-    _build.check_device(x, "quantize")
+    meta = x.device.type == "meta"
+    if not meta:
+        _build.check_device(x, "quantize")
     if x.dtype not in _QFN:
         raise TypeError(f"quantize kernel takes bf16 or f32, got {x.dtype}")
     rows = rows.contiguous()
     R = rows.shape[0]
     q = torch.empty((R, QBLOCK), dtype=torch.int8, device=x.device)
     s = torch.empty((R,), dtype=torch.float32, device=x.device)
-    status = getattr(_build.load(), _QFN[x.dtype])(
-        rows.data_ptr(), q.data_ptr(), s.data_ptr(), R, _build.stream_ptr(x))
-    _build.check_status(status, "quantize")
-    quantize_launches += 1
+    if not meta:
+        status = getattr(_build.load(), _QFN[x.dtype])(
+            rows.data_ptr(), q.data_ptr(), s.data_ptr(), R,
+            _build.stream_ptr(x))
+        _build.check_status(status, "quantize")
+        quantize_launches += 1
+    _build.record("quantize", quantize_cost, n, x.dtype)
     return q, s, n
 
 
@@ -61,7 +82,9 @@ def dequantize(q: torch.Tensor, scale: torch.Tensor, n: int) -> torch.Tensor:
                          f"got {tuple(q.shape)} and {tuple(scale.shape)}")
     if q.device.type == "cpu":
         return dequantize_ref(q.reshape(-1), scale, QBLOCK)[:n]
-    _build.check_device(q, "dequantize")
+    meta = q.device.type == "meta"
+    if not meta:
+        _build.check_device(q, "dequantize")
     if q.dtype != torch.int8 or scale.dtype != torch.float32:
         raise TypeError(f"dequantize kernel takes int8 q and f32 scales, got "
                         f"{q.dtype} and {scale.dtype}")
@@ -71,9 +94,11 @@ def dequantize(q: torch.Tensor, scale: torch.Tensor, n: int) -> torch.Tensor:
                          "on one card")
     R = q.shape[0]
     out = torch.empty((R, QBLOCK), dtype=torch.float32, device=q.device)
-    status = _build.load().quant8_dequantize(
-        q.data_ptr(), scale.data_ptr(), out.data_ptr(), R,
-        _build.stream_ptr(q))
-    _build.check_status(status, "dequantize")
-    dequantize_launches += 1
+    if not meta:
+        status = _build.load().quant8_dequantize(
+            q.data_ptr(), scale.data_ptr(), out.data_ptr(), R,
+            _build.stream_ptr(q))
+        _build.check_status(status, "dequantize")
+        dequantize_launches += 1
+    _build.record("dequantize", dequantize_cost, n)
     return out.reshape(-1)[:n]

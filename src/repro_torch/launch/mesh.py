@@ -52,6 +52,27 @@ from repro_torch.dist.sharding import mesh_coords
 
 TIMEOUT_S = 600.0       # a collective that waits longer fails
 
+# H100 SXM (80GB HBM3, 700 W) roofline constants, per card: the dry run's
+# counterpart of the reference's TPU v5e constants
+PEAK_FLOPS_BF16 = 989e12   # FLOP/s, H100 80GB HBM3 700 W: dense bf16 tensor cores
+HBM_BW = 3.35e12           # B/s, H100 80GB HBM3 700 W: HBM3
+# B/s a direction, H100 80GB HBM3 700 W: NVLink 4, 18 links of 26.56 GB/s
+# (``nvidia-smi nvlink -s`` on a four-card HGX host)
+NVLINK_BW = 18 * 26.56e9
+NODE_SIZE = 8              # H100 80GB HBM3 cards a node: one HGX board's NVLink domain
+# B/s a card across nodes, H100 80GB HBM3 700 W: an assumption, not a
+# measurement (one 400 Gb/s NDR InfiniBand port a card, as on a DGX H100)
+NET_BW = 400e9 / 8
+
+
+def production_shape(multi_pod: bool = False) -> dict:
+    """The reference's production mesh (``make_production_mesh``): 256
+    cards as (data 16, model 16), or two pods of them as (pod 2, data 16,
+    model 16)."""
+    if multi_pod:
+        return {"pod": 2, "data": 16, "model": 16}
+    return {"data": 16, "model": 16}
+
 
 def check_axes(model: int, pods: int = 0):
     if model < 1:

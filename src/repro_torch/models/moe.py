@@ -196,7 +196,11 @@ def moe_apply_dense(cfg: ArchConfig, p, x, tp=None, dp=None):
 
     # Switch-style load-balancing auxiliary loss.
     n = torch.full((), T * K, dtype=torch.float32, device=x.device)
-    f = torch.bincount(topi.reshape(-1), minlength=E).float() / n
+    # each expert's assignments (``bincount``'s counts, as a scatter-add,
+    # which the meta device runs too: a dry run traces this layer)
+    idx = topi.reshape(-1)
+    f = torch.zeros(E, dtype=torch.int64, device=x.device).scatter_add_(
+        0, idx, torch.ones_like(idx)).float() / n
     pmean = gates.mean(dim=0)
     aux = m.aux_coef * E * (f * pmean).sum()
 

@@ -150,13 +150,19 @@ class ServeEngine:
         batch = {"tokens": torch.from_numpy(
             np.ascontiguousarray(tokens[self.rows(B)])).to(dev)}
         batch.update(self._extra_inputs(batch["tokens"].shape[0], S))
+        self.plan(B, kvc.serve_cache_len(cfg, S, max_new, self.max_seq))
+        return self.model.prefill(cfg, self.params, batch, **self._kw())
+
+    def plan(self, B: int, C: int) -> None:
+        """Lays out a batch of ``B`` rows with a cache of ``C`` slots: the
+        batch's data axis and its cache ``layout`` (and ``cross_layout``)
+        for ``prefill`` and ``decode``."""
         self._dp = None if self.data is None else self.data.with_split(
             self._split(B))
-        C = kvc.serve_cache_len(cfg, S, max_new, self.max_seq)
-        decls = self.model.cache_decl(cfg, B, max(C, 1))
-        self.layout = kvc.layout_for(cfg, decls, self.mesh)
-        self.cross_layout = kvc.layout_for(cfg, decls, self.mesh, "cross_")
-        return self.model.prefill(cfg, self.params, batch, **self._kw())
+        decls = self.model.cache_decl(self.cfg, B, max(C, 1))
+        self.layout = kvc.layout_for(self.cfg, decls, self.mesh)
+        self.cross_layout = kvc.layout_for(self.cfg, decls, self.mesh,
+                                           "cross_")
 
     @torch.inference_mode()
     def decode(self, cache, token: torch.Tensor, pos: int) -> torch.Tensor:

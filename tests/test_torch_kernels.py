@@ -16,6 +16,7 @@ from repro.kernels.fedavg.ref import fedavg_tree_ref as jax_fedavg_tree_ref
 from repro.kernels.flash_attn.ops import flash as ref_flash
 from repro.models.attention import _flash_impl
 from repro.models.attention import flash_attention as ref_flash_attention
+from repro_torch.kernels import _build
 from repro_torch.kernels.fedavg import ops as fedavg_ops
 from repro_torch.kernels.fedavg.ref import fedavg_ref, fedavg_tree_ref
 from repro_torch.kernels.flash_attn import ops as flash_ops
@@ -81,14 +82,26 @@ def test_fedavg_pytree_and_zero_weight_row():
     assert torch.equal(out["a"], again["a"])
 
 
-def test_kernel_wrappers_raise_off_cpu_without_a_card():
-    """A tensor that is not on the CPU never takes the plain version."""
+def test_kernel_wrappers_raise_off_cpu_without_a_card(monkeypatch):
+    """A tensor that is not on the CPU never takes the plain version: a
+    meta tensor (the dry run's) gets the kernel's outputs and launches
+    nothing, and any other must lie on a CUDA card, which the kernel path
+    checks first (``_build.check_device``)."""
+    def plain(*a, **k):
+        raise AssertionError("the plain version ran")
+    monkeypatch.setattr(fedavg_ops, "fedavg_ref", plain)
+    monkeypatch.setattr(flash_ops, "attention_ref", plain)
+    before = (fedavg_ops.launches, flash_ops.launches)
     x = torch.zeros((2, 8), device="meta")
-    with pytest.raises(RuntimeError, match="not on a CUDA card"):
-        fedavg_ops.fedavg(x, torch.ones(2, device="meta"))
+    out = fedavg_ops.fedavg(x, torch.ones(2, device="meta"))
+    assert out.shape == (8,) and out.device.type == "meta"
     q = torch.zeros((1, 8, 2, 4), device="meta")
+    o, lse = flash_ops.flash_fwd(q, q, q)
+    assert o.shape == q.shape and o.device.type == "meta"
+    assert lse.shape == (1, 2, 8) and lse.dtype == torch.float32
+    assert (fedavg_ops.launches, flash_ops.launches) == before
     with pytest.raises(RuntimeError, match="not on a CUDA card"):
-        flash_ops.flash_fwd(q, q, q)
+        _build.check_device(x, "fedavg")
 
 
 # --------------------------------------------------------------------------

@@ -28,6 +28,7 @@ COPIED = (
     + sorted(str(p.relative_to(SRC / "repro"))
              for p in (SRC / "repro" / "configs").glob("*.py"))
     + ["data/federated.py", "data/synthetic.py", "ft/failures.py"]
+    + ["launch/report.py"]
     + [f"obs/{m}.py" for m in
        "__init__ exporters instrument registry tracer".split()]
     + ["train/mlp.py"])

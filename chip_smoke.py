@@ -60,7 +60,7 @@ card each family's engine at one layer on a (1, 1) mesh against the plain
 engine, bit for bit; on four, qwen2-7b (its cache split on its sequence
 and on its kv heads), rwkv6-7b, hymba-1.5b and (on (2, 2), shared mode)
 mixtral-8x22b at one layer on (1, 4) and (2, 2) against the single card,
-teacher-forced, and mixtral-8x22b at all 56 layers, qwen2-7b at 28 (also
+teacher-forced, and mixtral-8x22b at 28 of 56 layers, qwen2-7b at 28 (also
 at a 32 768-token context) and rwkv6-7b at 32 served on (1, 4).  The
 encoder-decoder and VLM families run on ranks too, through the round step
 with frames or patches (``_FrontendTrainer``): whisper-small (one encoder
@@ -75,6 +75,21 @@ its kv heads or its sequence, its cross cache on its 1500 frames), and
 device (``launch/dryrun.py``, in a subprocess that sees no card) and, on
 four cards, holds each rank's parameters, state and cache bytes, kernel
 launches, op counts and peak against what those legs measured.
+The ``adapter`` phase folds a LoRA bank (``fl_step.AdapterSpec``) into
+qwen2-7b's 2-D leaves at published width against the same fold in f32 on
+the CPU, and holds ``fl_step.build_eval_step`` against torch's
+cross-entropy of the model's logits.  On three or more cards
+``phase_tp3`` runs the model axis
+where dims stay whole on a (1, 3) mesh: internlm2-20b (its q heads
+straddling kv groups, its MLP whole), mixtral-8x22b (vocab and experts
+whole), rwkv6-7b (every dim whole) and whisper-small (vocab whole) against
+the single card (``tp3_agree``), the ``compressed`` aggregation on whole
+blocks (``tp3_agg``), internlm2-20b under Adafactor at 22 of 48 layers
+(``tp3_time``), and internlm2-20b served at 2 layers against the single
+card and at all 48 (``serve_tp_agree``, ``serve_tp3_time``).  In every
+agree and time leg of a model axis, each leaf with no dim on ``model``
+must be equal bit for bit on the model ranks of its block.  On more than one card the strategies and ``resume_full`` phases
+do not run (``ONE_CARD_ONLY``: the one-card run holds them).
 Each phase prints JSON lines, and a ``walls`` line gives each phase's
 wall time in seconds (and rank 0's of each leg a rank spawn ran); then one line lists every kernel, one line
 gives the card's name and power limit as nvidia-smi reports them, and the
@@ -1074,6 +1089,103 @@ class _Stop(Exception):
     pass
 
 
+ADAPTER_ARCH = "qwen2-7b"
+# eval_step's cross-entropy against torch's on the same logits: f32, the
+# log-sum-exp over 152 064 columns and the mean summed in another order
+EVAL_RTOL = 1e-5
+
+
+def phase_adapter(torch, dev) -> dict:
+    """``fl_step.AdapterSpec`` and ``fl_step.build_eval_step`` on one card.
+    A rank-8 adapter bank (``adapter_decls``; ``lora_B`` drawn from the
+    seed, so the fold is not the identity) folded by ``apply`` into
+    qwen2-7b's 2-D leaves at published width (its two (152064, 3584)
+    tables and its norms' scales stacked over layers, (L, 3584); the
+    stacked weight matrices, 3-D, take none; depth cut to one layer) on
+    the card, against the same fold computed in f32 on the CPU and cast
+    to the leaf's dtype (compared on the card): within one bf16 ulp (the
+    rank-8 dot products may sum in another order; TF32 is off).  Then
+    ``eval_step`` on a batch of DIST_SEQ tokens from the seed, its flash
+    launches counted, against ``F.cross_entropy`` of the model's own
+    logits in f32 (computed apart from ``loss_fn``), within EVAL_RTOL.
+    Returns those launches."""
+    import numpy as np
+    from repro_torch import tree as T
+    from repro_torch.configs.base import get_arch
+    from repro_torch.core import fl_step
+    from repro_torch.dist import sharding as shd
+    from repro_torch.models import model_api
+
+    cfg = get_arch(ADAPTER_ARCH).replace(n_layers=1)
+    spec = fl_step.AdapterSpec(rank=8)
+    gc.collect()
+    torch.cuda.empty_cache()
+    params = model_api.init_params(cfg, 0, dev)
+    decls = spec.adapter_decls(model_api.param_decls(cfg))
+    bank = shd.materialize(decls, 1, dev)
+    gen = torch.Generator(device=dev).manual_seed(2)
+    for name, t in bank.items():
+        if name.endswith("lora_B"):
+            t.normal_(generator=gen)
+    torch.cuda.synchronize(dev)
+    t0 = time.perf_counter()
+    folded = spec.apply(params, bank)
+    torch.cuda.synchronize(dev)
+    apply_s = time.perf_counter() - t0
+    scale = spec.alpha / spec.rank
+    named = lambda tree: {"/".join(p): t for p, t in T.leaves_with_path(tree)}
+    got_all, base_all = named(folded), named(params)
+    rows = []
+    for name in sorted({k.rsplit("/", 1)[0] for k in bank}):
+        base, got = base_all[name], got_all[name]
+        a, b = bank[f"{name}/lora_A"].cpu(), bank[f"{name}/lora_B"].cpu()
+        want = (base.cpu().float() + scale * (a @ b)).to(base.dtype).to(dev)
+        d = (got.float() - want.float()).abs()
+        ulp = torch.exp2(torch.floor(torch.log2(
+            want.float().abs().clamp_min(2.0 ** -126))) - 7)
+        rows.append({"leaf": name, "shape": list(got.shape),
+                     "dtype": str(got.dtype),
+                     "elements_differing": int((d > 0).sum()),
+                     "beyond_1_bf16_ulp": int((d > ulp).sum()),
+                     "max_abs_err": float(d.max()),
+                     "moved": int((got != base).sum())})
+        del want, got, d, ulp
+    adapted = [r["leaf"] for r in rows]
+    stacked = [n for n, t in base_all.items() if t.dim() > 2]
+    del folded, bank, got_all
+    rng = np.random.default_rng(5)
+    toks = rng.integers(0, cfg.vocab, (1, DIST_SEQ + 1)).astype(np.int32)
+    batch = {"tokens": torch.from_numpy(toks[:, :-1]).to(dev),
+             "labels": torch.from_numpy(toks[:, 1:]).to(dev)}
+    reset_launches()
+    ce = fl_step.build_eval_step(cfg)(params, batch)
+    torch.cuda.synchronize(dev)
+    launches = read_launches()
+    with torch.no_grad():
+        logits = model_api.get_model(cfg).forward(cfg, params, batch)[0]
+        want_ce = torch.nn.functional.cross_entropy(
+            logits.float().flatten(0, 1), batch["labels"].long().flatten())
+    del logits
+    eval_rel = abs(float(ce) - float(want_ce)) / abs(float(want_ce))
+    line = {"phase": "adapter", "arch": ADAPTER_ARCH, "n_layers": 1,
+            "rank": spec.rank, "alpha": spec.alpha, "adapted": adapted,
+            "stacked_leaves_adapted": [n for n in stacked if n in adapted],
+            "apply_s": apply_s, "leaves": rows,
+            "eval_ce": float(ce), "plain_ce": float(want_ce),
+            "eval_rel_err": eval_rel, "eval_rtol": EVAL_RTOL,
+            "eval_launches": launches}
+    emit(line)
+    if (adapted != sorted(n for n, t in base_all.items() if t.dim() == 2)
+            or line["stacked_leaves_adapted"] or eval_rel > EVAL_RTOL
+            or not math.isfinite(line["eval_ce"])
+            or any(r["beyond_1_bf16_ulp"] or not r["moved"] for r in rows)
+            or launches["flash_fwd"] != cfg.n_layers
+            or any(n for k, n in launches.items() if k != "flash_fwd")):
+        raise AssertionError(f"adapter: {line}")
+    del params
+    return launches
+
+
 def phase_resume(torch, dev):
     """Checkpoint and resume on the card at qwen2-7b's smoke config, K = 4,
     under ``torch.use_deterministic_algorithms`` (``main`` sets
@@ -1298,6 +1410,15 @@ SERVE_FLASH_CASES = [  # name, B, Sq, Sk, H, Kv, hd, causal, window
     ("whisper_cross_rank4", 4, 448, 1500, 3, 3, 64, False, None),
     ("internvl2_rank4", 1, 2048, 2048, 4, 2, 128, True, None),
     ("internvl2_rank2", 1, 2048, 2048, 8, 4, 128, True, None),
+    # a rank's heads on a model axis of 3 (phase_tp3): internlm2-20b's and
+    # mixtral-8x22b's 16 q heads, which straddle kv groups of 6, each with
+    # its own expanded kv head, training (B = 1) and internlm2's prefill
+    # (B = 4); whisper-small's 4 of 12 heads
+    ("internlm2_rank3", 1, 2048, 2048, 16, 16, 128, True, None),
+    ("internlm2_rank3_b4", 4, 2048, 2048, 16, 16, 128, True, None),
+    ("mixtral_rank3", 1, 2048, 2048, 16, 16, 128, True, 4096),
+    ("whisper_encoder_rank3", 4, 1500, 1500, 4, 4, 64, False, None),
+    ("whisper_cross_rank3", 4, 448, 1500, 4, 4, 64, False, None),
 ]
 SERVE_WKV_CASES = [
     ("decode_rwkv6", 4, 1, 64, 64, 64, 1, True, False, True, "bfloat16"),
@@ -2331,6 +2452,32 @@ def _counted_round(torch, tr) -> dict:
     return oc.cost.to_dict()
 
 
+def _whole_leaves(cfg, mesh) -> dict:
+    """``cfg``'s parameter leaves with no dim on ``model`` on this mesh,
+    index -> path: the one block every model rank of a client holds."""
+    from repro_torch import tree as T
+    from repro_torch.core import fl_step
+    axis = fl_step.client_axis_for(cfg, mesh)
+    one = {**mesh.shape, **({axis: 1} if axis else {})}
+    on = lambda a: a == "model" or (isinstance(a, tuple) and "model" in a)
+    return {i: "/".join(path) for i, (path, spec) in enumerate(
+        T.leaves_with_path(fl_step.param_specs(cfg, one)))
+        if not any(on(a) for a in spec)}
+
+
+def _whole_differ(rows, M, sums) -> list:
+    """The paths of the leaves with no dim on ``model`` (``row["whole"]``)
+    whose checksums (``sums(row)``) differ between the M model ranks of
+    one block (consecutive ranks: ``model`` is the innermost axis)."""
+    bad = set()
+    for g in range(0, len(rows), M):
+        group = rows[g:g + M]
+        for i, path in group[0]["whole"].items():
+            if any(sums(r)[i] != sums(group[0])[i] for r in group[1:]):
+                bad.add(path)
+    return sorted(bad)
+
+
 def _per(x, arch):
     """``x``, or where it is a dict of architectures, ``x[arch]``."""
     return x[arch] if isinstance(x, dict) else x
@@ -2425,7 +2572,7 @@ def _agree_rounds(torch, mesh, cases, bpc, trainer=None,
                                         for m in ms],
                "launches": launches,
                "peak": torch.cuda.max_memory_allocated(dev),
-               "leaves": len(slots[0])}
+               "leaves": len(slots[0]), "whole": _whole_leaves(cfg, mesh)}
         q = None
         if sched == "compressed":         # a step a row: whole rows
             q = list(from_rank0(
@@ -2645,7 +2792,7 @@ def _time_leg(torch, mesh, cfg, sched, bpc, trainer=None,
            "optimizer": cfg.optimizer, "mode": cfg.fl.mode, "K": K,
            "mesh": mesh.shape, "init_s": init_s, "init_peak": init_peak,
            "params_per_rank": sum(t.numel() for t in leaves),
-           "leaves": len(leaves),
+           "leaves": len(leaves), "whole": _whole_leaves(cfg, mesh),
            "round_s": [m["time_s"] for m in ms],
            "tokens_per_s": [m["tokens_per_s"] for m in ms],
            "losses": [m["loss"] for m in ms],
@@ -2678,8 +2825,9 @@ def _tp_rank(mesh, legs):
     """One rank of the model-axis and shared-mode legs (a spawned process),
     with the matmul settings of ``main``: ``tp_agree``, ``moe_agree``,
     ``lin_agree``, ``shared_agree``, ``fe_agree``, ``fe_shared_agree``,
-    each ``tp_time:<sched>`` and each
-    ``{moe,lin,shared,fe}_time:<arch>:<layers>:<sched>`` in ``legs``."""
+    ``tp3_agree``, ``tp3_agg``, each ``tp_time:<sched>`` and each
+    ``{moe,lin,shared,fe,tp3}_time:<arch>:<layers>:<sched>`` in
+    ``legs``."""
     import torch
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -2702,12 +2850,17 @@ def _tp_rank(mesh, legs):
         elif leg == "fe_shared_agree":
             out[leg] = _fe_agree(torch, mesh, FE_SHARED_AGREE, "shared",
                                  FE_SHARED_BPC)
+        elif leg == "tp3_agree":
+            out[leg] = _tp3_agree(torch, mesh)
+        elif leg == "tp3_agg":
+            out[leg] = _tp3_agg(torch, mesh)
         elif leg.startswith("fe_time:"):
             _, arch, n_layers, sched = leg.split(":")
             out[leg] = _time_leg(torch, mesh, _fe_cfg(arch, int(n_layers)),
                                  sched, FE_BPC[arch], _FrontendTrainer,
                                  FE_SEQ[arch])
-        elif leg.startswith(("moe_time:", "lin_time:", "shared_time:")):
+        elif leg.startswith(("moe_time:", "lin_time:", "shared_time:",
+                             "tp3_time:")):
             kind, arch, n_layers, sched = leg.split(":")
             mode, bpc = ((_shared, SHARED_BPC) if kind == "shared_time"
                          else (_replica, BATCH_PER_CLIENT))
@@ -2811,7 +2964,8 @@ def _emit_tp_time(shape, sched, rows, add, faults):
         faults.append(f"tp_time {shape} {sched}: {rows}")
 
 
-def _emit_agree(phase, shape, cases, bpc, ranks, add, faults, seq=DIST_SEQ):
+def _emit_agree(phase, shape, cases, bpc, ranks, add, faults, seq=DIST_SEQ,
+                layers=1):
     """The lines of an agree leg (``moe_agree``, ``shared_agree``) on a mesh
     and their checks: losses within ``TP_LOSS_RTOL``; round 0 (a learning
     rate of 0: the aggregation alone) under ``_slot_compare``'s sum rule,
@@ -2822,9 +2976,11 @@ def _emit_agree(phase, shape, cases, bpc, ranks, add, faults, seq=DIST_SEQ):
     carried and new steps); the clients' dropped assignments within
     ``MOE_DROP_SHARE`` of the assignments of the single card's; equal
     blocks on the ranks that hold the same block of different clients;
-    exact flash, WKV (``_path_launches``) and qagg counts.  ``cases``:
-    (arch, schedule, strategy); ``bpc`` and ``seq``: numbers, or dicts by
-    architecture."""
+    exact flash, WKV (``_path_launches``) and qagg counts; every leaf with
+    no dim on ``model`` equal bit for bit on the model ranks of its block
+    after each round (each rank computes it alone, and must not drift).
+    ``cases``: (arch, schedule, strategy); ``bpc``, ``seq`` and ``layers``
+    (the cases' depth): numbers, or dicts by architecture."""
     from repro_torch.configs.base import get_arch
     keys = ("exact", "max_abs_err", "elements_differing",
             "beyond_1_bf16_ulp", "beyond_1_bf16_ulp_max_err",
@@ -2844,6 +3000,8 @@ def _emit_agree(phase, shape, cases, bpc, ranks, add, faults, seq=DIST_SEQ):
                    for r in range(len(rows)) for k in range(ROUNDS))
         rel = max(abs(a - b) / abs(b) for a, b in zip(
             lead["losses"], lead["single_losses"]))
+        differ = sorted({p for k in range(ROUNDS) for p in _whole_differ(
+            rows, shape[-1], lambda r: r[f"round{k}"]["checksum"])})
         heads = [k * period for k in range(K)]     # one rank a client
         dropped = sum(rows[r]["routing"]["dropped"] for r in heads)
         calls = sum(rows[r]["routing"]["calls"] for r in heads)
@@ -2851,7 +3009,8 @@ def _emit_agree(phase, shape, cases, bpc, ranks, add, faults, seq=DIST_SEQ):
         moe = get_arch(arch).moe
         assignments = calls * n_bpc * n_seq * (moe.top_k if moe else 0)
         emit({"phase": phase, "mesh": list(shape), "arch": arch,
-              "n_layers": 1, "clients": K, "batch_per_client": n_bpc,
+              "n_layers": _per(layers, arch), "clients": K,
+              "batch_per_client": n_bpc,
               "seq": n_seq, "optimizer": lead["optimizer"],
               "schedule": sched, "strategy": strat, "rounds": ROUNDS,
               "losses": lead["losses"],
@@ -2865,6 +3024,8 @@ def _emit_agree(phase, shape, cases, bpc, ranks, add, faults, seq=DIST_SEQ):
               **{f"round{k}_rank": [{x: r[f"round{k}"].get(x) for x in keys}
                                     for r in rows] for k in range(ROUNDS)},
               "blocks_identical_across_clients": same,
+              "whole_leaves": len(lead["whole"]),
+              "whole_leaves_differing_across_model_ranks": differ,
               "round_s": lead["round_s"],
               "aggregate_ms_rank": [r["aggregate_ms"] for r in rows],
               "model_collectives_ms_rank": [r["model_collectives_ms"]
@@ -2893,12 +3054,16 @@ def _emit_agree(phase, shape, cases, bpc, ranks, add, faults, seq=DIST_SEQ):
             want_qagg = r["leaves"] * ROUNDS if sched == "compressed" else 0
             got = r["launches"]
             if (any(got[k] != n
-                    for k, n in _path_launches(arch, 1, n_seq).items())
+                    for k, n in _path_launches(
+                        arch, _per(layers, arch), n_seq).items())
                     or got["qagg"] != want_qagg or got["fedavg"]
                     or got["quantize"] or got["dequantize"]):
                 faults.append(f"{name}: launches {got}")
         if not same:
             faults.append(f"{name}: blocks differ across clients")
+        if differ:
+            faults.append(f"{name}: whole leaves differ across the model "
+                          f"ranks: {differ}")
         if moe and (abs(dropped - single["dropped"])
                     > MOE_DROP_SHARE * assignments
                     or calls != single["calls"]):
@@ -2912,11 +3077,14 @@ def _emit_time(phase, shape, arch, n_layers, sched, bpc, rows, add,
     its checks: finite losses, equal blocks across the clients, the
     config's optimizer, every peak under the card, flash and WKV exactly 2
     a layer a round a rank (remat's recompute, ``_path_launches``), qagg a
-    leaf a round under ``compressed``, no fedavg."""
+    leaf a round under ``compressed``, no fedavg, every leaf with no dim on
+    ``model`` equal bit for bit on the model ranks of its block after the
+    rounds."""
     from repro_torch.configs.base import get_arch
     for r in rows:
         add(r["launches"])
     lead = rows[0]
+    differ = _whole_differ(rows, shape[-1], lambda r: r["checksum"])
     period = len(rows) // lead["K"]
     same = all(rows[r]["checksum"] == rows[r % period]["checksum"]
                for r in range(len(rows)))
@@ -2951,7 +3119,9 @@ def _emit_time(phase, shape, arch, n_layers, sched, bpc, rows, add,
           "wkv6_rank": [r["launches"]["wkv6"] for r in rows],
           "ssm_scan_rank": [r["launches"]["ssm_scan"] for r in rows],
           "qagg_rank": [r["launches"]["qagg"] for r in rows],
-          "blocks_identical_across_clients": same})
+          "blocks_identical_across_clients": same,
+          "whole_leaves": len(lead["whole"]),
+          "whole_leaves_differing_across_model_ranks": differ})
     want = _path_launches(arch, n_layers, seq)
     want_qagg = lead["leaves"] * ROUNDS if sched == "compressed" else 0
     if (not all(math.isfinite(x) for x in lead["losses"]) or not same
@@ -2959,7 +3129,8 @@ def _emit_time(phase, shape, arch, n_layers, sched, bpc, rows, add,
             or max(r["peak"] for r in rows) >= CARD_BYTES
             or any(any(r["launches"][k] != n for k, n in want.items())
                    or r["launches"]["qagg"] != want_qagg
-                   or r["launches"]["fedavg"] for r in rows)):
+                   or r["launches"]["fedavg"] for r in rows)
+            or differ):
         faults.append(f"{phase} {shape} {arch} {n_layers} {sched}: {rows}")
 
 
@@ -3096,6 +3267,113 @@ def phase_shared(torch, dev) -> dict:
     return launches
 
 
+# the model axis where the reference's resolver leaves a dim whole, on
+# three of the four cards, a (1, 3) mesh: one client, K = 1, replica mode.
+# At M = 3 internlm2-20b's 48 q heads split, 16 a rank across kv groups of
+# 6 (its 8 kv heads whole: one expanded kv head a q head), its MLP (16384)
+# stays whole and its vocab (92544) splits; mixtral-8x22b's 48 q heads
+# straddle likewise, its vocab (32768), experts (8) and their width
+# (16384) stay whole; rwkv6-7b keeps every dim whole (64 heads, 14336,
+# 4096, 65536: a replicated client); whisper-small splits its 12 heads and
+# 3072-wide MLP, its vocab (51865 padded to 51968) stays whole.  Leg
+# ``tp3_agree``: two rounds (round 0 at a learning rate of 0) of each case
+# against the single-card K = 1 rounds on card 0, under ``_emit_agree``'s
+# checks: (arch, layers, schedule, strategy)
+TP3_AGREE = [("internlm2-20b", 2, "tree", "fedavg"),
+             ("mixtral-8x22b", 1, "tree", "fedavg"),
+             ("rwkv6-7b", 2, "tree", "fedavg")]
+TP3_FE_AGREE = [("whisper-small", 2, "tree", "fedavg")]
+# leg ``tp3_agg``: the ``compressed`` aggregation alone (one client has
+# nothing to aggregate) on each rank's blocks of a two-client
+# internlm2-20b bank at 2 layers, whose MLP leaves are whole blocks
+TP3_AGG_LAYERS = 2
+# leg ``tp3_time``: internlm2-20b under its config's Adafactor at the
+# most layers under about 72 GB a rank.  A layer is 0.34 B parameters a
+# rank (16 of 48 q heads, the whole kv, wo's rows, the whole MLP): the
+# weights, gradients and updates and Adafactor's f32 temporaries of the
+# whole stacked MLP leaf, 3.06 GB a layer in the dry run's trace of the
+# cell (``launch/dryrun.lower_cell``, counted on the meta device), 69.5 GB
+# at 22 layers, 72.6 at 23; 69.58 GB measured at 22 on an H100 80GB HBM3
+# at 700 W
+TP3_TIME = ("internlm2-20b", 22, "tree")
+# leg ``serve_tp3_time``: internlm2-20b served at all 48 layers (16.7 B
+# parameters, 33.4 GB of bf16 weights a rank), ``serve_tp_time``'s traffic
+SERVE_TP3_TIME = ("internlm2-20b", 48, SERVE_PROMPT, SERVE_REQUESTS, None)
+TP3_TIMEOUT_S = 900
+
+
+def _tp3_cases(table):
+    """``table``'s (config cut to its layers, in ``replica`` mode,
+    schedule, strategy)."""
+    return [(_replica(_fe_cfg(arch, n)), sched, strat)
+            for arch, n, sched, strat in table]
+
+
+def _tp3_agree(torch, mesh) -> list:
+    """Leg ``tp3_agree`` on (1, 3): ``TP3_AGREE`` through the trainer,
+    then ``TP3_FE_AGREE`` through ``_FrontendTrainer`` (frames)."""
+    return (_agree_rounds(torch, mesh, _tp3_cases(TP3_AGREE),
+                          BATCH_PER_CLIENT)
+            + _agree_rounds(torch, mesh, _tp3_cases(TP3_FE_AGREE), FE_BPC,
+                            trainer=_FrontendTrainer, seq=FE_SEQ))
+
+
+def _tp3_agg(torch, mesh) -> dict:
+    """Leg ``tp3_agg`` on (1, 3): each rank's blocks of a two-client
+    internlm2-20b bank (``TP3_AGG_LAYERS`` layers, the clients drawn
+    apart) through ``aggregate_params`` under ``compressed`` (int8
+    quantize and the qagg kernel, a launch a leaf), with the launch
+    counters set to 0 just before and read just after, against the same
+    call on rank 0's whole bank (broadcast; each rank compares its
+    block).  The whole MLP leaves' blocks are the whole leaves."""
+    import torch.distributed as dist
+    from repro_torch import tree as T
+    from repro_torch.core import aggregation, fl_step
+    from repro_torch.core.topology import AggSchedule
+    from repro_torch.dist import sharding as shd
+
+    cfg = _replica(_fe_cfg("internlm2-20b", TP3_AGG_LAYERS))
+    dev, K = mesh.device, 2
+    decls = fl_step.fl_param_decls(cfg, K)
+    specs = [(None,) + s for s in T.leaves(fl_step.param_specs(
+        cfg, {"data": 1, "model": mesh.shape["model"]}))]
+    w = torch.tensor(TP_AGREE_WEIGHTS, device=dev)
+    schedule = AggSchedule("compressed", K)
+    want = None
+    gc.collect()
+    torch.cuda.empty_cache()
+    if mesh.rank == 0:
+        bank = shd.materialize(decls, 1, dev)
+        aggregation.aggregate_params(bank, w, schedule, "fedavg")
+        want = [t[0].clone() for t in T.leaves(bank)]
+        del bank
+    mine = shd.materialize(decls, 1, dev,
+                           lambda i, x: shd.local_block(x, specs[i], mesh))
+    torch.cuda.synchronize(dev)
+    reset_launches()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    aggregation.aggregate_params(mine, w, schedule, "fedavg")
+    end.record()
+    torch.cuda.synchronize(dev)
+    launches = read_launches()
+    got = [t[0] for t in T.leaves(mine)]
+    blocks = []
+    for i, (g, d) in enumerate(zip(got, T.leaves(decls))):
+        x = want[i] if want else torch.empty(d.shape[1:], dtype=g.dtype,
+                                             device=dev)
+        dist.broadcast(x, src=0)
+        blocks.append(shd.local_block(x, specs[i][1:], mesh))
+    whole = [s for s in specs if "model" not in s]
+    out = {"leaves": len(got), "whole_leaves": len(whole),
+           "ms": start.elapsed_time(end), "launches": launches,
+           **_slot_compare(torch, dict(enumerate(got)),
+                           dict(enumerate(blocks)))}
+    del mine, got, blocks, want
+    return out
+
+
 # --------------------------------------------------------------------------
 # serving on the model and data axes: one engine a rank, NCCL between them
 # --------------------------------------------------------------------------
@@ -3124,7 +3402,15 @@ SERVE_TP_AGREE = {
              ("rwkv6-7b", (2048, 2048, 1800, 1536), None),
              ("hymba-1.5b", (1800, 1800, 1536, 1800), "seq"),
              ("whisper-small", (223, 223, 12, 223), "seq"),
-             ("internvl2-2b", (2048, 2048, 1700, 2048), "heads")]}
+             ("internvl2-2b", (2048, 2048, 1700, 2048), "heads")],
+    # ``phase_tp3``: internlm2-20b at 2 layers on (1, 3), its 16 q heads a
+    # rank across kv groups of 6: 2079 slots split on their sequence
+    # (2046-token prompts), 2081 whole (neither they nor the 8 kv heads
+    # divide 3)
+    (1, 3): [("internlm2-20b", (2046, 2046, 1900, 1536), "seq"),
+             ("internlm2-20b", (2048, 2048, 1700, 2048), "whole")]}
+# the depth of each mesh's ``serve_tp_agree`` cases (by default one layer)
+SERVE_TP_AGREE_LAYERS = {(1, 3): 2}
 # whisper-small's cross cache of 1500 frames splits on its sequence at a
 # model axis of 2 and of 4, whatever its self cache's layout (S + 33 slots:
 # 257 at a 224-token prompt, heads; 256 at 223, seq); frames or patches
@@ -3132,10 +3418,12 @@ SERVE_TP_AGREE = {
 SERVE_TP_CROSS = {"whisper-small": "seq"}
 # leg (j) ``serve_tp_time`` on (1, 4): the serving cells' traffic (8
 # requests at batch 4, prompts of 1536-2048 tokens, 32 new) at full depth,
-# and qwen2-7b at the reference's decode_32k context (one batch of 4
+# but mixtral-8x22b at 28 of its 56 layers (at 56 its 64 decode steps, 514
+# ms each on four H100 80GB HBM3 at 700 W, took 33 s of the four-card
+# script), and qwen2-7b at the reference's decode_32k context (one batch of 4
 # prompts of 32 768 tokens; 32 800 slots, which 4 divides: seq-split):
 # (arch, layers, prompt lengths, requests, max_seq)
-SERVE_TP_TIME = [("mixtral-8x22b", 56, SERVE_PROMPT, SERVE_REQUESTS, None),
+SERVE_TP_TIME = [("mixtral-8x22b", 28, SERVE_PROMPT, SERVE_REQUESTS, None),
                  ("qwen2-7b", 28, SERVE_PROMPT, SERVE_REQUESTS, None),
                  ("rwkv6-7b", 32, SERVE_PROMPT, SERVE_REQUESTS, None),
                  ("qwen2-7b", 28, (32768, 32768), SERVE_BATCH, 32800),
@@ -3222,7 +3510,7 @@ def _forced(torch, engine, toks, tokens):
 
 def _serve_tp_agree(torch, mesh) -> list:
     """Leg (i) on this rank: each ``SERVE_TP_AGREE`` case of its mesh at
-    one layer.  The single card's engine runs bf16 weights from the seed
+    one layer (``SERVE_TP_AGREE_LAYERS``: at two on (1, 3)).  The single card's engine runs bf16 weights from the seed
     greedily (rank 0's tokens are every rank's), then bf16 and f32 copies
     teacher-forced on those tokens; the rank's engine, on its blocks of
     the same weights (``init_params(..., mesh=)``), runs teacher-forced
@@ -3242,7 +3530,7 @@ def _serve_tp_agree(torch, mesh) -> list:
     dev, out = mesh.device, []
     shape = (mesh.shape["data"], mesh.shape["model"])
     for i, (arch, lens, kind) in enumerate(SERVE_TP_AGREE[shape]):
-        cfg = _nodrop(_fe_cfg(arch, 1))
+        cfg = _nodrop(_fe_cfg(arch, SERVE_TP_AGREE_LAYERS.get(shape, 1)))
         rng = np.random.default_rng(100 + i)
         toks = np.zeros((len(lens), max(lens)), np.int32)
         for r, n in enumerate(lens):
@@ -3472,8 +3760,9 @@ def _serve_world1(torch, mesh) -> list:
 
 def _serve_tp_rank(mesh, legs):
     """One rank of ``phase_serve_tp`` (a spawned process), with the matmul
-    settings of ``main``: ``serve_world1``, ``serve_tp_agree`` and each
-    ``serve_tp_time:<row>`` (an index into SERVE_TP_TIME) in ``legs``."""
+    settings of ``main``: ``serve_world1``, ``serve_tp_agree``, each
+    ``serve_tp_time:<row>`` (an index into SERVE_TP_TIME) and
+    ``serve_tp3_time`` in ``legs``."""
     import torch
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -3486,11 +3775,72 @@ def _serve_tp_rank(mesh, legs):
             out[leg] = _serve_world1(torch, mesh)
         elif leg == "serve_tp_agree":
             out[leg] = _serve_tp_agree(torch, mesh)
+        elif leg == "serve_tp3_time":
+            out[leg] = _serve_tp_time(torch, mesh, *SERVE_TP3_TIME)
         else:
             out[leg] = _serve_tp_time(
                 torch, mesh, *SERVE_TP_TIME[int(leg.split(":")[1])])
         leg_s[leg] = time.perf_counter() - t0
     return out
+
+
+def _emit_serve_agree(shape, ranks, add, faults):
+    """The ``serve_tp_agree`` lines of a mesh and their checks: every rank
+    within ``SERVE_NOISE_FACTOR`` of the bf16 single card's distance from
+    the f32 one, the layouts as named, the launches exact."""
+    for i, (arch, lens, kind) in enumerate(SERVE_TP_AGREE[shape]):
+        rows = [r["serve_tp_agree"][i] for r in ranks]
+        for r in rows:
+            add(r["launches"])
+        emit({"phase": "serve_tp_agree", "mesh": list(shape),
+              "arch": arch, "n_layers": SERVE_TP_AGREE_LAYERS.get(shape, 1),
+              "mode": rows[0]["mode"],
+              "prompt_lens": list(lens), "layout": rows[0]["layout"],
+              "layout_wanted": kind,
+              "cross_layout": rows[0]["cross_layout"],
+              "max_new": SERVE_MAX_NEW,
+              "noise_factor": SERVE_NOISE_FACTOR,
+              "max_rel_l2_rank": [r["max_rel_l2"] for r in rows],
+              "bf16_single_card_rel_l2_max": [
+                  r["bf16_single_card_rel_l2_max"] for r in rows],
+              "max_ratio_rank": [r["max_ratio"] for r in rows],
+              "argmax_equal_share_rank": [r["argmax_equal_share"]
+                                          for r in rows],
+              "held_rank": [r["held"] for r in rows],
+              "launches_rank": [r["launches"] for r in rows]})
+        for r in rows:
+            if (not r["held"] or r["layout"] != kind
+                    or r["cross_layout"] != r["cross_layout_wanted"]
+                    or r["launches"] != r["launches_wanted"]):
+                faults.append(f"serve_tp_agree {shape} {arch} "
+                              f"{lens}: {r}")
+
+
+def _emit_serve_time(shape, leg, row, ranks, add, faults) -> dict:
+    """A ``serve_tp_time`` line (leg ``leg`` of ``row``'s cell) and its
+    checks: exact launches, every peak under the card, every token out.
+    Returns rank 0's row."""
+    rows = [r[leg] for r in ranks]
+    lead = rows[0]
+    for r in rows:
+        add(r["launches"])
+    emit({"phase": "serve_tp_time", "mesh": list(shape),
+          **{k: v for k, v in lead.items()
+             if k not in ("launches", "peak", "model_collectives_ms",
+                          "init_s", "init_peak")},
+          "init_s_rank": [r["init_s"] for r in rows],
+          "init_peak_rank": [r["init_peak"] for r in rows],
+          "peak_rank": [r["peak"] for r in rows],
+          "model_collectives_ms_rank": [r["model_collectives_ms"]
+                                        for r in rows],
+          "launches_rank": [r["launches"] for r in rows]})
+    for r in rows:
+        if (r["launches"] != r["launches_wanted"]
+                or max(r["peak"], r["init_peak"]) >= CARD_BYTES
+                or sum(b["tokens_out"] for b in r["batches"])
+                != row[3] * SERVE_MAX_NEW):
+            faults.append(f"serve_tp_time {shape} {row[:2]}: {r}")
+    return lead
 
 
 def phase_serve_tp(torch, dev) -> dict:
@@ -3529,55 +3879,82 @@ def phase_serve_tp(torch, dev) -> dict:
                         case["launches"] != case["launches_wanted"]:
                     faults.append(f"serve_world1: {case}")
         if "serve_tp_agree" in legs:
-            for i, (arch, lens, kind) in enumerate(SERVE_TP_AGREE[shape]):
-                rows = [r["serve_tp_agree"][i] for r in ranks]
-                for r in rows:
-                    add(r["launches"])
-                emit({"phase": "serve_tp_agree", "mesh": list(shape),
-                      "arch": arch, "n_layers": 1, "mode": rows[0]["mode"],
-                      "prompt_lens": list(lens), "layout": rows[0]["layout"],
-                      "layout_wanted": kind,
-                      "cross_layout": rows[0]["cross_layout"],
-                      "max_new": SERVE_MAX_NEW,
-                      "noise_factor": SERVE_NOISE_FACTOR,
-                      "max_rel_l2_rank": [r["max_rel_l2"] for r in rows],
-                      "bf16_single_card_rel_l2_max": [
-                          r["bf16_single_card_rel_l2_max"] for r in rows],
-                      "max_ratio_rank": [r["max_ratio"] for r in rows],
-                      "argmax_equal_share_rank": [r["argmax_equal_share"]
-                                                  for r in rows],
-                      "held_rank": [r["held"] for r in rows],
-                      "launches_rank": [r["launches"] for r in rows]})
-                for r in rows:
-                    if (not r["held"] or r["layout"] != kind
-                            or r["cross_layout"] != r["cross_layout_wanted"]
-                            or r["launches"] != r["launches_wanted"]):
-                        faults.append(f"serve_tp_agree {shape} {arch} "
-                                      f"{lens}: {r}")
+            _emit_serve_agree(shape, ranks, add, faults)
         for i, row in enumerate(SERVE_TP_TIME):
             leg = f"serve_tp_time:{i}"
-            if leg not in legs:
-                continue
-            rows = [r[leg] for r in ranks]
-            lead = MEASURED[("serve_tp_time", shape, i)] = rows[0]
-            for r in rows:
-                add(r["launches"])
-            emit({"phase": "serve_tp_time", "mesh": list(shape),
-                  **{k: v for k, v in lead.items()
-                     if k not in ("launches", "peak", "model_collectives_ms",
-                                  "init_s", "init_peak")},
-                  "init_s_rank": [r["init_s"] for r in rows],
-                  "init_peak_rank": [r["init_peak"] for r in rows],
-                  "peak_rank": [r["peak"] for r in rows],
-                  "model_collectives_ms_rank": [r["model_collectives_ms"]
-                                                for r in rows],
-                  "launches_rank": [r["launches"] for r in rows]})
-            for r in rows:
-                if (r["launches"] != r["launches_wanted"]
-                        or max(r["peak"], r["init_peak"]) >= CARD_BYTES
-                        or sum(b["tokens_out"] for b in r["batches"])
-                        != row[3] * SERVE_MAX_NEW):
-                    faults.append(f"serve_tp_time {row[:2]}: {r}")
+            if leg in legs:
+                MEASURED[("serve_tp_time", shape, i)] = _emit_serve_time(
+                    shape, leg, row, ranks, add, faults)
+    if faults:
+        raise AssertionError("\n".join(faults))
+    return launches
+
+
+def _tp3_rank(mesh, legs):
+    """One rank of ``phase_tp3`` (a spawned process): its training legs
+    (``_tp_rank``), then its serving legs (``_serve_tp_rank``)."""
+    train = [leg for leg in legs if not leg.startswith("serve")]
+    out = _tp_rank(mesh, train)
+    serve = _serve_tp_rank(mesh, [leg for leg in legs if leg not in train])
+    out["leg_s"].update(serve.pop("leg_s"))
+    out.update({k: v for k, v in serve.items() if k in legs})
+    return out
+
+
+def phase_tp3(torch, dev) -> dict:
+    """The model axis where dims stay whole, on three of the cards: one
+    spawn of a (1, 3) mesh running ``tp3_agree``, ``tp3_agg``,
+    ``tp3_time``, ``serve_tp_agree`` (internlm2-20b at 2 layers) and
+    ``serve_tp3_time`` (at 48).  Its lines are printed as soon as it
+    ends, before any check fails the phase; returns the legs' launches,
+    summed over the ranks."""
+    from repro_torch.launch import mesh as mesh_lib
+
+    launches, faults = {}, []
+
+    def add(got):
+        for k, v in got.items():
+            launches[k] = launches.get(k, 0) + v
+
+    shape = (1, 3)
+    arch, n, sched = TP3_TIME
+    time_leg = f"tp3_time:{arch}:{n}:{sched}"
+    legs = ["tp3_agree", "tp3_agg", time_leg, "serve_tp_agree",
+            "serve_tp3_time"]
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    ranks = mesh_lib.spawn(_tp3_rank, shape[0], (legs,), model=shape[1],
+                           device="cuda", timeout_s=TP3_TIMEOUT_S)
+    _spawned("tp3_spawn", shape, legs, time.perf_counter() - t0, ranks)
+    cases = [(a, sc, st) for a, _, sc, st in TP3_AGREE + TP3_FE_AGREE]
+    layers = {a: k for a, k, _, _ in TP3_AGREE + TP3_FE_AGREE}
+    bpc = {a: (FE_BPC[a] if a in FE_BPC else BATCH_PER_CLIENT)
+           for a, _, _ in cases}
+    seq = {a: (FE_SEQ[a] if a in FE_SEQ else DIST_SEQ) for a, _, _ in cases}
+    _emit_agree("tp3_agree", shape, cases, bpc, ranks, add, faults, seq,
+                layers)
+    rows = [r["tp3_agg"] for r in ranks]
+    for r in rows:
+        add(r["launches"])
+    emit({"phase": "tp3_agg", "mesh": list(shape), "arch": "internlm2-20b",
+          "n_layers": TP3_AGG_LAYERS, "clients": 2,
+          "weights": list(TP_AGREE_WEIGHTS), "schedule": "compressed",
+          "leaves": rows[0]["leaves"], "whole_leaves": rows[0]["whole_leaves"],
+          "rank": [{k: r[k] for k in ("exact", "max_abs_err",
+                                      "elements_differing", "finite", "ms")}
+                   for r in rows],
+          "launches_rank": [r["launches"] for r in rows]})
+    for r in rows:
+        got = r["launches"]
+        if (not r["exact"] or got["qagg"] != r["leaves"] or got["fedavg"]
+                or got["flash_fwd"]):
+            faults.append(f"tp3_agg: {r}")
+    _emit_time("tp3_time", shape, arch, n, sched, BATCH_PER_CLIENT,
+               [r[time_leg] for r in ranks], add, faults)
+    _emit_serve_agree(shape, ranks, add, faults)
+    _emit_serve_time(shape, "serve_tp3_time", SERVE_TP3_TIME, ranks, add,
+                     faults)
     if faults:
         raise AssertionError("\n".join(faults))
     return launches
@@ -3762,6 +4139,8 @@ def phase_dist(torch, dev) -> dict:
     if world == 4:
         add(phase_tp(torch, dev))
         add(phase_shared(torch, dev))
+    if world >= 3:
+        add(phase_tp3(torch, dev))
     return launches
 
 
@@ -3966,6 +4345,12 @@ def kernel_rows(fed, flash, qagg, quant8, wkv, launches):
     return rows
 
 
+# phases that use one card and nothing a second card changes: they run
+# where the script runs on one card, and on more the four-card legs take
+# their time (the one-card run holds the same checks)
+ONE_CARD_ONLY = ("strategies", "resume_full")
+
+
 def main(argv=None) -> int:
     adopt_orphans()
     try:
@@ -4020,7 +4405,12 @@ def run(argv=None) -> int:
     qagg = timed("qagg", phase_qagg, torch, dev)
     quant8 = timed("quant8", phase_quant8, torch, dev)
     wkv = timed("wkv", phase_wkv, torch, dev)
-    timed("strategies", phase_strategies, torch, dev)
+    skip = ONE_CARD_ONLY if torch.cuda.device_count() > 1 else ()
+    if skip:
+        emit({"phase": "one_card_only", "cards": torch.cuda.device_count(),
+              "not_run": list(skip)})
+    if "strategies" not in skip:
+        timed("strategies", phase_strategies, torch, dev)
     launches = {}
     for phase, arch, n_layers, schedule, strategy, fail_at in TRAIN_CELLS:
         add(timed(phase, phase_train, torch, dev, phase, arch, n_layers,
@@ -4028,8 +4418,10 @@ def run(argv=None) -> int:
     for cell in FRONTEND_TRAIN_CELLS:
         add(timed(cell[0], phase_train_frontend, torch, dev, *cell,
                   args.profile))
+    add(timed("adapter", phase_adapter, torch, dev))
     timed("resume", phase_resume, torch, dev)
-    timed("resume_full", phase_resume_full, torch, dev)
+    if "resume_full" not in skip:
+        timed("resume_full", phase_resume_full, torch, dev)
     timed("serve_kernels", phase_serve_kernels, torch, dev)
     for cell in SERVE_CELLS:
         add(timed(cell[0], phase_serve, torch, dev, *cell))

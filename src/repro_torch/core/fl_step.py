@@ -33,7 +33,13 @@ rank's block across the client axis
 (``aggregation.aggregate_params(..., mesh=, axis=)``).  The spec
 functions (``param_specs``, ``state_specs``, ...) are the reference's, as
 tuples of mesh-axis names; ``abstract_state`` builds a state on the meta
-device.  ``AdapterSpec`` waits for a later slice.
+device.
+
+``AdapterSpec`` is the reference's LoRA adapter recipe (declarations, the
+filter that trains and ships only the adapters, and the fold into the
+base), and ``build_eval_step`` its evaluation step (the cross-entropy of
+``model_api.loss_fn``); as in the reference, neither is wired into the
+round step.
 """
 from __future__ import annotations
 
@@ -123,6 +129,60 @@ class ParamFilter:
         new = [update.get("/".join(path), leaf)
                for path, leaf in T.leaves_with_path(tree)]
         return T.unflatten_like(tree, new)
+
+
+@dataclass(frozen=True)
+class AdapterSpec:
+    """LoRA-style adapter recipe: every 2-D weight whose path matches
+    ``match`` gets a rank-``rank`` adapter pair ``<name>/lora_A`` (fan-in
+    init) and ``<name>/lora_B`` (zeros: adapters start as the identity).
+    A leaf stacked over layers is 3-D or more and gets none.  ``filter()``
+    is the matching ParamFilter, so only adapter tensors are trained and
+    shipped while the frozen base stays local."""
+    rank: int = 8
+    alpha: float = 16.0
+    match: tuple = ("*",)
+
+    def _adapts(self, name: str, d) -> bool:
+        return (len(d.shape) == 2
+                and any(fnmatchcase(name, p) for p in self.match))
+
+    def adapter_decls(self, decls) -> dict:
+        """Flat decl dict for the adapter bank of a base decl tree:
+        ``lora_A`` (din, rank) on (the weight's first axis, None), ``lora_B``
+        (rank, dout) on (None, its second), both f32."""
+        out = {}
+        for path, d in T.leaves_with_path(decls):
+            name = "/".join(path)
+            if self._adapts(name, d):
+                din, dout = d.shape
+                out[f"{name}/lora_A"] = shd.decl(
+                    (din, self.rank), (d.axes[0], None),
+                    init="normal", dtype=torch.float32)
+                out[f"{name}/lora_B"] = shd.decl(
+                    (self.rank, dout), (None, d.axes[1]),
+                    init="zeros", dtype=torch.float32)
+        return out
+
+    def filter(self) -> ParamFilter:
+        return ParamFilter(include=("*/lora_A", "*/lora_B"))
+
+    def apply(self, params, adapters: dict):
+        """Fold the adapter bank into the base: W <- W + (alpha/r) A @ B
+        for every adapted weight, in f32, cast back to W's dtype (a plain
+        product, as the reference computes it outside any kernel).  A new
+        tree; the others are ``params``' own leaves."""
+        scale = self.alpha / float(self.rank)
+        leaves = []
+        for path, leaf in T.leaves_with_path(params):
+            name = "/".join(path)
+            a = adapters.get(f"{name}/lora_A")
+            b = adapters.get(f"{name}/lora_B")
+            if a is not None and b is not None:
+                delta = a.float() @ b.float()
+                leaf = (leaf.float() + scale * delta).to(leaf.dtype)
+            leaves.append(leaf)
+        return T.unflatten_like(params, leaves)
 
 
 # --------------------------------------------------------------------------
@@ -295,16 +355,6 @@ def split_dims(cfg: ArchConfig, mesh, axis: str):
                       client_specs(cfg, mesh))
 
 
-def _rank_clients(cfg: ArchConfig, mesh) -> int:
-    """K on a mesh of ranks: one client a row of the data axis in
-    ``replica`` mode, one a pod in ``shared`` mode (the whole mesh without
-    pods); raises for a config the model axis does not run yet
-    (``tensor_parallel.check_supported``)."""
-    if mesh.shape["model"] > 1:
-        tpar.check_supported(cfg, mesh.shape["model"])
-    return n_clients_for(cfg, mesh)
-
-
 def data_axis_for(cfg: ArchConfig, mesh) -> Optional[fsdp.DataAxis]:
     """The client's data axis of ``mesh`` in ``shared`` mode (FSDP over
     its D ranks), or None (``replica`` mode, or a data axis of 1)."""
@@ -316,7 +366,7 @@ def data_axis_for(cfg: ArchConfig, mesh) -> Optional[fsdp.DataAxis]:
 
 
 def _init_rank_state(cfg: ArchConfig, mesh, seed: int, opt, frozen):
-    n = _rank_clients(cfg, mesh)
+    n = n_clients_for(cfg, mesh)
     specs = T.leaves(param_specs(cfg, mesh))
     fro = T.leaves(frozen) if frozen is not None and n > 1 else None
 
@@ -556,7 +606,7 @@ def build_fl_round_step(cfg: ArchConfig, n_clients,
     mesh = None if _is_count(n_clients) else n_clients
     tp = dp = axis = None
     if mesh is not None:
-        dev, n_clients = mesh.device, _rank_clients(cfg, mesh)
+        dev, n_clients = mesh.device, n_clients_for(cfg, mesh)
         axis = client_axis_for(cfg, mesh)
         tp = tpar.axis_for(cfg, mesh)
         dp = data_axis_for(cfg, mesh)
@@ -617,3 +667,11 @@ def build_fl_round_step(cfg: ArchConfig, n_clients,
 
     return fl_round_step
 
+
+def build_eval_step(cfg: ArchConfig):
+    """-> ``eval_step(params, batch)``: the batch's mean token
+    cross-entropy (``model_api.loss_fn``'s ``ce``) on one device."""
+    def eval_step(params, batch):
+        _, parts = model_api.loss_fn(cfg, params, batch)
+        return parts["ce"]
+    return eval_step

@@ -44,13 +44,7 @@ on the client's ranks, and a replicated weight (the norms) gets its whole
 gradient on each.  An all-gather's backward takes the rank's slice of a
 gradient that is whole on every rank: nothing is summed.  Adafactor's
 factor means and its RMS clip over a split dim sum over the model group
-(``optim/api.adafactor``, through ``ModelAxis.all_reduce``).  Where
-``kv_heads`` stays whole while ``heads`` is split
-(fewer kv heads than ranks, ``_spec_for``'s rule), a rank's q heads all
-read one kv head (q head h reads kv head ``h // (H / Kv)``), which it
-selects; those weights (``wk``, ``wv``, ``bk``, ``bv``) take
-``copy_to_model`` too, so each gets the sum of its ranks' parts: its
-gradient counted once.
+(``optim/api.adafactor``, through ``ModelAxis.all_reduce``).
 
 RWKV6's time mix and Hymba's SSM branch split on heads as the attention
 does: the projections into heads column-parallel, the recurrence (the WKV
@@ -64,13 +58,33 @@ RWKV6's channel mix declares ``cm.wr`` (embed, mlp): its output columns
 split, and the rank's columns of the gate are gathered
 (``gather_from_model``).
 
-Each dim is decided alone, as ``sharding._spec_for`` decides it.  Where
-the heads do not divide the axis (hymba-1.5b's 25 at M = 2 or 4) they
-stay whole, and so do the kv heads: the attention, the time mix and the
-SSM branch then run their plain code on every rank, with no collective
-(``heads_axis`` returns None for them).  Only the ``mlp`` and ``vocab``
-dims (and the experts) must split; a config where one would stay whole
-raises.
+Each dim is decided alone, as ``sharding._spec_for`` decides it: a dim
+splits where its length divides the axis, else it stays whole.
+``split_blocks`` gives the decision for each block of leaves that share
+the dim: ``vocab`` (both tables), ``heads``, ``kv_heads``, each width on
+``mlp`` (``_mlp_widths``: the FFN, an MoE config's shared expert, RWKV6's
+``cm.wr``, the VLM's patch projection) and the MoE layer's form
+(``moe_split``).  A block whose dim stays whole runs its plain code on
+every rank, on its whole leaves, with no collective (``along`` returns
+None for it): the plain lookup, logits and cross-entropy where the padded
+vocab stays whole, the plain MLP where its width does, the whole MoE layer
+where neither the experts nor their width divide the axis (its auxiliary
+loss and drop counts counted once, as with the layer split), and the
+attention, the time mix and the SSM branch where the heads stay whole
+(hymba-1.5b's 25 at M = 2 or 4).  Its input and output are whole on every
+rank, as every activation is, so its leaves get their whole gradient on
+each rank.
+
+Where ``kv_heads`` stays whole while ``heads`` is split (fewer kv heads
+than ranks, or a count that does not divide), a rank's q heads read the
+kv heads of their groups (q head h reads kv head ``h // (H / Kv)``):
+those weights (``wk``, ``wv``, ``bk``, ``bv``) are selected through
+``copy_to_model``, so each gets the sum of its ranks' parts, its gradient
+counted once.  Where the rank's q heads lie in one group they read one kv
+head.  Where they straddle groups (``ModelAxis.straddle``: internlm2-20b's
+48 q heads in groups of 6 at M = 3, 16 a rank), the rank projects the kv
+heads it reads and expands them to one a local q head (``kv_read``), so
+the attention, the flash kernel among it, runs with a group of one.
 
 The encoder-decoder splits its encoder's and its decoder's attention on
 heads, its GELU MLP as ``swiglu`` (the replicated output bias added once,
@@ -80,11 +94,10 @@ layer's key and value projection.  The VLM's patch projection, declared
 (``mlp``, ``embed``), is row-parallel over its ``feat_dim`` input.
 
 With a model axis of 1 there is no :class:`ModelAxis` (``axis_for``
-returns None) and the model runs its plain code.  A config whose ``mlp``
-or ``vocab`` would stay whole raises ``NotImplementedError``
-(``check_supported``).  In ``shared`` mode the parameters are also
-split on ``data`` (``dist/fsdp.py``), and each layer gathers them there
-before this code sees them: a gathered leaf is a model block as here.
+returns None) and the model runs its plain code.  In ``shared`` mode the
+parameters are also split on ``data`` (``dist/fsdp.py``), and each layer
+gathers them there before this code sees them: a gathered leaf is a model
+block as here, the whole leaf where the model axis leaves it whole.
 """
 from __future__ import annotations
 
@@ -122,46 +135,42 @@ def head_counts(cfg: ArchConfig) -> tuple:
     return cfg.n_heads, cfg.n_kv_heads
 
 
-def _mlp_widths(cfg: ArchConfig) -> list:
-    """The widths of the ``mlp`` leaves the config holds: the dense FFN
-    (Whisper's GELU MLP too), or an MoE config's leading dense layers and
-    its shared expert; RWKV6's channel mix also declares ``cm.wr``'s
-    output, ``d_model``, on ``mlp``, and the VLM its patch projection's
-    input, ``frontend.feat_dim``."""
+def _mlp_widths(cfg: ArchConfig) -> dict:
+    """The widths of the blocks of ``mlp`` leaves the config holds, by
+    block: ``mlp`` the FFN of its dense layers (Whisper's GELU MLP too, an
+    MoE config's leading dense layers, RWKV6's channel mix ``cm.wk`` and
+    ``cm.wv``), ``shared`` an MoE config's shared expert, ``mlp_r``
+    RWKV6's ``cm.wr`` (its output, ``d_model``, declared on ``mlp``) and
+    ``vis`` the VLM's patch projection input, ``frontend.feat_dim``."""
     m = cfg.moe
     if cfg.family == "rwkv":
-        return [cfg.d_ff, cfg.d_model]
-    if cfg.family == "vlm":
-        return [cfg.d_ff, cfg.frontend.feat_dim]
+        return {"mlp": cfg.d_ff, "mlp_r": cfg.d_model}
+    out = {}
     if m is None:
-        return [cfg.d_ff]
-    return ([m.d_ff_dense] if m.first_k_dense else []) + \
-        ([m.n_shared_experts * m.d_ff_expert] if m.n_shared_experts else [])
+        out["mlp"] = cfg.d_ff
+    elif m.first_k_dense:
+        out["mlp"] = m.d_ff_dense
+    if m is not None and m.n_shared_experts:
+        out["shared"] = m.n_shared_experts * m.d_ff_expert
+    if cfg.family == "vlm":
+        out["vis"] = cfg.frontend.feat_dim
+    return out
 
 
-def check_supported(cfg: ArchConfig, size: int):
-    """Raises ``NotImplementedError`` for a config that a model axis of
-    ``size`` > 1 does not run yet: one whose ``mlp`` or ``vocab`` (or its
-    experts) would stay whole, or whose rank's q heads would read two kv
-    groups."""
+def split_blocks(cfg: ArchConfig, size: int) -> dict:
+    """Per block of leaves, whether a model axis of ``size`` splits it
+    (``sharding._spec_for``'s rule on the block's dim): ``vocab``,
+    ``heads``, ``kv_heads`` and each ``_mlp_widths`` block, as bools, and
+    ``moe``, an MoE config's form (``moe_split``: None where the layer
+    stays whole)."""
     from repro_torch.models.layers import pad_vocab
-    whole = [] if _splits(pad_vocab(cfg.vocab), size) else ["vocab"]
-    whole += ["mlp"] if not all(_splits(n, size)
-                                for n in _mlp_widths(cfg)) else []
-    if cfg.moe is not None and moe_split(cfg, size) is None:
-        whole.append("experts and expert_mlp")
-    if whole:
-        raise NotImplementedError(
-            f"{cfg.name}: {', '.join(whole)} would stay whole on a model "
-            f"axis of {size}; tensor parallelism splits mlp (or the "
-            "experts) and vocab (heads split or stay whole)")
     n_heads, n_kv = head_counts(cfg)
-    group, local = n_heads // n_kv, n_heads // size
-    if (_splits(n_heads, size) and not _splits(n_kv, size)
-            and group % local):
-        raise NotImplementedError(
-            f"{cfg.name} on a model axis of {size}: a rank's {local} q heads "
-            f"would read parts of two groups of {group}")
+    out = {"vocab": _splits(pad_vocab(cfg.vocab), size),
+           "heads": _splits(n_heads, size), "kv_heads": _splits(n_kv, size)}
+    out.update({k: _splits(n, size) for k, n in _mlp_widths(cfg).items()})
+    if cfg.moe is not None:
+        out["moe"] = moe_split(cfg, size)
+    return out
 
 
 class GroupAxis:
@@ -213,40 +222,36 @@ class GroupAxis:
 
 class ModelAxis(GroupAxis):
     """A client's model axis as the layers see it: its group, this rank's
-    index ``rank`` in it, the global head counts, and whether the heads
-    (``heads_split``) and the kv heads (``kv_split``) split over it."""
+    index ``rank`` in it, the config's global head counts, ``blocks``
+    (``split_blocks``' answer for the config, which ``along`` reads: the
+    one place a layer learns whether the axis splits its block) and
+    whether a rank's q heads straddle kv groups (``straddle``).  The
+    optimizer needs only the group (``GroupAxis``)."""
 
-    def __init__(self, group, size: int, rank: int, n_heads: int,
-                 n_kv: int):
+    def __init__(self, group, size: int, rank: int, cfg: ArchConfig):
         super().__init__(group, size, rank)
-        self.n_heads, self.n_kv = n_heads, n_kv
-        self.heads_split = _splits(n_heads, size)
-        self.kv_split = _splits(n_kv, size)
+        self.n_heads, self.n_kv = head_counts(cfg)
+        self.blocks = split_blocks(cfg, size)
+        self.straddle = (self.blocks["heads"] and not self.blocks["kv_heads"]
+                         and (self.n_heads // self.n_kv)
+                         % (self.n_heads // size) != 0)
 
 
 def axis_for(cfg: ArchConfig, mesh) -> Optional[ModelAxis]:
     """The model axis of ``mesh`` for ``cfg``, or None (no mesh, or a
-    model axis of 1).  Raises for what it does not run yet."""
+    model axis of 1)."""
     if mesh is None or mesh.shape["model"] == 1:
         return None
-    size = mesh.shape["model"]
-    check_supported(cfg, size)
-    return ModelAxis(mesh.group("model"), size, mesh.coord("model"),
-                     *head_counts(cfg))
+    return ModelAxis(mesh.group("model"), mesh.shape["model"],
+                     mesh.coord("model"), cfg)
 
 
-def heads_split(cfg: ArchConfig, size: int) -> bool:
-    """Whether ``cfg``'s heads split over a model axis of ``size``; where
-    they do not, every block over heads runs whole on each rank
-    (``heads_axis``)."""
-    return _splits(head_counts(cfg)[0], size)
-
-
-def heads_axis(tp: Optional[ModelAxis]) -> Optional[ModelAxis]:
-    """The axis a block over heads (the attention, RWKV6's time mix,
-    Hymba's SSM branch) splits its heads over: ``tp`` where the heads
-    divide it, else None (the block runs whole on every rank)."""
-    return tp if tp is not None and tp.heads_split else None
+def along(tp: Optional[ModelAxis], block: str) -> Optional[ModelAxis]:
+    """The axis ``block`` (a ``split_blocks`` key: ``"heads"`` for the
+    attention, RWKV6's time mix and Hymba's SSM branch) splits over:
+    ``tp`` where its dim divides the axis, else None (the block runs
+    whole on every rank)."""
+    return tp if tp is not None and tp.blocks[block] else None
 
 
 def head_columns(t: torch.Tensor, axis: ModelAxis) -> torch.Tensor:
@@ -407,10 +412,37 @@ def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
 # --------------------------------------------------------------------------
 
 def kv_index(axis: ModelAxis, local_heads: int) -> Optional[torch.Tensor]:
-    """Where ``kv_heads`` stays whole: the one kv head this rank's
-    ``local_heads`` q heads read (``check_supported`` holds them in one
-    group), as an index into the whole kv axis; None where kv is split."""
-    if axis.kv_split:
+    """Where ``kv_heads`` stays whole: the kv heads this rank's
+    ``local_heads`` q heads attend with, as an index into the whole kv
+    axis: the one they read where they lie in one group, or where they
+    straddle groups (``axis.straddle``) each q head's own, a kv head
+    repeated for every q head of its group the rank holds.  None where kv
+    is split."""
+    if axis.blocks["kv_heads"]:
         return None
-    return torch.tensor([axis.rank * local_heads
-                         // (axis.n_heads // axis.n_kv)])
+    group = axis.n_heads // axis.n_kv
+    reads = [(axis.rank * local_heads + i) // group
+             for i in range(local_heads)]
+    return torch.tensor(reads if axis.straddle else reads[:1])
+
+
+def kv_read(axis: ModelAxis, local_heads: int):
+    """``kv_index`` as a projection takes it: (the distinct whole kv heads
+    read, the index into them of each kv head attended with, or None
+    where they are the same).  A rank projects the few kv heads it reads
+    and expands the keys and values, not the weights."""
+    idx = kv_index(axis, local_heads)
+    if idx is None:
+        return None
+    heads, expand = torch.unique_consecutive(idx, return_inverse=True)
+    return heads, (expand if axis.straddle else None)
+
+
+def kv_gather_index(axis: ModelAxis) -> list:
+    """Where the q heads split and ``kv_heads`` stays whole: for each whole
+    kv head j, its place in the rank-ordered gather of every rank's keys as
+    its layer projects them (``kv_index``'s heads, one or one a q head):
+    that of the first q head that reads it, ``j * H / Kv``."""
+    local, group = axis.n_heads // axis.size, axis.n_heads // axis.n_kv
+    return [j * group if axis.straddle else j * group // local
+            for j in range(axis.n_kv)]

@@ -25,7 +25,6 @@ import numpy as np
 
 from repro_torch.configs.base import get_arch, smoke_config
 from repro_torch.device import resolve
-from repro_torch.dist import tensor_parallel as tpar
 from repro_torch.launch import mesh as mesh_lib
 from repro_torch.models import model_api
 from repro_torch.serve.engine import ServeEngine
@@ -52,8 +51,6 @@ def main(argv=None):
     args = ap.parse_args(argv)
     M = args.model_mesh
     mesh_lib.check_axes(M)
-    if M > 1:                       # before any rank starts
-        tpar.check_supported(_config(args), M)
     if args.data_mesh or M > 1 or mesh_lib.in_torchrun():
         world = int(os.environ.get("WORLD_SIZE",
                                    max(args.data_mesh, 1) * M))

@@ -83,7 +83,6 @@ from repro_torch.core.stats import StatsSimulator
 from repro_torch.core.topology import AggSchedule, compile_tree
 from repro_torch.data.federated import FederatedTokens
 from repro_torch.device import resolve
-from repro_torch.dist import tensor_parallel as tpar
 from repro_torch.dist.sharding import local_block
 from repro_torch.ft.failures import FailurePlan
 from repro_torch.launch import mesh as mesh_lib
@@ -375,8 +374,6 @@ def main(argv=None):
     args = ap.parse_args(argv)
     M, P = args.model_mesh, args.pod_mesh
     mesh_lib.check_axes(M, P)
-    if M > 1:                       # before any rank starts
-        tpar.check_supported(_config(args), M)
     if args.data_mesh or M > 1 or P or mesh_lib.in_torchrun():
         per = M * max(P, 1)
         world = int(os.environ.get(

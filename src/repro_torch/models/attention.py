@@ -25,9 +25,9 @@ column-parallel, and the output projection row-parallel; the attention
 between them runs on the local heads unchanged.  The encoder-decoder's
 cross-attention projects its query and its keys and values from two
 inputs (``project_q``, ``project_kv``), each column-parallel the same
-way.  Where the heads do not
-divide the axis (``tensor_parallel.heads_axis``) they stay whole: the
-weights are whole on every rank and both run the plain code.
+way.  Where the heads do not divide the axis (``tensor_parallel.along(tp,
+"heads")`` is None) they stay whole: the weights are whole on every rank
+and both run the plain code.
 """
 from __future__ import annotations
 
@@ -71,29 +71,39 @@ def project_heads(x, w):
     return (x @ w.reshape(D, H * hd)).reshape(*x.shape[:-1], H, hd)
 
 
-def _kv_params(params, tp, local_heads: int) -> dict:
-    """``wk``/``wv`` (and ``bk``/``bv``) as this rank's heads read them:
-    as held where kv heads are split (or there is no model axis); where
-    they stay whole, the kv head of its q heads (``kv_index``), taken
-    through ``copy_to_model`` so each weight's gradient is the sum of its
-    ranks' parts."""
+def _kv_params(params, tp, local_heads: int):
+    """``wk``/``wv`` (and ``bk``/``bv``) as this rank's heads read them,
+    and the expansion of their keys and values to one kv head a local q
+    head (None where there is none): as held where kv heads are split (or
+    there is no model axis); where they stay whole, the kv heads its q
+    heads read (``kv_read``), taken through ``copy_to_model`` so each
+    weight's gradient is the sum of its ranks' parts."""
     names = [n for n in ("wk", "wv", "bk", "bv") if n in params]
-    idx = None if tp is None else tpar.kv_index(tp, local_heads)
-    if idx is None:
-        return {n: params[n] for n in names}
-    idx = idx.to(params["wk"].device)
+    read = None if tp is None else tpar.kv_read(tp, local_heads)
+    if read is None:
+        return {n: params[n] for n in names}, None
+    dev = params["wk"].device
+    heads, expand = (None if t is None else t.to(dev) for t in read)
     # the kv axis: dim 1 of a weight (D, Kv, hd), dim 0 of a bias (Kv, hd)
     return {n: tpar.copy_to_model(params[n], tp).index_select(
-        params[n].dim() - 2, idx) for n in names}
+        params[n].dim() - 2, heads) for n in names}, expand
+
+
+def _expand(t, expand):
+    """Keys or values (B, S, k, hd) -> one kv head a local q head, where
+    the rank's q heads straddle kv groups (``expand``; the index_select's
+    backward sums each kv head's copies)."""
+    return t if expand is None else t.index_select(2, expand)
 
 
 def project_qkv(params, x, positions, theta: float, *, apply_rope: bool = True,
                 tp=None):
     """x: (B, S, D) -> q (B,S,H,hd), k/v (B,S,K,hd).  With ``tp``, H is
-    this rank's q heads and K the kv heads they read."""
-    tp = tpar.heads_axis(tp)
+    this rank's q heads and K the kv heads they read (one a q head where
+    they straddle kv groups)."""
+    tp = tpar.along(tp, "heads")
     x = _heads_input(x, tp)
-    kv = _kv_params(params, tp, params["wq"].shape[1])
+    kv, expand = _kv_params(params, tp, params["wq"].shape[1])
     q = project_heads(x, params["wq"])
     k = project_heads(x, kv["wk"])
     v = project_heads(x, kv["wv"])
@@ -104,7 +114,7 @@ def project_qkv(params, x, positions, theta: float, *, apply_rope: bool = True,
     if apply_rope:
         q = rope(q, positions, theta)
         k = rope(k, positions, theta)
-    return q, k, v
+    return q, _expand(k, expand), _expand(v, expand)
 
 
 def _heads_input(x, tp):
@@ -116,24 +126,26 @@ def _heads_input(x, tp):
 def project_q(params, x, tp=None):
     """The cross-attention's query: x (B,S,D) -> q (B,S,H,hd), no bias
     and no RoPE; with ``tp``, H is this rank's q heads."""
-    tp = tpar.heads_axis(tp)
+    tp = tpar.along(tp, "heads")
     return project_heads(_heads_input(x, tp), params["wq"])
 
 
 def project_kv(params, x, tp=None):
     """The cross-attention's keys and values of the encoder's memory x
     (B,T,D) -> k, v (B,T,K,hd), no bias and no RoPE; with ``tp``, K is the
-    kv heads this rank's q heads read (``_kv_params``)."""
-    tp = tpar.heads_axis(tp)
-    kv = _kv_params(params, tp, params["wq"].shape[1])
+    kv heads this rank's q heads read (``_kv_params``; one a q head where
+    they straddle kv groups)."""
+    tp = tpar.along(tp, "heads")
+    kv, expand = _kv_params(params, tp, params["wq"].shape[1])
     x = _heads_input(x, tp)
-    return project_heads(x, kv["wk"]), project_heads(x, kv["wv"])
+    return (_expand(project_heads(x, kv["wk"]), expand),
+            _expand(project_heads(x, kv["wv"]), expand))
 
 
 def project_out(params, o, tp=None):
     """o: (B, S, H, hd) -> (B, S, D); with ``tp``, row-parallel over this
     rank's heads."""
-    tp = tpar.heads_axis(tp)
+    tp = tpar.along(tp, "heads")
     H, hd, D = params["wo"].shape
     flat = o.reshape(*o.shape[:-2], H * hd)
     if tp is not None:
@@ -331,7 +343,8 @@ def decode_block(params, h, k_l, v_l, kv_pos, pos, slots, theta: float,
     rank gathers the heads' q, attends every head over its own slots
     (``split_decode_attention``) and keeps its heads' rows of the result;
     under ``heads`` it attends its heads over its kv heads; under
-    ``whole`` with the q heads split, over the one kv head they read."""
+    ``whole`` with the q heads split, over the kv heads they read
+    (``local_kv``)."""
     q, k, v = project_qkv(params, h, pos[:, None], theta, tp=tp)
     kvc.write_token(k_l, slots, kvc.cache_heads(k, tp, lay)[:, 0])
     kvc.write_token(v_l, slots, kvc.cache_heads(v, tp, lay)[:, 0])
@@ -348,7 +361,7 @@ def seq_attention(q, k_l, v_l, kv_pos, pos, tp, window=None):
     a cache split on its sequence: every rank gathers the heads' q,
     attends every head over its own slots (``split_decode_attention``;
     ``kv_pos`` None: all of them, unmasked) and keeps its heads' rows."""
-    hp = tpar.heads_axis(tp)
+    hp = tpar.along(tp, "heads")
     every = q if hp is None else tpar.gather_from_model(q, hp, 2)
     o = split_decode_attention(every, k_l, v_l, kv_pos, pos, tp,
                                window=window)
@@ -359,8 +372,10 @@ def seq_attention(q, k_l, v_l, kv_pos, pos, tp, window=None):
 def local_kv(k_l, v_l, lay, tp, local_heads: int):
     """A rank's block of a cache under ``heads`` or ``whole`` as its
     ``local_heads`` q heads read it: as held, but under ``whole`` with the
-    q heads split, the one kv head they read (``kv_index``)."""
-    hp = tpar.heads_axis(tp)
+    q heads split, the kv heads they read (``kv_index``: the one of their
+    group, or one a q head where they straddle groups, selected from the
+    cache each step)."""
+    hp = tpar.along(tp, "heads")
     idx = None if hp is None or lay.kind == "heads" else \
         tpar.kv_index(hp, local_heads)
     if idx is None:

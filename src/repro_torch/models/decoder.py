@@ -15,10 +15,12 @@ over the layer index on views of the stacked ``(L, ...)`` leaves, and
 ``forward`` takes an optional ``tp`` (``dist.tensor_parallel.ModelAxis``):
 the parameters are then this rank's blocks of a client's, split over the
 mesh's ``model`` axis, and the layers run tensor-parallel (the logits it
-returns are the rank's vocab rows): the dense family, the MoE family
-with its leading dense layers, its experts (expert or intra-expert
-parallelism) and its shared expert, and the VLM family with its patch
-projection row-parallel over ``feat_dim`` (``_embed_inputs``).
+returns are the rank's vocab rows, or whole where the vocab stays whole):
+the dense family, the MoE family with its leading dense layers, its
+experts (expert or intra-expert parallelism, or whole) and its shared
+expert, and the VLM family with its patch projection row-parallel over
+``feat_dim`` (``_embed_inputs``).  Each block whose dim the axis leaves
+whole runs its plain code on every rank (``tensor_parallel.along``).
 
 It also takes an optional ``dp`` (``dist.fsdp.DataAxis``, the ``shared``
 mode): the parameters are then also split over the client's ``data``
@@ -160,22 +162,24 @@ def _embed_inputs(cfg: ArchConfig, params, batch, tp=None, dp=None):
     ``patches`` (B, n, feat_dim) replace the first n positions.  The
     projection runs in the weight's dtype (the reference's einsum promotes
     bf16 patches against f32 weights) and lands in the embedding's.  Its
-    weight is declared (``mlp``, ``embed``): with ``tp`` it is row-parallel
-    over the rank's ``feat_dim`` rows, the replicated norm's output taken
-    through ``copy_to_model`` before the rank keeps its columns (so the
-    norm gets its whole gradient on every rank); with ``dp`` the weight is
-    gathered on ``data`` first."""
+    weight is declared (``mlp``, ``embed``): with ``tp`` splitting
+    ``feat_dim`` it is row-parallel over the rank's ``feat_dim`` rows, the
+    replicated norm's output taken through ``copy_to_model`` before the
+    rank keeps its columns (so the norm gets its whole gradient on every
+    rank), and where ``feat_dim`` stays whole every rank projects whole;
+    with ``dp`` the weight is gathered on ``data`` first."""
     x = embed_lookup(params["embed"], batch["tokens"], tp, dp)
     if cfg.family == "vlm" and "patches" in batch:
         vp = fsdp.whole(dp, params["vis_proj"], "vis_proj")
         w = vp["w"]
         vis = rmsnorm(vp["norm"], batch["patches"], cfg.norm_eps).to(w.dtype)
-        if tp is None:
+        fp = tpar.along(tp, "vis")
+        if fp is None:
             vis = vis @ w
         else:
-            vis = tpar.copy_to_model(vis, tp).narrow(
-                -1, tp.rank * w.shape[0], w.shape[0])
-            vis = tpar.row_parallel(vis, w, tp)
+            vis = tpar.copy_to_model(vis, fp).narrow(
+                -1, fp.rank * w.shape[0], w.shape[0])
+            vis = tpar.row_parallel(vis, w, fp)
         x = torch.cat([vis.to(x.dtype), x[:, vis.shape[1]:]], dim=1)
     return x
 

@@ -20,9 +20,11 @@ Every entry point takes ``decoder.py``'s ``tp`` and ``dp``.  With ``tp``
 blocks of a client's, split over the ``model`` axis: the encoder's and the
 decoder's self-attention through the tensor-parallel projections, the
 GELU MLP column- and row-parallel (its replicated ``b_out`` added once,
-after the sum), the embedding and the logits vocab-parallel.  The
-cross-attention projects its query from the decoder's stream and its keys
-and values from the encoder's memory, each through ``copy_to_model``
+after the sum), the embedding and the logits vocab-parallel, each where
+its dim divides the axis and whole on every rank where it does not
+(whisper-small's vocab at M = 3).  The cross-attention projects its
+query from the decoder's stream and its keys and values from the
+encoder's memory, each through ``copy_to_model``
 (``attention.project_q``/``project_kv``, the kv heads a rank's q heads
 read where the kv heads stay whole): the memory's gradient is summed over
 the model group once a decoder layer that reads it.  ``enc_in``, the

@@ -30,9 +30,10 @@ takes its heads' columns of them through ``copy_to_model``.  The two
 branches' outputs are each reduced over the axis before they are
 averaged, the single device's rounding points.  Where the heads stay
 whole (hymba-1.5b's 25 at M = 2 or 4) both branches run whole on every
-rank with no collective; the SwiGLU and the vocab split.  With ``dp`` each
-layer gathers its leaves' ``embed`` blocks inside the checkpointed
-function.  ``prefill`` and ``decode_step`` take them too (serving on
+rank with no collective; the SwiGLU and the vocab split where they
+divide the axis, and stay whole too where they do not (at M = 3).  With
+``dp`` each layer gathers its leaves' ``embed`` blocks inside the
+checkpointed function.  ``prefill`` and ``decode_step`` take them too (serving on
 ranks): the window's keys go into the rank's block of the ring
 (``kvcache.CacheLayout``, ``attention.decode_block``), the SSM and conv
 states hold the rank's heads (all of them where the heads stay whole), and
@@ -139,7 +140,7 @@ def _ssm_branch(cfg, sp, h, s0=None, conv_state=None, chunk=None,
     state).  With ``tp`` splitting the heads, ``sp``'s head leaves are the
     rank's, and the conv's columns are taken for its heads."""
     B, S, D = h.shape
-    hp = tpar.heads_axis(tp)
+    hp = tpar.along(tp, "heads")
     H, hd = sp["D_skip"].shape
     Din = H * hd
     conv_w, conv_b = sp["conv_w"], sp["conv_b"]

@@ -118,11 +118,11 @@ def cache_specs(cfg, decls, mesh):
     """The specs of cache ``decls`` (a family's ``cache_decl``) on
     ``mesh``: the reference's ``specs_for`` under ``rules_for(cfg.fl.mode)``,
     but a dim on ``heads`` stays whole where the heads do
-    (``tensor_parallel.heads_axis``'s rule; Hymba's ``conv`` Din dim, see
-    the module docstring)."""
+    (``tensor_parallel.split_blocks``' ``heads``; Hymba's ``conv`` Din
+    dim, see the module docstring)."""
     specs = shd.specs_for(decls, shd.rules_for(cfg.fl.mode), mesh)
     size = shd.mesh_shape(mesh).get("model", 1)
-    split = tpar.heads_split(cfg, size)
+    split = tpar.split_blocks(cfg, size)["heads"]
 
     def follow(d, spec):
         return tuple(None if a == "heads" and not split else m
@@ -153,19 +153,19 @@ def layout_for(cfg, decls, mesh=None, prefix: str = ""):
 
 def cache_heads(t: torch.Tensor, tp, lay: CacheLayout) -> torch.Tensor:
     """Keys or values (B, n, k, hd) as a layer projects them (its rank's
-    kv heads, or with the kv heads whole while the q heads split, the one
-    its q heads read) -> the kv heads the rank's cache holds: its own under
-    ``heads``, every one under ``seq`` and ``whole`` (gathered over the
-    model axis).  Where the heads stay whole ``t`` is whole already."""
-    hp = tpar.heads_axis(tp)
+    kv heads, or with the kv heads whole while the q heads split, those its
+    q heads read: one, or one a q head where they straddle kv groups) ->
+    the kv heads the rank's cache holds: its own under ``heads``, every one
+    under ``seq`` and ``whole`` (gathered over the model axis, each kv head
+    from the first q head that reads it, ``kv_gather_index``).  Where the
+    heads stay whole ``t`` is whole already."""
+    hp = tpar.along(tp, "heads")
     if hp is None or lay.kind == "heads":
         return t
     every = tpar.gather_from_model(t, hp, 2)
-    if hp.kv_split:
+    if hp.blocks["kv_heads"]:
         return every
-    # rank r read kv head r * local // G; kv head j is rank j * G / local's
-    local, group = hp.n_heads // hp.size, hp.n_heads // hp.n_kv
-    return every[:, :, [j * group // local for j in range(hp.n_kv)]]
+    return every[:, :, tpar.kv_gather_index(hp)]
 
 
 def prefill_kv(dst: torch.Tensor, src: torch.Tensor, lay: CacheLayout):

@@ -3,8 +3,10 @@
 ``swiglu``, ``gelu_mlp``, ``embed_lookup`` and ``logits_out`` take an
 optional ``tp`` (``dist.tensor_parallel.ModelAxis``): their parameters
 are then this rank's part of a client's, split over the ``model`` axis,
-and they run column-parallel, row-parallel and vocab-parallel.  Without it they are
-the plain single-device functions.  ``embed_lookup``, ``logits_out`` and
+and they run column-parallel, row-parallel and vocab-parallel.  Without it,
+or where the axis leaves their block whole (``tensor_parallel.along``:
+the MLP's width, the padded vocab), they are the plain single-device
+functions.  ``embed_lookup``, ``logits_out`` and
 ``last_logits`` also take a ``dp`` (``dist.fsdp.DataAxis``, shared mode):
 they gather their table over ``data`` first (``fsdp.whole``).
 """
@@ -80,10 +82,12 @@ def swiglu_decl(d_model: int, d_ff: int):
     }
 
 
-def swiglu(params, x, tp=None):
-    """With ``tp``: ``w_gate``/``w_up`` column-parallel (this rank's mlp
-    columns), ``w_down`` row-parallel (its rows, summed over the model
-    axis)."""
+def swiglu(params, x, tp=None, block: str = "mlp"):
+    """With ``tp`` splitting ``block`` (the FFN's width, or ``shared``, an
+    MoE config's shared expert): ``w_gate``/``w_up`` column-parallel (this
+    rank's mlp columns), ``w_down`` row-parallel (its rows, summed over the
+    model axis)."""
+    tp = tpar.along(tp, block)
     if tp is not None:
         x = tpar.copy_to_model(x, tp)
     g = x @ params["w_gate"]
@@ -108,7 +112,9 @@ def gelu_mlp(params, x, tp=None):
     erf), computed in f32; the f32 biases are cast to x's dtype.  With
     ``tp``, ``swiglu``'s form: ``w_in`` and its bias ``b_in`` (both on
     ``mlp``) column-parallel, ``w_out`` row-parallel, and the replicated
-    ``b_out`` added once, after the sum over the model axis."""
+    ``b_out`` added once, after the sum over the model axis.  Where the
+    axis leaves the width whole, the plain MLP on every rank."""
+    tp = tpar.along(tp, "mlp")
     if tp is not None:
         x = tpar.copy_to_model(x, tp)
     h = x @ params["w_in"] + params["b_in"].to(x.dtype)
@@ -143,6 +149,7 @@ def _table(params, name, dp):
 
 def embed_lookup(params, tokens, tp=None, dp=None):
     table = _table(params, "in_table", dp)
+    tp = tpar.along(tp, "vocab")
     if tp is not None:              # this rank's vocab rows
         return tpar.embed_lookup(table, tokens, tp)
     return table[tokens.long()]
@@ -151,14 +158,18 @@ def embed_lookup(params, tokens, tp=None, dp=None):
 def last_logits(params, x, tp=None, dp=None):
     """Serving's logits of the last position x (B, D) -> (B, V), with
     ``tp`` gathered whole over the model axis (the padded vocab columns
-    included, as on one device), so every rank takes the same argmax."""
+    included, as on one device), so every rank takes the same argmax;
+    where the vocab stays whole every rank computes them whole."""
+    tp = tpar.along(tp, "vocab")
     out = logits_out(params, x, tp, dp)
     return out if tp is None else tpar.gather_from_model(out, tp, -1)
 
 
 def logits_out(params, x, tp=None, dp=None):
-    """-> (..., V) logits, or with ``tp`` this rank's (..., V / M) vocab
-    rows (``tensor_parallel.cross_entropy`` reads them)."""
+    """-> (..., V) logits, or with ``tp`` splitting the vocab this rank's
+    (..., V / M) vocab rows (``tensor_parallel.cross_entropy`` reads
+    them)."""
+    tp = tpar.along(tp, "vocab")
     if tp is not None:
         x = tpar.copy_to_model(x, tp)
     return x @ _table(params, "out_table", dp).t()

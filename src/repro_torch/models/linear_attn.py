@@ -21,10 +21,10 @@ families call ``chunked`` with ``chunk=1``.
 
 On a ``model`` axis the reference pins the recurrence on heads where they
 divide the axis, else on batch.  The port's families call this module on
-the rank's heads where they split (``tensor_parallel.heads_axis``): the
-rank's r/k/v, its columns of the decay (sliced from the whole one, then
-``exp`` makes them a new contiguous tensor) and its block of ``u``, so the
-kernel runs at (B, T, H / M, dk).  Where the heads stay whole every model
+the rank's heads where they split (``tensor_parallel.along(tp,
+"heads")``): the rank's r/k/v, its columns of the decay (sliced from the
+whole one, then ``exp`` makes them a new contiguous tensor) and its block
+of ``u``, so the kernel runs at (B, T, H / M, dk).  Where the heads stay whole every model
 rank runs the whole scan; the reference's batch pinning is a no-op at a
 client's batch of 1, and splitting the batch there is a performance item,
 not parity.  The backward runs on whatever heads it is given.

@@ -98,11 +98,11 @@ def loss_fn(cfg: ArchConfig, params, batch, tp=None, dp=None):
     (the round step averages them), so the auxiliary term counts once in
     it, and the gradients are that mean's (``dist.fsdp``).
 
-    Every family takes ``tp`` and ``dp``; a config the model axis does
-    not run raises (``tensor_parallel.check_supported``)."""
-    if tp is not None:
-        tpar.check_supported(cfg, tp.size)
+    Every family takes ``tp`` and ``dp``.  Where the model axis leaves the
+    padded vocab whole (``tensor_parallel.along``) the logits are whole on
+    every rank and the cross-entropy is the plain one."""
     logits, aux = get_model(cfg).forward(cfg, params, batch, tp, dp)
-    ce = cross_entropy(logits, batch["labels"]) if tp is None else \
-        tpar.cross_entropy(logits, batch["labels"], tp)
+    vp = tpar.along(tp, "vocab")
+    ce = cross_entropy(logits, batch["labels"]) if vp is None else \
+        tpar.cross_entropy(logits, batch["labels"], vp)
     return ce + aux, {"ce": ce, "aux": aux}

@@ -12,7 +12,9 @@ the sharding constraints pinned on the dispatch buffers
 (``dist.tensor_parallel.ModelAxis``) splits the layer over the client's
 model ranks in the form the expert leaves' specs give it
 (``tensor_parallel.moe_split``): expert parallelism, or intra-expert
-tensor parallelism; the shared expert is a ``swiglu`` on the ``mlp`` axis.
+tensor parallelism, or the whole layer on every rank where neither the
+experts nor their width divide the axis; the shared expert is a
+``swiglu`` on the ``mlp`` axis, split or whole by its own width.
 A ``dp`` (``dist.fsdp.DataAxis``, the ``shared`` mode) whose batch is split
 over the client's data ranks gathers the rows of every rank first, so the
 layer routes and dispatches the client's whole batch (its capacity and
@@ -138,7 +140,10 @@ def moe_apply_dense(cfg: ArchConfig, p, x, tp=None, dp=None):
     expert's FFN is column- then row-parallel over its width.  Either way
     only the dispatch's input goes through ``copy_to_model`` (its gradient
     covers this rank's experts or width); the router's path to x is whole
-    on every rank.
+    on every rank.  Where neither divides the axis (``moe_split`` gives
+    None) every rank runs the whole layer on its whole leaves, as one
+    device does.  The shared expert splits or stays whole by its own width
+    (``swiglu``'s ``shared`` block).
 
     With ``dp`` and a split batch, x is this rank's rows: the layer runs on
     every data rank's rows gathered (``fsdp.gather_rows``), and the rank
@@ -152,7 +157,7 @@ def moe_apply_dense(cfg: ArchConfig, p, x, tp=None, dp=None):
     T = B * S
     E, K = m.n_experts, m.top_k
     xf = x.reshape(T, D)
-    form = None if tp is None else tpar.moe_split(cfg, tp.size)
+    form = None if tp is None else tp.blocks["moe"]
 
     router = p["router"] if form != "experts" else \
         tpar.gather_from_model(p["router"], tp, -1)
@@ -164,7 +169,7 @@ def moe_apply_dense(cfg: ArchConfig, p, x, tp=None, dp=None):
     stok, sw = tok[order], topw.reshape(T * K)[order]
 
     # rows of dropped assignments land in the spare row, sliced away
-    xd = xf if tp is None else tpar.copy_to_model(xf, tp)
+    xd = xf if form is None else tpar.copy_to_model(xf, tp)
     buf = x.new_zeros((E * cap + 1, D)).index_put((slot,), xd[stok])
     h = buf[:E * cap].reshape(E, cap, D)
     if form == "experts":           # this rank's experts' rows
@@ -205,6 +210,6 @@ def moe_apply_dense(cfg: ArchConfig, p, x, tp=None, dp=None):
     aux = m.aux_coef * E * (f * pmean).sum()
 
     if m.n_shared_experts:
-        y = y + swiglu(p["shared"], own.reshape(-1, D), tp)
+        y = y + swiglu(p["shared"], own.reshape(-1, D), tp, "shared")
     _count(valid, aux)
     return y.reshape(own.shape), aux

@@ -25,13 +25,14 @@ every rank.  r/k/v/g are column-parallel, the WKV kernel runs on the
 rank's heads with their block of ``u``, the groupnorm is local and ``wo``
 row-parallel.  The channel mix is ``swiglu``'s form with ``cm.wr``'s
 output columns split (declared (embed, mlp)): the rank's columns of the
-gate are gathered before ``rr * kv``.  Where the heads stay whole the time
-mix runs its plain code on every rank.  With ``dp`` each layer gathers
-its leaves' ``embed`` blocks inside the checkpointed function, as the
-decoder's layers do.  ``prefill`` and ``decode_step`` take them too
-(serving on ranks): the state ``S`` holds the rank's heads, ``x_tm`` and
-``x_cm`` stay whole, and the last-token logits are gathered whole over the
-model axis.
+gate are gathered before ``rr * kv``; ``d_ff`` and ``d_model`` each split
+or stay whole alone (rwkv6-7b's 14336 and 4096 at M = 3 both stay whole).
+Where the heads stay whole the time mix runs its plain code on every
+rank.  With ``dp`` each layer gathers its leaves' ``embed`` blocks
+inside the checkpointed function, as the decoder's layers do.
+``prefill`` and ``decode_step`` take them too (serving on ranks): the
+state ``S`` holds the rank's heads, ``x_tm`` and ``x_cm`` stay whole, and
+the last-token logits are gathered whole over the model axis.
 """
 from __future__ import annotations
 
@@ -144,7 +145,7 @@ def _time_mix(cfg, tm, x, x_prev=None, s0=None, chunk=None, tp=None):
     """x: (B,S,D) -> (out (B,S,D), new x_prev (B,D), new state).  With
     ``tp`` splitting the heads, ``tm``'s head leaves are the rank's."""
     B, S, D = x.shape
-    hp = tpar.heads_axis(tp)
+    hp = tpar.along(tp, "heads")
     H, hd = tm["u"].shape
     xx = _shift(x, x_prev)
     mr, mk, mv, mw, mg = _ddlerp(tm, x, xx)
@@ -175,22 +176,27 @@ def _time_mix(cfg, tm, x, x_prev=None, s0=None, chunk=None, tp=None):
 
 
 def _channel_mix(cm, x, x_prev=None, tp=None):
-    """With ``tp``: ``cm.wk`` column-parallel, ``cm.wv`` row-parallel, and
-    the rank's columns of the gate ``cm.wr`` gathered whole."""
+    """With ``tp``: ``cm.wk`` column-parallel and ``cm.wv`` row-parallel
+    where ``d_ff`` splits (the ``mlp`` block), and the rank's columns of
+    the gate ``cm.wr`` gathered whole where ``d_model`` does (``mlp_r``);
+    each runs its plain code where its width stays whole."""
     xx = _shift(x, x_prev)
     mk = cm["mu_k"].to(x.dtype)
     mr = cm["mu_r"].to(x.dtype)
     xk = x + (xx - x) * mk
     xr = x + (xx - x) * mr
-    if tp is not None:
-        xk, xr = tpar.copy_to_model(xk, tp), tpar.copy_to_model(xr, tp)
+    kp, rp = tpar.along(tp, "mlp"), tpar.along(tp, "mlp_r")
+    if kp is not None:
+        xk = tpar.copy_to_model(xk, kp)
+    if rp is not None:
+        xr = tpar.copy_to_model(xr, rp)
     k = xk @ cm["wk"]
     k = torch.square(torch.relu(k.float())).to(x.dtype)
     rr = torch.sigmoid((xr @ cm["wr"]).float()).to(x.dtype)
-    if tp is None:
-        return rr * (k @ cm["wv"]), x[:, -1]
-    kv = tpar.row_parallel(k, cm["wv"], tp)
-    return tpar.gather_from_model(rr, tp, -1) * kv, x[:, -1]
+    kv = k @ cm["wv"] if kp is None else tpar.row_parallel(k, cm["wv"], kp)
+    if rp is not None:
+        rr = tpar.gather_from_model(rr, rp, -1)
+    return rr * kv, x[:, -1]
 
 
 def _apply_layer(cfg, lp, x, state=None, chunk=None, tp=None, dp=None):

@@ -63,7 +63,7 @@ class ServeEngine:
 
     def __init__(self, cfg: ArchConfig, params, batch_size: int = 4,
                  max_seq: int = 256, device="cuda", mesh=None):
-        self.tp = tpar.axis_for(cfg, mesh)      # raises on what it lacks
+        self.tp = tpar.axis_for(cfg, mesh)
         self.data = None
         if mesh is not None and mesh.shape["data"] > 1:
             self.data = fsdp.DataAxis(

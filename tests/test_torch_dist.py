@@ -51,10 +51,11 @@ from repro_torch.configs.base import (SHAPES, get_arch, list_archs,
 from repro_torch.core import fl_step
 from repro_torch.data.federated import FederatedTokens
 from repro_torch.dist import sharding as shd
+from repro_torch.dist import tensor_parallel as tpar
 from repro_torch.launch import mesh as mesh_lib
 from repro_torch.launch import train
 from repro_torch.models import inputs
-from test_torch_common import bf16_ulp
+from test_torch_common import assert_model_axis_runs, bf16_ulp
 
 ROOT = Path(__file__).resolve().parents[1]
 MESH_SHAPES = [(4, 1), (4, 2), (2, 4)]
@@ -140,17 +141,22 @@ def test_abstract_state_is_the_whole_state_on_meta():
 def test_model_axis_and_pods_raise():
     """A model axis runs every family (tests/test_torch_tp.py,
     tests/test_torch_encdec_tp.py) and pods the shared mode
-    (tests/test_torch_shared.py); what still raises: fewer than 0 pods, a
-    model axis below 1, and a model axis that would leave an MLP or the
-    vocab whole (ROADMAP item 3), before any rank starts."""
+    (tests/test_torch_shared.py); what still raises: fewer than 0 pods and
+    a model axis below 1.  A model axis that leaves an MLP or the vocab
+    whole runs (tests/test_torch_whole_tp.py): the CLI's whisper-small
+    smoke config on ``--model-mesh 3`` (its vocab and MLP whole, its heads
+    whole) resolves as the reference's ``specs_for`` does and its round
+    step builds."""
     assert mesh_lib.check_axes(1, pods=2) is None
     with pytest.raises(ValueError, match="pods"):
         mesh_lib.check_axes(1, pods=-1)
     with pytest.raises(ValueError, match="model axis of 0"):
         mesh_lib.init_mesh(4, 0, rank=0, device="cpu")
-    with pytest.raises(NotImplementedError, match="would stay whole"):
-        train.main(["--device", "cpu", "--smoke", "--arch", "whisper-small",
-                    "--model-mesh", "3"])
+    cfg = train._config(types.SimpleNamespace(
+        arch="whisper-small", smoke=True, local_steps=1, schedule="tree",
+        pod_mesh=0))
+    assert not any(v for k, v in tpar.split_blocks(cfg, 3).items())
+    assert_model_axis_runs(cfg, {"data": 1, "model": 3})
 
 
 def _fake_mesh(shape, rank):

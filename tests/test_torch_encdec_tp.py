@@ -55,7 +55,8 @@ from repro_torch.dist import tensor_parallel as tpar
 from repro_torch.launch import mesh as mesh_lib
 from repro_torch.models import model_api
 from repro_torch.serve.engine import ServeEngine
-from test_torch_common import as_jax, bf16_normal, np_f32, ref_params
+from test_torch_common import (as_jax, assert_model_axis_runs, bf16_normal,
+                               np_f32, ref_params)
 from test_torch_linear_tp import _as_tuples, _ref_mesh, _sizes
 from test_torch_tp import SPAWN_S
 
@@ -164,16 +165,19 @@ def test_round_step_and_engine_build_on_ranks(arch, shape):
     ("whisper-small", {"d_ff": 100}, 8),
     ("internvl2-2b", {"feat_dim": 66}, 4)])
 def test_whole_mlp_still_raises(arch, kw, size):
-    """Only the heads may stay whole: whisper's GELU MLP width, and the
-    VLM's patch projection input (``feat_dim`` on ``mlp``), must split;
-    where one would stay whole the model axis raises, naming it."""
+    """Whisper's GELU MLP width, and the VLM's patch projection input
+    (``feat_dim`` on ``mlp``), may stay whole as the heads may: where one
+    does not divide the model axis it stays whole (``split_blocks``), the
+    specs resolve as the reference's ``specs_for`` does and the round step
+    builds (tests/test_torch_whole_tp.py runs such clients)."""
     cfg = smoke_config(get_arch(arch))
     if "feat_dim" in kw:
         cfg = cfg.replace(frontend=dataclasses.replace(cfg.frontend, **kw))
     else:
         cfg = cfg.replace(**kw)
-    with pytest.raises(NotImplementedError, match="mlp would stay whole"):
-        tpar.check_supported(cfg, size)
+    blocks = tpar.split_blocks(cfg, size)
+    assert not blocks["vis" if "feat_dim" in kw else "mlp"]
+    assert_model_axis_runs(cfg, {"data": 1, "model": size})
 
 
 # ---------------------------------------------------------------------------

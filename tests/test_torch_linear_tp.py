@@ -55,7 +55,7 @@ from repro_torch.launch import mesh as mesh_lib
 from repro_torch.launch import train
 from repro_torch.launch.train import SDFLMQTrainer
 from repro_torch.models import model_api
-from test_torch_common import np_f32, ref_params
+from test_torch_common import assert_model_axis_runs, np_f32, ref_params
 from test_torch_tp import ROOT, SPAWN_S, _env
 
 # (b) the f32 client against the port's single device and against the
@@ -161,16 +161,17 @@ def test_hymba_heads_stay_whole_where_they_do_not_divide(M):
     for leaf, spec in layer["ssm"].items():
         assert "model" not in spec, leaf
     assert layer["mlp"]["w_gate"] == (None, None, "model")
-    axis = tpar.ModelAxis(None, M, 0, *tpar.head_counts(cfg))
-    assert not axis.heads_split and not axis.kv_split
-    assert tpar.heads_axis(axis) is None
-    tpar.check_supported(cfg, M)
+    axis = tpar.ModelAxis(None, M, 0, cfg)
+    assert not axis.blocks["heads"] and not axis.blocks["kv_heads"]
+    assert tpar.along(axis, "heads") is None
+    blocks = tpar.split_blocks(cfg, M)
+    assert blocks["mlp"] and blocks["vocab"] and not blocks["heads"]
     rwkv = get_arch("rwkv6-7b")
     assert tpar.head_counts(rwkv) == (64, 64)
     axis = tpar.axis_for(rwkv, types.SimpleNamespace(
         shape={"data": 1, "model": M}, group=lambda ax: None,
         coord=lambda ax: 0))
-    assert axis.heads_split and tpar.heads_axis(axis) is axis
+    assert axis.blocks["heads"] and tpar.along(axis, "heads") is axis
     assert fl_step.param_specs(rwkv, {"data": 1, "model": M})["layers"][
         "tm"]["wr"] == (None, None, "model", None)
 
@@ -181,12 +182,15 @@ def test_hymba_heads_stay_whole_where_they_do_not_divide(M):
     ("hymba-1.5b", {"d_ff": 100}, 8, "mlp"),
     ("hymba-1.5b", {"d_ff": 96}, 3, "vocab")])
 def test_whole_mlp_or_vocab_on_model_axis_raise(arch, kw, size, dim):
-    """Only the heads may stay whole: a config whose ``mlp`` (for rwkv6
-    both d_ff and ``cm.wr``'s d_model) or ``vocab`` would stay whole on a
-    model axis raises, naming the dim."""
+    """A config whose ``mlp`` (for rwkv6 d_ff, or ``cm.wr``'s d_model, the
+    ``mlp_r`` block) or ``vocab`` does not divide the model axis keeps it
+    whole (``split_blocks``), as the heads may stay whole: the specs
+    resolve as the reference's ``specs_for`` does and the round step
+    builds (tests/test_torch_whole_tp.py runs such clients)."""
     cfg = smoke_config(get_arch(arch)).replace(**kw)
-    with pytest.raises(NotImplementedError, match=f"{dim} would stay whole"):
-        tpar.check_supported(cfg, size)
+    block = "mlp_r" if "d_model" in kw else dim
+    assert not tpar.split_blocks(cfg, size)[block]
+    assert_model_axis_runs(cfg, {"data": 1, "model": size})
 
 
 # ---------------------------------------------------------------------------

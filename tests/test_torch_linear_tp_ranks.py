@@ -88,7 +88,7 @@ def client_loss(cfg, mesh, params_np, batch_np):
         grads = fsdp.reduce_replicated(
             grads, fl_step.leaf_path_names(live), dp)
     return {"loss": loss.item(), "wkv": calls,
-            "heads_split": None if tp is None else tp.heads_split,
+            "heads_split": None if tp is None else tp.blocks["heads"],
             "grads": T.unflatten_like(live, [g.numpy() for g in grads])}
 
 

@@ -47,7 +47,8 @@ from repro_torch.core import fl_step
 from repro_torch.dist import sharding as shd
 from repro_torch.dist import tensor_parallel as tpar
 from repro_torch.launch.train import SDFLMQTrainer
-from test_torch_common import bf16_ulp, np_f32, ref_params
+from test_torch_common import (assert_model_axis_runs, bf16_ulp, np_f32,
+                               ref_params)
 from test_torch_tp import ROOT, SPAWN_S, _env
 
 # f32 client against the single device: the row-parallel sums add M
@@ -91,19 +92,27 @@ def test_moe_form_follows_the_expert_specs(arch, M, form):
     assert specs["moe"]["w_gate"] == want
     router = (None, None, "model" if form == "experts" else None)
     assert specs["moe"]["router"] == router
-    tpar.check_supported(cfg, M)
+    assert tpar.split_blocks(cfg, M)["moe"] == form
 
 
 def test_moe_config_whose_experts_stay_whole_raises():
+    """Where neither the experts (3) nor their width (30) divide the model
+    axis of 4 the whole MoE layer runs on every rank (``moe_split`` gives
+    None), and where kimi's dense layer (66) does not, that MLP stays
+    whole: the specs resolve as the reference's ``specs_for`` does and the
+    round step builds (tests/test_torch_whole_tp.py runs such clients)."""
     cfg = MR.moe_smoke("tp3")
-    with pytest.raises(NotImplementedError, match="stay whole"):
-        tpar.check_supported(cfg.replace(moe=cfg.moe.__class__(
-            n_experts=3, top_k=2, d_ff_expert=30)), 4)
+    cfg = cfg.replace(moe=cfg.moe.__class__(n_experts=3, top_k=2,
+                                            d_ff_expert=30))
+    assert tpar.moe_split(cfg, 4) is None
+    assert_model_axis_runs(cfg, {"data": 1, "model": 4})
     kimi = MR.moe_smoke("kimi")
-    with pytest.raises(NotImplementedError, match="mlp"):
-        tpar.check_supported(kimi.replace(moe=kimi.moe.__class__(
-            n_experts=4, top_k=2, d_ff_expert=32, n_shared_experts=1,
-            first_k_dense=1, d_ff_dense=66)), 4)
+    kimi = kimi.replace(moe=kimi.moe.__class__(
+        n_experts=4, top_k=2, d_ff_expert=32, n_shared_experts=1,
+        first_k_dense=1, d_ff_dense=66))
+    blocks = tpar.split_blocks(kimi, 4)
+    assert not blocks["mlp"] and blocks["shared"] and blocks["moe"]
+    assert_model_axis_runs(kimi, {"data": 1, "model": 4})
 
 
 @pytest.mark.parametrize("name", MR.FORMS)

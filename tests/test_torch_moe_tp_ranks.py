@@ -166,8 +166,8 @@ def adafactor_run(params_np, grads_np, cut=None, **axes):
 
 def adafactor_rank(mesh):
     params, grads = adafactor_case()
-    tp = tpar.ModelAxis(mesh.group("model"), mesh.shape["model"],
-                        mesh.coord("model"), 1, 1)
+    tp = tpar.GroupAxis(mesh.group("model"), mesh.shape["model"],
+                        mesh.coord("model"))
     split = {k: tuple(i for i, a in enumerate(s) if a == "model")
              for k, (_, s) in ADAFACTOR_LEAVES.items()}
     cut = lambda k, t: shd.local_block(t, ADAFACTOR_LEAVES[k][1], mesh)

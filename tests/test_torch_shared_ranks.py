@@ -140,9 +140,9 @@ def adafactor_rank(mesh):
                                 mesh.coord("data"), {}),
             "data_split": dims("data")}
     if mesh.shape["model"] > 1:
-        axes |= {"tp": tpar.ModelAxis(mesh.group("model"),
+        axes |= {"tp": tpar.GroupAxis(mesh.group("model"),
                                       mesh.shape["model"],
-                                      mesh.coord("model"), 1, 1),
+                                      mesh.coord("model")),
                  "split": dims("model")}
     cut = lambda k, t: shd.local_block(t, ADAFACTOR_LEAVES[k][1], mesh)
     return MR.adafactor_run(params, grads, cut, **axes)

@@ -21,9 +21,10 @@ stay whole, the mixed layout).
   and resumes; a (2, 2) trainer resumes bit for bit;
 * (g) the other families and serving on a model axis above 1 build
   (tests/test_torch_linear_tp.py, tests/test_torch_encdec_tp.py hold
-  them), and a config whose MLP or vocab would stay whole raises; the
-  shared mode (the MoE configs' declared mode) and pods run there
-  (tests/test_torch_shared.py holds them).
+  them), and so does a config whose MLP, vocab or experts stay whole or
+  whose q heads straddle kv groups (tests/test_torch_whole_tp.py runs
+  them); the shared mode (the MoE configs' declared mode) and pods run
+  there (tests/test_torch_shared.py holds them).
 
 The reference runs in one subprocess (jax fixes its device count at its
 first use) while the ranks run; each mesh is spawned once.  The
@@ -51,8 +52,9 @@ from repro_torch.launch import mesh as mesh_lib
 from repro_torch.launch import train
 from repro_torch.models import model_api
 from repro_torch.serve.engine import ServeEngine
-from test_torch_common import (assert_trees_close, bf16_ulp, np_f32,
-                               ref_params, smoke_cfgs)
+from test_torch_common import (assert_model_axis_resolves,
+                               assert_model_axis_runs, assert_trees_close,
+                               bf16_ulp, np_f32, ref_params, smoke_cfgs)
 
 ROOT = Path(__file__).resolve().parents[1]
 SPAWN_S = 300
@@ -106,20 +108,26 @@ def test_local_blocks_reassemble_every_leaf(D, M):
 
 def test_mixed_heads_layout_at_four_ranks():
     """At M = 4 the smoke config's 4 q heads split and its 2 kv heads stay
-    whole; rank m's q head m reads kv head m // 2."""
+    whole; rank m's q head m reads kv head m // 2.  With 6 q heads and 3
+    kv heads at M = 2 a rank's 3 q heads straddle kv groups of 2: each
+    reads its own kv head, the layout resolves as the reference's
+    ``specs_for`` does and the round step builds."""
     cfg = R.qwen2_smoke()
     specs = fl_step.param_specs(cfg, {"data": 1, "model": 4})["layers"]
     assert specs["attn"]["wq"] == (None, None, "model", None)
     assert specs["attn"]["wk"] == (None, None, None, None)
     assert specs["attn"]["bk"] == (None, None, None)
     for m in range(4):
-        axis = tpar.ModelAxis(None, 4, m, cfg.n_heads, cfg.n_kv_heads)
+        axis = tpar.ModelAxis(None, 4, m, cfg)
         assert tpar.kv_index(axis, 1).tolist() == [m // 2]
-    axis = tpar.ModelAxis(None, 2, 1, cfg.n_heads, cfg.n_kv_heads)
-    assert axis.kv_split and tpar.kv_index(axis, 2) is None
-    # a rank's q heads straddling two kv groups: not run
-    with pytest.raises(NotImplementedError, match="two groups"):
-        tpar.check_supported(cfg.replace(n_heads=6, n_kv_heads=3), 2)
+    axis = tpar.ModelAxis(None, 2, 1, cfg)
+    assert axis.blocks["kv_heads"] and tpar.kv_index(axis, 2) is None
+    # a rank's q heads straddling two kv groups: one kv head a q head
+    straddle = cfg.replace(n_heads=6, n_kv_heads=3)
+    for m, reads in enumerate([[0, 0, 1], [1, 2, 2]]):
+        axis = tpar.ModelAxis(None, 2, m, straddle)
+        assert axis.straddle and tpar.kv_index(axis, 3).tolist() == reads
+    assert_model_axis_runs(straddle, {"data": 1, "model": 2})
 
 
 # ---------------------------------------------------------------------------
@@ -575,12 +583,16 @@ def test_other_families_on_model_axis_raise(arch, item, mode):
 
 
 def test_adafactor_shared_mode_and_pods_on_model_axis_raise():
-    # Adafactor runs on a model axis; a config whose experts and their
-    # width would stay whole does not
+    # Adafactor runs on a model axis, also where the experts and their
+    # width stay whole: every rank's state holds the whole expert leaves
     moe = _with("mixtral-8x22b", optimizer="adafactor")
-    with pytest.raises(NotImplementedError, match="stay whole"):
-        fl_step.init_state(moe.replace(moe=moe.moe.__class__(
-            n_experts=3, top_k=2, d_ff_expert=30)), _grid(1, 4), 0)
+    moe = moe.replace(moe=moe.moe.__class__(n_experts=3, top_k=2,
+                                            d_ff_expert=30))
+    got = fl_step.init_state(moe, _grid(1, 4), 0)["params"]["layers"]
+    want = fl_step.abstract_state(moe, 1)["params"]["layers"]
+    assert [t.shape for t in T.leaves(got["moe"])] == [
+        t.shape for t in T.leaves(want["moe"])]
+    assert_model_axis_runs(moe, {"data": 1, "model": 4})
     # the shared mode and pods on a model axis run (item 5b-iii): a step
     # builds, with a data axis (FSDP) beside the model axis
     cfg = R.qwen2_smoke()
@@ -589,26 +601,34 @@ def test_adafactor_shared_mode_and_pods_on_model_axis_raise():
                                                 R.schedule("flat", 2)))
     assert fl_step.data_axis_for(shared, _fake_mesh(2, 2)).size == 2
     assert mesh_lib.check_axes(2, pods=2) is None
-    # a model axis that would leave the smoke vocab (256) whole raises
-    # before any rank starts (ROADMAP item 3)
-    with pytest.raises(NotImplementedError, match="vocab, mlp would stay"):
-        train.main(["--device", "cpu", "--smoke", "--arch", "whisper-small",
-                    "--model-mesh", "3"])
+    # a model axis that leaves the smoke vocab (256) and MLP (128) whole
+    # runs: the CLI's config resolves as the reference's and its step
+    # builds (tests/test_torch_whole_tp.py runs such clients)
+    cfg = train._config(types.SimpleNamespace(
+        arch="whisper-small", smoke=True, local_steps=1, schedule="tree",
+        pod_mesh=0))
+    blocks = tpar.split_blocks(cfg, 3)
+    assert not blocks["vocab"] and not blocks["mlp"]
+    assert_model_axis_runs(cfg, {"data": 1, "model": 3})
 
 
 def test_serving_on_model_axis_raises():
     """Serving on a model axis runs for the dense family (ROADMAP item
     5b-v) and, since item 5b-vii, for the encoder-decoder and the VLM: the
-    engine builds on (1, 2) with its model axis; a config whose MLP would
-    stay whole on the axis raises (ROADMAP item 3)."""
+    engine builds on (1, 2) with its model axis; so it does for a config
+    whose MLP stays whole on the axis, which resolves as the reference's
+    ``specs_for`` does (tests/test_torch_whole_tp.py serves such
+    configs)."""
     mesh = _grid(1, 2)
     mesh.group = lambda ax: None
     mesh.coord = lambda ax: 0
     for arch in ("whisper-small", "internvl2-2b"):
         cfg = smoke_config(get_arch(arch))
         assert ServeEngine(cfg, {}, mesh=mesh).tp.size == 2
-        with pytest.raises(NotImplementedError, match="mlp would stay"):
-            ServeEngine(cfg.replace(d_ff=129), {}, mesh=mesh)
+        odd = cfg.replace(d_ff=129)
+        engine = ServeEngine(odd, {}, mesh=mesh)
+        assert engine.tp.size == 2 and not engine.tp.blocks["mlp"]
+        assert_model_axis_resolves(odd, {"data": 1, "model": 2})
     engine = ServeEngine(R.qwen2_smoke(), {}, mesh=mesh)
     assert engine.tp.size == 2 and engine.device == torch.device("cpu")
     engine = ServeEngine(R.qwen2_smoke(), {}, mesh=_grid(1, 1))  # a card

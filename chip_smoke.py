@@ -26,8 +26,9 @@ filling the front) through the round step itself.  The kernels' launch
 counters, set to 0 just before each run and read just after, show that
 each run went through its kernels.  Then the ``resume`` phase checkpoints
 and resumes qwen2-7b's smoke config on the card, ``resume_full`` saves
-and restores a hymba-1.5b state at published widths (depth cut to 2
-layers), and six serving cells (qwen2-7b, rwkv6-7b, hymba-1.5b,
+and restores the tree cell's qwen2-7b state at published widths (1 of 28
+layers, K = 2; the tables' moments, each over 4 GiB, written as parts),
+and six serving cells (qwen2-7b, rwkv6-7b, hymba-1.5b,
 mixtral-8x22b at 4 layers, whisper-small, internvl2-2b) each serve 8
 requests through ``ServeEngine``.  Last, the ``dist`` phase runs the rank
 path (one client a card, NCCL) over every card of the host: on one card
@@ -1296,26 +1297,31 @@ def phase_resume(torch, dev):
     return row
 
 
-# published widths, depth cut to 2 of 32 layers: every leaf of the K = 4
-# state stays within the checkpoint format's 4 GiB (qwen2-7b's client-stacked
-# embedding moments do not)
-RESUME_FULL = ("hymba-1.5b", 2)
+# arch, depth, clients: the tree cell's trainer (TRAIN_CELLS' "train":
+# qwen2-7b at published widths, 1 of 28 layers) at K = 2.  qwen2-7b keeps
+# separate input and output tables (1.32 B parameters a client), so a K = 4
+# state is 52.9 GB and the live and the restored state do not fit one 80 GB
+# card together; at K = 2 (26.5 GB) the four AdamW moments of the tables,
+# 4.36 GB each, exceed one msgpack bin32 payload and are written as parts
+RESUME_FULL = ("qwen2-7b", 1, 2)
 
 
 def phase_resume_full(torch, dev):
-    """What a checkpoint costs at published widths: one round of
-    hymba-1.5b (depth cut) with K = 4 at the train cells' batch and
-    sequence, saved by the trainer under ``build/``; the checkpoint then
-    restored into the state of a trainer drawn from another seed, which
-    must equal the live state bit for bit."""
+    """What a checkpoint costs at published widths: one round of the tree
+    cell's trainer at ``RESUME_FULL``'s K (the fedavg and flash kernels,
+    counted), saved by the
+    trainer's own ``CheckpointManager`` under ``build/``; the round's
+    buffers freed, the checkpoint is restored into the state of a trainer
+    drawn from another seed, which must equal the live state bit for bit.
+    Fails unless a leaf was split into parts and both kernels launched."""
     from repro_torch import tree as T
     from repro_torch.ckpt import checkpoint as CK
     from repro_torch.configs.base import get_arch
     from repro_torch.launch.train import SDFLMQTrainer
 
-    arch, n_layers = RESUME_FULL
+    arch, n_layers, K = RESUME_FULL
     cfg = get_arch(arch).replace(n_layers=n_layers)
-    K, bpc, seq = K_CLIENTS, BATCH_PER_CLIENT, SEQ
+    bpc, seq = BATCH_PER_CLIENT, SEQ
     root = ROOT / "build" / "chip_smoke_ckpt_full"
     shutil.rmtree(root, ignore_errors=True)
     gc.collect()
@@ -1335,24 +1341,35 @@ def phase_resume_full(torch, dev):
             save_s.append(time.perf_counter() - t)
             return out
         tr.ckpt.save = timed_save
+        reset_launches()
         ms = tr.run()
+        torch.cuda.synchronize()
+        launches = read_launches()
+        round_peak = torch.cuda.max_memory_allocated(dev)
         newest = root / "step_1"
         files = sorted(newest.iterdir())
         nbytes = sum(f.stat().st_size for f in files)
+        manifest = json.loads((newest / "manifest.json").read_text())
+        names = ["/".join(p) for p, _ in T.leaves_with_path(tr.state)]
+        split = {names[s["i"]]: len(s["parts"]) for s in manifest["leaves"]
+                 if "parts" in s}
         tensors = [t for t in T.leaves(tr.state) if torch.is_tensor(t)]
-        state_bytes = sum(t.numel() * t.element_size() for t in tensors)
         size = lambda t: t.numel() * t.element_size()
+        state_bytes = sum(size(t) for t in tensors)
         largest = max(size(t) for t in tensors)
         # the codec alone, one thread, on 64 MiB of the largest weight
-        # (random bf16) and of the largest moment (f32, many zeros)
+        # (random bf16) and of the largest moment (f32)
         codec_MBps = {}
         for name, tree in (("params", tr.state["params"]),
                            ("moment", tr.state["opt"])):
             big = max(T.leaves(tree), key=size)
-            _, raw = CK._raw(big.reshape(-1)[:(64 << 20) // big.element_size()])
+            raw = CK._raw(big.reshape(-1)[:(64 << 20) // big.element_size()])
             t = time.perf_counter()
             CK._comp(raw)
             codec_MBps[name] = len(raw) / (time.perf_counter() - t) / 1e6
+        tr._steps.clear()            # the round's buffers, before a second
+        gc.collect()                 # K = 4 state comes onto the card
+        torch.cuda.empty_cache()
         other = SDFLMQTrainer(cfg, K, 1, bpc, seq, seed=1, device=dev)
         differed = not same(other.state, tr.state)
         torch.cuda.synchronize()
@@ -1365,11 +1382,15 @@ def phase_resume_full(torch, dev):
         del tr, other
     finally:
         shutil.rmtree(root, ignore_errors=True)
-    row = {"phase": "resume_full", "arch": cfg.name, "n_layers": n_layers,
-           "d_model": cfg.d_model, "vocab": cfg.vocab, "clients": K,
-           "batch_per_client": bpc, "seq": seq, "loss": ms[0]["loss"],
-           "round_s": ms[0]["time_s"], "params_per_client": params,
-           "state_bytes": state_bytes, "largest_leaf_bytes": largest,
+    row = {"phase": "resume_full", "card": smi_line(), "arch": cfg.name,
+           "n_layers": n_layers, "d_model": cfg.d_model, "vocab": cfg.vocab,
+           "clients": K, "batch_per_client": bpc, "seq": seq,
+           "loss": ms[0]["loss"], "round_s": ms[0]["time_s"],
+           "launches": {k: launches[k] for k in ("fedavg", "flash_fwd")},
+           "params_per_client": params, "state_bytes": state_bytes,
+           "largest_leaf_bytes": largest,
+           "part_limit_bytes": CK.LEAF_BYTES_MAX,
+           "split_leaves": split, "parts": sum(split.values()),
            "bytes_written": nbytes, "files": len(files),
            "codec": CK.CODEC, "codec_MBps_one_thread": codec_MBps,
            "workers": CK.WORKERS, "save_s": save_s,
@@ -1377,12 +1398,14 @@ def phase_resume_full(torch, dev):
            "restore_s": restore_s,
            "restore_GBps": state_bytes / restore_s / 1e9,
            "other_seed_differed": differed, "restored_equals_live": equal,
+           "round_peak_memory_allocated": round_peak,
            "peak_memory_allocated": torch.cuda.max_memory_allocated(dev)}
     emit(row)
-    if (len(save_s) != 1 or not differed or not equal
-            or not math.isfinite(row["loss"])):
+    if (len(save_s) != 1 or not split or not differed or not equal
+            or not math.isfinite(row["loss"])
+            or not all(row["launches"].values())):
         raise AssertionError(f"resume at published widths: {row}")
-    return row
+    return launches
 
 
 # the kernel cases serving adds: the flash forward at batch 4 in each
@@ -4421,7 +4444,7 @@ def run(argv=None) -> int:
     add(timed("adapter", phase_adapter, torch, dev))
     timed("resume", phase_resume, torch, dev)
     if "resume_full" not in skip:
-        timed("resume_full", phase_resume_full, torch, dev)
+        add(timed("resume_full", phase_resume_full, torch, dev))
     timed("serve_kernels", phase_serve_kernels, torch, dev)
     for cell in SERVE_CELLS:
         add(timed(cell[0], phase_serve, torch, dev, *cell))

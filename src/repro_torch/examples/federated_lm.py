@@ -12,9 +12,10 @@ triggers role rearrangement.
 
 Scale knobs: --model-dim/--layers size the reduced model; --full uses the
 published qwen2-7b widths, with --layers to cut its depth (28 layers do not
-fit K client banks and their AdamW moments on one card).  --full runs
-without a checkpoint: the client-stacked embedding's f32 moments exceed
-the 4 GiB a leaf that the checkpoint format holds once K >= 2.
+fit K client banks and their AdamW moments on one card).  Every run
+checkpoints each round into a temporary directory, as the reference's
+example does; at --full the client-stacked embedding and its moments are
+written as parts (``ckpt/checkpoint.py``), tens of GB a checkpoint.
 """
 import argparse
 import tempfile
@@ -50,8 +51,7 @@ def main(argv=None):
                               head_dim=args.model_dim // 4)
     if args.layers:
         cfg = cfg.replace(n_layers=args.layers)
-    # the format holds at most 4 GiB a leaf, which full width exceeds
-    ckpt = None if args.full else tempfile.mkdtemp(prefix="fedlm_ckpt_")
+    ckpt = tempfile.mkdtemp(prefix="fedlm_ckpt_")
     plan = FailurePlan(fail_at={args.rounds // 2: [f"c{args.clients - 1}"]})
     tr = SDFLMQTrainer(cfg, args.clients, args.rounds,
                        args.batch_per_client, args.seq, ckpt_dir=ckpt,

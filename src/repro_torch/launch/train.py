@@ -72,7 +72,6 @@ from torch.profiler import record_function
 
 from repro_torch import tree as T
 from repro_torch.api.federation import Federation
-from repro_torch.ckpt.checkpoint import check_leaf_sizes
 from repro_torch.ckpt.manager import CheckpointManager
 from repro_torch.configs.base import get_arch, smoke_config
 from repro_torch.core.aggregation import _chunks
@@ -125,9 +124,6 @@ class SDFLMQTrainer:
         self.ckpt = CheckpointManager(ckpt_dir, keep=2) if ckpt_dir else None
         self.start_round = 0
         if self.ckpt:
-            # raise before round 0 (a mesh's checkpoint holds every slot)
-            check_leaf_sizes(self.state if mesh is None
-                             else abstract_state(cfg, n_clients))
             if mesh is not None:
                 self.start_round = self._restore_mesh()
             else:

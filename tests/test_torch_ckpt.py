@@ -7,6 +7,7 @@ import json
 import os
 import subprocess
 import sys
+import zlib
 from pathlib import Path
 
 import jax
@@ -109,21 +110,162 @@ def test_restore_checks_shapes_and_dtypes_before_copying(tmp_path):
         CK.restore_checkpoint(path, live)
 
 
-def test_a_leaf_beyond_the_format_raises_before_writing(tmp_path,
-                                                       monkeypatch):
-    monkeypatch.setattr(CK, "LEAF_BYTES_MAX", 200)
-    with pytest.raises(ValueError, match="opt/m/embed holds 720 bytes"):
-        CK.save_checkpoint(str(tmp_path / "big"), _state())
-    assert list(tmp_path.iterdir()) == []
+def _split(monkeypatch, leaf_max=700, shard_bytes=200):
+    """Lowers the part limit (and the shard size) so that ``_state()``'s
+    720- and 864-byte moments are written as parts."""
+    monkeypatch.setattr(CK, "SHARD_BYTES", shard_bytes)
+    monkeypatch.setattr(CK, "LEAF_BYTES_MAX", leaf_max)
 
 
-def test_trainer_with_a_leaf_beyond_the_format_raises_before_round_0(
-        tmp_path, monkeypatch):
-    monkeypatch.setattr(CK, "LEAF_BYTES_MAX", 1000)
+def _shards_by_leaves(path):
+    """{leaf indices of a shard holding no part: its bytes}."""
+    manifest = json.loads(Path(path, "manifest.json").read_text())
+    split = {p["shard"] for s in manifest["leaves"] for p in s.get("parts", [])}
+    out = {}
+    for k, fn in enumerate(manifest["shards"]):
+        if k not in split:
+            leaves = frozenset(s["i"] for s in manifest["leaves"]
+                               if s["shard"] == k)
+            out[leaves] = Path(path, fn).read_bytes()
+    return out
+
+
+@pytest.mark.parametrize("workers", [1, 3])
+def test_split_leaves_round_trip_bit_for_bit(tmp_path, monkeypatch, workers):
+    """Leaves over the part limit are written as parts of one shard's size,
+    each closing its shard, listed in their manifest entry; the state reads
+    back bit for bit, and every shard of unsplit leaves holds the bytes of
+    a checkpoint written with the limit left alone."""
+    monkeypatch.setattr(CK, "SHARD_BYTES", 200)
+    monkeypatch.setattr(CK, "WORKERS", workers)
+    whole = CK.save_checkpoint(str(tmp_path / "whole"), _state())
+    _split(monkeypatch)
+    path = CK.save_checkpoint(str(tmp_path / "split"), _state(), {"a": 1})
+    manifest = json.loads(Path(path, "manifest.json").read_text())
+    names = ["/".join(p) for p, _ in T.leaves_with_path(_state())]
+    parts = {names[s["i"]]: s["parts"] for s in manifest["leaves"]
+             if "parts" in s}
+    assert sorted(parts) == ["opt/m/embed", "opt/m/layers/wq",
+                             "opt/v/embed", "opt/v/layers/wq"]
+    # 50 f32 elements (200 bytes) a part, each in a shard of its own
+    assert [(q["start"], q["stop"]) for q in parts["opt/m/embed"]] == [
+        (0, 50), (50, 100), (100, 150), (150, 180)]
+    shards = [q["shard"] for qs in parts.values() for q in qs]
+    assert len(set(shards)) == len(shards)
+    live = _zeros_like(_state())
+    ptrs = [t.data_ptr() for t in T.leaves(live) if torch.is_tensor(t)]
+    assert CK.restore_checkpoint(path, live) == {"a": 1}
+    _assert_equal_states(live, _state())
+    assert ptrs == [t.data_ptr() for t in T.leaves(live) if torch.is_tensor(t)]
+    leaves, _ = CK.load_checkpoint(path)
+    for got, want in zip(leaves, T.leaves(_state())):
+        assert torch.equal(got, want) if torch.is_tensor(want) \
+            else int(got) == want
+    got, want = _shards_by_leaves(path), _shards_by_leaves(whole)
+    assert len(got) == 3
+    for leaves, blob in got.items():
+        assert want[leaves] == blob, sorted(leaves)
+
+
+def test_trainer_with_split_leaves_resumes_bit_for_bit(tmp_path,
+                                                      monkeypatch):
+    """The trainer saves leaves over the part limit as parts (it raised
+    before round 0 while the format held a leaf whole), and a fresh trainer
+    restoring them runs on bit for bit."""
+    monkeypatch.setattr(CK, "LEAF_BYTES_MAX", 1 << 14)
     cfg = smoke_config(get_arch("qwen2-7b"))
-    with pytest.raises(ValueError, match="the format holds at most 1000"):
-        SDFLMQTrainer(cfg, 2, 1, 1, 16, ckpt_dir=str(tmp_path), device="cpu")
-    assert list(tmp_path.iterdir()) == []
+    make = lambda ckpt=None: SDFLMQTrainer(cfg, 4, 2, 2, 32, ckpt_dir=ckpt,
+                                           device="cpu")
+    whole = make()
+    whole.run()
+    first = make(str(tmp_path))
+    first.on_round_end = _stop
+    with pytest.raises(_Stop):
+        first.run()
+    manifest = json.loads((tmp_path / "step_1" / "manifest.json").read_text())
+    split = [s for s in manifest["leaves"] if "parts" in s]
+    assert len(split) >= 3 and all(len(s["parts"]) > 1 for s in split)
+    second = make(str(tmp_path))
+    assert second.start_round == 1
+    ms = second.run()
+    assert ms[0]["loss"] == whole.metrics[1]["loss"]
+    _assert_equal_states(second.state, whole.state)
+
+
+def test_reference_loader_raises_on_a_split_checkpoint(tmp_path,
+                                                      monkeypatch):
+    """A split leaf is one the reference could never write: its reader keeps
+    the last part it reads and fails on the reshape, with or without
+    ``like``, instead of loading a wrong state."""
+    _split(monkeypatch)
+    path = CK.save_checkpoint(str(tmp_path / "split"), _state())
+    with pytest.raises(ValueError, match="cannot reshape"):
+        RCK.load_checkpoint(path)
+    with pytest.raises(ValueError, match="cannot reshape"):
+        RCK.load_checkpoint(path, like=_ref_state(_state()))
+
+
+@pytest.mark.parametrize("writer", ["port", "reference"])
+def test_zlib_checkpoint_restores_where_zstandard_imports(tmp_path,
+                                                          monkeypatch,
+                                                          writer):
+    """A checkpoint compressed with zlib (as a machine without zstandard
+    writes it) restores into the port wherever it runs: the reader picks
+    each shard's codec by its first bytes."""
+    zl = lambda b: zlib.compress(b, 3)
+    state = _state(seed=3)
+    if writer == "port":
+        monkeypatch.setattr(CK, "_comp", zl)
+        path = CK.save_checkpoint(str(tmp_path / "z"), state, {"step": 3})
+    else:
+        monkeypatch.setattr(RCK, "_comp", zl)
+        path = RCK.save_checkpoint(str(tmp_path / "z"), _ref_state(state),
+                                   {"step": 3})
+    shard = Path(path, "shard_0.bin").read_bytes()
+    assert shard[:1] == CK.ZLIB_MAGIC and shard[:4] != CK.ZSTD_MAGIC
+    live = _zeros_like(state)
+    assert CK.restore_checkpoint(path, live) == {"step": 3}
+    _assert_equal_states(live, state)
+
+
+def test_zstd_shard_without_zstandard_raises(tmp_path, monkeypatch):
+    import zstandard
+    monkeypatch.setattr(CK, "_comp",
+                        lambda b: zstandard.ZstdCompressor(level=3).compress(b))
+    path = CK.save_checkpoint(str(tmp_path / "z"), _state())
+    assert Path(path, "shard_0.bin").read_bytes()[:4] == CK.ZSTD_MAGIC
+    monkeypatch.setitem(sys.modules, "zstandard", None)     # not importable
+    with pytest.raises(ImportError, match="zstd-compressed and zstandard is "
+                                          "not installed"):
+        CK.restore_checkpoint(path, _zeros_like(_state()))
+
+
+@pytest.mark.parametrize("tear", ["gap", "overlap"])
+def test_torn_part_list_raises_before_copying(tmp_path, monkeypatch, tear):
+    _split(monkeypatch)
+    path = CK.save_checkpoint(str(tmp_path / "split"), _state())
+    mpath = Path(path, "manifest.json")
+    manifest = json.loads(mpath.read_text())
+    parts = next(s["parts"] for s in manifest["leaves"] if "parts" in s)
+    parts[1]["start"] += 1 if tear == "gap" else -1
+    mpath.write_text(json.dumps(manifest))
+    live = _zeros_like(_state())
+    with pytest.raises(ValueError, match="part 1 holds .* the parts before "
+                                         "it end at"):
+        CK.restore_checkpoint(path, live)
+    assert all(not t.any() for t in T.leaves(live) if torch.is_tensor(t))
+    with pytest.raises(ValueError, match="the parts before it end at"):
+        CK.load_checkpoint(path)
+
+
+def test_a_part_missing_from_its_shard_raises(tmp_path, monkeypatch):
+    _split(monkeypatch)
+    path = CK.save_checkpoint(str(tmp_path / "split"), _state())
+    manifest = json.loads(Path(path, "manifest.json").read_text())
+    last = next(s for s in manifest["leaves"] if "parts" in s)["parts"][-1]
+    Path(path, manifest["shards"][last["shard"]]).write_bytes(CK._pack([]))
+    with pytest.raises(IOError, match=r"no data for \(leaf, part\) \[\(0, 3\)"):
+        CK.restore_checkpoint(path, _zeros_like(_state()))
 
 
 def _ref_state(state):

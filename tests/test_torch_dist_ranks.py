@@ -27,6 +27,7 @@ SHAPES = {"w": ((6, 40), "bfloat16"), "v": ((5, 3, 24), "float32"),
 KINDS = ("tree", "flat", "rs_ag", "compressed")
 STRATEGIES = ("fedavg", "fedprox", "trimmed_mean", "coordinate_median",
               "multi_krum")
+STACK = STRATEGIES[2:]               # the per-coordinate (stack) combines
 WEIGHTS = {False: [1.0, 2.0, 3.0, 4.0], True: [1.0, 2.0, 0.0, 3.0]}
 CHUNKS = (aggregation.CHUNK, 64)     # 64: chunked leaves and row blocks
 
@@ -202,6 +203,15 @@ def resume_rank(mesh, ckpt_dir, arch, rounds, fail, stop_after=None):
     return first, start, second, numpy_tree(
         {"params": tr2.state["params"], "opt": tr2.state["opt"]}), \
         tr2.state["step"]
+
+
+def split_resume_rank(mesh, leaf_max, *args):
+    """``resume_rank`` with the checkpoint's part limit lowered to
+    ``leaf_max`` bytes in this rank's process, so that rank 0 writes the
+    gathered state's larger leaves as parts."""
+    from repro_torch.ckpt import checkpoint
+    checkpoint.LEAF_BYTES_MAX = leaf_max
+    return resume_rank(mesh, *args)
 
 
 def straight_rank(mesh, arch, rounds, fail):

@@ -2744,8 +2744,8 @@ class _FrontendTrainer:
     def run(self) -> list:
         import numpy as np
         from repro_torch.configs.base import ShapeConfig
-        from repro_torch.core import fl_step
         from repro_torch.models import inputs
+        from repro_torch.obs.spans import span_ms
         K, mesh = self.n, self.mesh
         weights = np.array(TP_AGREE_WEIGHTS[:K], np.float32)
         shape = ShapeConfig("frontend", self.seq, K * self.bpc, "train")
@@ -2759,7 +2759,7 @@ class _FrontendTrainer:
             self.state, m = self.step(self.state, batch, weights)
             loss = float(m["loss"])            # waits for the device
             dt = time.perf_counter() - t0
-            rank_ms = fl_step.span_ms(m["spans"])
+            rank_ms = span_ms(m["spans"])
             spans = rank_ms if mesh is None else {
                 k: mesh.all_max(v) for k, v in rank_ms.items()}
             out.append({"round": r, "loss": loss, "time_s": dt,

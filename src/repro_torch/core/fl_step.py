@@ -43,7 +43,6 @@ round step.
 """
 from __future__ import annotations
 
-from contextlib import contextmanager
 from dataclasses import dataclass
 from fnmatch import fnmatchcase
 from typing import Optional
@@ -61,7 +60,8 @@ from repro_torch.device import resolve
 from repro_torch.dist import fsdp
 from repro_torch.dist import sharding as shd
 from repro_torch.dist import tensor_parallel as tpar
-from repro_torch.models import inputs, model_api
+from repro_torch.models import inputs, model_api, moe
+from repro_torch.obs import spans
 from repro_torch.optim.api import apply_updates, make_optimizer
 
 
@@ -407,14 +407,17 @@ def _make_client_fn(cfg: ArchConfig, opt, local_steps: int, frozen_mask=None,
     names = leaf_path_names(model_api.param_decls(cfg))
 
     def local_step(params, opt_state, step, batch, dp):
-        with record_function("fl/forward_backward"):
-            leaves = T.leaves(params)
+        with record_function("fl/forward"):
             live = [p.detach().requires_grad_(not (frozen and frozen[i]))
-                    for i, p in enumerate(leaves)]
+                    for i, p in enumerate(T.leaves(params))]
             loss, _ = model_api.loss_fn(cfg, T.unflatten_like(params, live),
                                         batch, tp, dp)
+        with record_function("fl/backward"):
             trainable = [p for p in live if p.requires_grad]
-            got = iter(torch.autograd.grad(loss, trainable))
+            try:
+                got = iter(torch.autograd.grad(loss, trainable))
+            finally:
+                spans.close_open()
             grads = [next(got) if p.requires_grad else torch.zeros_like(p)
                      for p in live]
             del live, trainable, got
@@ -544,33 +547,6 @@ def pre_round_ref(bank):
     return T.tree_map(host, bank)
 
 
-def span_ms(spans: dict) -> dict:
-    """``{name_ms: device ms}`` of a round's spans, once the round has been
-    waited for; a span that is a list of event pairs (the model-group
-    collectives) gives their sum."""
-    out = {}
-    for name, val in sorted(spans.items()):
-        pairs = val if isinstance(val, list) else [val]
-        out[f"{name}_ms"] = sum(a.elapsed_time(b) for a, b in pairs)
-    return out
-
-
-@contextmanager
-def _span(spans: dict, name: str, dev: torch.device):
-    """On the card, records a CUDA event pair around the block into
-    ``spans[name]``: the block's device time, read once the round has been
-    waited for, at no synchronization of its own."""
-    if dev.type != "cuda":
-        yield
-        return
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    yield
-    end.record()
-    spans[name] = (start, end)
-
-
 def build_fl_round_step(cfg: ArchConfig, n_clients,
                         schedule: AggSchedule, device="cuda",
                         total_steps: int = 10000,
@@ -590,6 +566,15 @@ def build_fl_round_step(cfg: ArchConfig, n_clients,
     A ``needs_ref`` strategy (fedprox, norm_clip, ...) premaps each client
     against the pre-round parameters, as the reference passes them
     (``pre_round_ref``).
+
+    ``metrics``: the mean ``loss``; the round's ``spans`` (CUDA event
+    pairs around the aggregation and the pre-round copy, card only;
+    ``obs.spans.span_ms`` reads them); where the model has an MoE layer,
+    ``moe_rows``, the expert buffers' rows the round's calls computed, and
+    ``moe_kept``, the assignments they kept (a 0-d tensor on the device).
+    Each client's local step runs under the ranges ``fl/forward``,
+    ``fl/backward`` and ``fl/optimizer``; the decoder's blocks under theirs
+    (``obs.spans.block``).
 
     ``n_clients`` may be a mesh (``launch.mesh.Mesh``): the step is then
     this rank's, on the mesh's device, for a state from ``init_state(cfg,
@@ -632,10 +617,12 @@ def build_fl_round_step(cfg: ArchConfig, n_clients,
             zip(T.leaves(params), T.leaves(frozen_mask))) if not f}
 
     def fl_round_step(state, batch, weights):
-        spans = {}           # name -> (start, end) CUDA events, card only
+        events = {}          # name -> (start, end) CUDA events, card only
+        counts = (moe.calls, moe.rows, moe.assignments, moe.dropped)
         ref = None
         if n_clients > 1 and strat.needs_ref:
-            with record_function("fl/ref"), _span(spans, "ref", dev):
+            with record_function("fl/ref"), \
+                    spans.span(events, "ref", dev):
                 ref = (pre_round_ref(_trainable(state["params"]))
                        if mesh is None else      # the rank's own slot
                        T.tree_map(torch.clone, _trainable(state["params"])))
@@ -647,7 +634,7 @@ def build_fl_round_step(cfg: ArchConfig, n_clients,
             inner = {k: a for k, a in inner.items() if a is not None}
             for k, a in inner.items():
                 if dev.type == "cuda":
-                    a.events = spans[f"{k}_collectives"] = []
+                    a.events = events[f"{k}_collectives"] = []
             rows = dp
             if dp is not None:
                 batch, split = inputs.rank_rows(batch, dp.size, dp.rank)
@@ -658,12 +645,17 @@ def build_fl_round_step(cfg: ArchConfig, n_clients,
                 a.events = None
         if n_clients > 1:
             with record_function("fl/aggregate"), \
-                    _span(spans, "aggregate", dev):
+                    spans.span(events, "aggregate", dev):
                 aggregate_params(_trainable(state["params"]),
                                  _on(weights, dev, torch.float32), schedule,
                                  strat, ref=ref, mesh=mesh, axis=axis)
         state["step"] = state["step"] + E
-        return state, {"loss": loss, "spans": spans}
+        out = {"loss": loss, "spans": events}
+        if moe.calls > counts[0]:
+            out["moe_rows"] = moe.rows - counts[1]
+            out["moe_kept"] = (moe.assignments - counts[2]
+                               - (moe.dropped - counts[3]))
+        return state, out
 
     return fl_round_step
 

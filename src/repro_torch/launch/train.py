@@ -15,7 +15,10 @@ Wires the whole stack together:
                   rearrangement, straggler demotion.
 
 Round steps are cached per schedule signature, as the reference caches its
-compiled steps.
+compiled steps.  A round runs under the profiler ranges ``train/schedule``
+(failures, schedule, the step's lookup), ``train/batch``, ``train/step``,
+``train/wait`` (the loss read: a sync, where the host waits) and
+``train/round_end`` (metrics, checkpoint, status updates).
 
 On a mesh (``mesh=``, ``--data-mesh D [--model-mesh M]``: client d on
 ranks ``d*M .. d*M + M - 1``, rank r on ``cuda:r``) rank 0 alone runs the
@@ -77,7 +80,7 @@ from repro_torch.configs.base import get_arch, smoke_config
 from repro_torch.core.aggregation import _chunks
 from repro_torch.core.fl_step import (abstract_state, build_fl_round_step,
                                       client_axis_for, init_state,
-                                      n_clients_for, span_ms, state_specs)
+                                      n_clients_for, state_specs)
 from repro_torch.core.stats import StatsSimulator
 from repro_torch.core.topology import AggSchedule, compile_tree
 from repro_torch.data.federated import FederatedTokens
@@ -85,6 +88,7 @@ from repro_torch.device import resolve
 from repro_torch.dist.sharding import local_block
 from repro_torch.ft.failures import FailurePlan
 from repro_torch.launch import mesh as mesh_lib
+from repro_torch.obs.spans import span_ms
 from repro_torch.optim.api import make_optimizer
 
 
@@ -267,20 +271,22 @@ class SDFLMQTrainer:
         mesh = self.mesh
         for r in range(self.start_round, self.rounds):
             t0 = time.perf_counter()
-            schedule = n_alive = None
-            if self.lead:
-                # failure injection -> LWT -> coordinator rearranges; the
-                # dead client's row gets zero FedAvg weight (sums unaffected)
-                for dead in self.failures.fail_at.get(r, []):
-                    if dead in self.clients:
-                        self.session.fail(dead)
-                        weights_np[int(dead[1:])] = 0.0
-                schedule = self._schedule()
-                n_alive = len(self.clients)
-            if mesh is not None:
-                schedule, self.weights, n_alive = mesh.broadcast(
-                    (schedule, self.weights, n_alive))
-            step = self._step_for(schedule)
+            with record_function("train/schedule"):
+                schedule = n_alive = None
+                if self.lead:
+                    # failure injection -> LWT -> coordinator rearranges; the
+                    # dead client's row gets zero FedAvg weight (sums
+                    # unaffected)
+                    for dead in self.failures.fail_at.get(r, []):
+                        if dead in self.clients:
+                            self.session.fail(dead)
+                            weights_np[int(dead[1:])] = 0.0
+                    schedule = self._schedule()
+                    n_alive = len(self.clients)
+                if mesh is not None:
+                    schedule, self.weights, n_alive = mesh.broadcast(
+                        (schedule, self.weights, n_alive))
+                step = self._step_for(schedule)
             with record_function("train/batch"):
                 # one client on this device (a rank, or K = 1): its own
                 # batch, with no client dim, as its state has none
@@ -290,45 +296,55 @@ class SDFLMQTrainer:
                     self.n, self.batch_per_client, self.seq, r) \
                     if who is None else self.data.client_batch(
                         who, self.batch_per_client, self.seq, r)
-            self.state, m = step(self.state, batch, self.weights)
-            loss = float(m["loss"])          # waits for the device
+            with record_function("train/step"):
+                self.state, m = step(self.state, batch, self.weights)
+            # a sync, not host work: the device's idle under this range is
+            # its own, between kernels the step has already queued
+            with record_function("train/wait"):
+                loss = float(m["loss"])
             dt = time.perf_counter() - t0
-            # device ms of the round's spans (aggregate, ref, the model
-            # group's collectives), card only; on a mesh the most any rank
-            # took, and its peak memory
-            spans = span_ms(m["spans"])
-            peak = torch.cuda.max_memory_allocated(self.device) \
-                if cuda else None
-            rank_ms = spans
-            if mesh is not None and cuda:
-                spans = {k: mesh.all_max(v) for k, v in spans.items()}
-                peak = int(mesh.all_max(peak))
-            tokens = self.n * self.batch_per_client * self.seq \
-                * self.cfg.fl.local_steps
-            self.metrics.append({
-                "round": r, "loss": loss, "time_s": dt,
-                "tokens_per_s": tokens / dt,
-                "schedule": schedule.signature(),
-                "level_groups": schedule.level_groups,
-                "n_clients": n_alive, **spans,
-                "max_memory_allocated": peak,
-                **({"rank_ms": rank_ms} if mesh is not None else {})})
-            if self.ckpt and self.ckpt.should_save(r + 1):
-                self._save(r + 1, loss)
-            if self.on_round_end is not None:
-                self.on_round_end(r, self.state)
-            if not self.lead:
-                continue
-            # round-status updates: stats + readiness -> role optimization
-            slow = self.failures.straggle_at.get(r, {})
-            for cid, cl in list(self.clients.items()):
-                st = self.sim.sample(cid, r + 1)
-                st.last_round_s = dt * slow.get(cid, 1.0)
-                st.samples = int(weights_np[int(cid[1:])])
-                self.latencies[cid] = st.last_round_s
-                cl.signal_ready(sid, stats=st)
+            with record_function("train/round_end"):
+                # device ms of the round's spans (aggregate, ref, the model
+                # group's collectives), card only; on a mesh the most any
+                # rank took, and its peak memory
+                spans = span_ms(m["spans"])
+                peak = torch.cuda.max_memory_allocated(self.device) \
+                    if cuda else None
+                rank_ms = spans
+                if mesh is not None and cuda:
+                    spans = {k: mesh.all_max(v) for k, v in spans.items()}
+                    peak = int(mesh.all_max(peak))
+                # the MoE layers' buffer rows and kept assignments (this
+                # rank's)
+                moe = {"moe_rows": m["moe_rows"],
+                       "moe_kept": int(m["moe_kept"])} \
+                    if "moe_rows" in m else {}
+                tokens = self.n * self.batch_per_client * self.seq \
+                    * self.cfg.fl.local_steps
+                self.metrics.append({
+                    "round": r, "loss": loss, "time_s": dt,
+                    "tokens_per_s": tokens / dt,
+                    "schedule": schedule.signature(),
+                    "level_groups": schedule.level_groups,
+                    "n_clients": n_alive, **spans, **moe,
+                    "max_memory_allocated": peak,
+                    **({"rank_ms": rank_ms} if mesh is not None else {})})
+                if self.ckpt and self.ckpt.should_save(r + 1):
+                    self._save(r + 1, loss)
+                if self.on_round_end is not None:
+                    self.on_round_end(r, self.state)
+                if not self.lead:
+                    continue
+                # round-status updates: stats + readiness -> role
+                # optimization
+                slow = self.failures.straggle_at.get(r, {})
+                for cid, cl in list(self.clients.items()):
+                    st = self.sim.sample(cid, r + 1)
+                    st.last_round_s = dt * slow.get(cid, 1.0)
+                    st.samples = int(weights_np[int(cid[1:])])
+                    self.latencies[cid] = st.last_round_s
+                    cl.signal_ready(sid, stats=st)
         return self.metrics
-
 
 def main(argv=None):
     ap = argparse.ArgumentParser()

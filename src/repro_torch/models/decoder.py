@@ -11,6 +11,10 @@ which it updates in place).
 The reference's ``lax.scan`` over stacked layer parameters becomes a loop
 over the layer index on views of the stacked ``(L, ...)`` leaves, and
 ``cfg.remat`` becomes ``torch.utils.checkpoint`` per layer in training.
+Each layer's attention and feed-forward run as the blocks ``fl/attention``
+and ``fl/ffn`` (``obs.spans.block``: profiler ranges that follow them into
+the backward); ``trunk`` is the forward up to the head, which
+``model_api.loss_fn`` runs as ``fl/head``.
 
 ``forward`` takes an optional ``tp`` (``dist.tensor_parallel.ModelAxis``):
 the parameters are then this rank's blocks of a client's, split over the
@@ -56,6 +60,7 @@ from repro_torch.models.layers import (embed_decl, embed_lookup,
                                        last_logits, logits_out, rmsnorm,
                                        rmsnorm_decl, swiglu, swiglu_decl)
 from repro_torch.models.moe import moe_apply, moe_decl
+from repro_torch.obs import spans
 
 
 # --------------------------------------------------------------------------
@@ -110,7 +115,7 @@ def cache_decl(cfg: ArchConfig, batch: int, cache_len: int):
 # Layer application
 # --------------------------------------------------------------------------
 
-def _ffn(cfg: ArchConfig, lp, x, kind: str, tp=None, dp=None):
+def _ffn(x, cfg: ArchConfig, lp, kind: str, tp=None, dp=None):
     if kind == "moe":
         return moe_apply(cfg, lp["moe"], x, tp, dp)
     return swiglu(lp["mlp"], x, tp), torch.zeros((), dtype=torch.float32,
@@ -126,17 +131,23 @@ def _apply_layer(cfg: ArchConfig, lp, x, positions, kind: str, keep=None,
     leaves' specs say which dim)."""
     lp = fsdp.whole(dp, lp, path, lead=1)
     h = rmsnorm(lp["ln1"], x, cfg.norm_eps)
-    q, k, v = attn.project_qkv(lp["attn"], h, positions, cfg.rope_theta,
-                               tp=tp)
+    x = x + spans.block("fl/attention", _attention, h, cfg, lp["attn"],
+                        positions, keep, tp)
+    h2 = rmsnorm(lp["ln2"], x, cfg.norm_eps)
+    y, aux = spans.block("fl/ffn", _ffn, h2, cfg, lp, kind, tp, dp)
+    return x + y, aux
+
+
+def _attention(h, cfg: ArchConfig, p, positions, keep=None, tp=None):
+    """The attention block: the normed input ``h`` through the output
+    projection."""
+    q, k, v = attn.project_qkv(p, h, positions, cfg.rope_theta, tp=tp)
     if keep is not None:
         keep(k, v)
     o = attn.attention(q, k, v, positions, positions, causal=True,
                        window=cfg.window, chunk=cfg.attn_chunk,
                        chunk_threshold=cfg.attn_chunk_threshold)
-    x = x + attn.project_out(lp["attn"], o, tp)
-    h2 = rmsnorm(lp["ln2"], x, cfg.norm_eps)
-    y, aux = _ffn(cfg, lp, h2, kind, tp, dp)
-    return x + y, aux
+    return attn.project_out(p, o, tp)
 
 
 def _apply_layer_decode(cfg: ArchConfig, lp, x, k_l, v_l, kv_pos, pos,
@@ -149,7 +160,7 @@ def _apply_layer_decode(cfg: ArchConfig, lp, x, k_l, v_l, kv_pos, pos,
     x = x + attn.decode_block(lp["attn"], h, k_l, v_l, kv_pos, pos, slots,
                               cfg.rope_theta, cfg.window, lay, tp)
     h2 = rmsnorm(lp["ln2"], x, cfg.norm_eps)
-    y, _ = _ffn(cfg, lp, h2, kind, tp, dp)
+    y, _ = _ffn(h2, cfg, lp, kind, tp, dp)
     return x + y
 
 
@@ -226,17 +237,24 @@ def _run_layers(cfg: ArchConfig, stacked, x, positions, kind: str,
     return x, aux
 
 
-def forward(cfg: ArchConfig, params, batch, tp=None, dp=None):
-    """Full-sequence forward -> (logits (B,S,V), aux_loss); with ``tp``
-    the logits are this rank's (B, S, V / M) vocab rows; with ``dp`` the
-    batch is this rank's rows of its client's, and so are the logits."""
+def trunk(cfg: ArchConfig, params, batch, tp=None, dp=None):
+    """Full-sequence forward up to the head -> (the final norm's output
+    (B,S,D), aux_loss); with ``dp`` the batch is this rank's rows of its
+    client's, and so is the output."""
     x = _embed_inputs(cfg, params, batch, tp, dp)
     positions = torch.arange(x.shape[1], dtype=torch.int32, device=x.device)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for stacked, kind, path in _stacks(cfg, params):
         x, a = _run_layers(cfg, stacked, x, positions, kind, tp, dp, path)
         aux = aux + a
-    x = rmsnorm(params["final_norm"], x, cfg.norm_eps)   # never on data
+    return rmsnorm(params["final_norm"], x, cfg.norm_eps), aux  # never on data
+
+
+def forward(cfg: ArchConfig, params, batch, tp=None, dp=None):
+    """Full-sequence forward -> (logits (B,S,V), aux_loss); with ``tp``
+    the logits are this rank's (B, S, V / M) vocab rows; with ``dp`` the
+    batch is this rank's rows of its client's, and so are the logits."""
+    x, aux = trunk(cfg, params, batch, tp, dp)
     return logits_out(params["embed"], x, tp, dp), aux
 
 

@@ -22,6 +22,8 @@ from repro_torch.configs.base import ArchConfig
 from repro_torch.dist import sharding as shd
 from repro_torch.dist import tensor_parallel as tpar
 from repro_torch.models import decoder, encdec, hybrid, rwkv6
+from repro_torch.models.layers import logits_out
+from repro_torch.obs import spans
 
 _FAMILY = {
     "dense": decoder,
@@ -100,9 +102,28 @@ def loss_fn(cfg: ArchConfig, params, batch, tp=None, dp=None):
 
     Every family takes ``tp`` and ``dp``.  Where the model axis leaves the
     padded vocab whole (``tensor_parallel.along``) the logits are whole on
-    every rank and the cross-entropy is the plain one."""
-    logits, aux = get_model(cfg).forward(cfg, params, batch, tp, dp)
-    vp = tpar.along(tp, "vocab")
-    ce = cross_entropy(logits, batch["labels"]) if vp is None else \
-        tpar.cross_entropy(logits, batch["labels"], vp)
+    every rank and the cross-entropy is the plain one.
+
+    The decoder families' head, the logits and the cross-entropy, runs as
+    the block ``fl/head`` (``obs.spans``)."""
+    model = get_model(cfg)
+    if model is decoder:
+        x, aux = decoder.trunk(cfg, params, batch, tp, dp)
+        ce = spans.block("fl/head", _head, x, params["embed"],
+                         batch["labels"], tp, dp)
+    else:
+        logits, aux = model.forward(cfg, params, batch, tp, dp)
+        ce = _cross_entropy(logits, batch["labels"], tp)
     return ce + aux, {"ce": ce, "aux": aux}
+
+
+def _cross_entropy(logits, labels, tp):
+    vp = tpar.along(tp, "vocab")
+    return cross_entropy(logits, labels) if vp is None else \
+        tpar.cross_entropy(logits, labels, vp)
+
+
+def _head(x, embed, labels, tp=None, dp=None):
+    """The decoder's head: the final norm's output ``x`` through the
+    logits to the cross-entropy."""
+    return _cross_entropy(logits_out(embed, x, tp, dp), labels, tp)

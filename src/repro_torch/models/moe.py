@@ -34,31 +34,38 @@ from repro_torch.models.layers import swiglu, swiglu_decl
 
 
 # Routing statistics of the calls since ``reset_stats``: the number of
-# calls, and summed over them as 0-d tensors on the calls' device (no
+# calls, the rows of the expert buffers (E x capacity a call: what the
+# expert products compute) and the assignments routed (T x top-k a call)
+# as host integers, and summed as 0-d tensors on the calls' device (no
 # synchronization) the assignments dropped at capacity and the auxiliary
 # loss.  A call counts as its last step; under remat the backward's
 # recompute stops at the last tensor it needs, before that step, so each
 # layer forward counts once.
 calls = 0
+rows = 0
+assignments = 0
 dropped = 0
 aux_sum = 0.0
 
 
 def reset_stats():
-    global calls, dropped, aux_sum
-    calls, dropped, aux_sum = 0, 0, 0.0
+    global calls, rows, assignments, dropped, aux_sum
+    calls, rows, assignments, dropped, aux_sum = 0, 0, 0, 0, 0.0
 
 
 def read_stats() -> dict:
-    """-> {"calls", "dropped", "aux_mean"} as Python numbers (waits for the
-    device)."""
-    return {"calls": calls, "dropped": int(dropped),
+    """-> {"calls", "rows", "assignments", "dropped", "aux_mean"} as Python
+    numbers (waits for the device)."""
+    return {"calls": calls, "rows": rows, "assignments": assignments,
+            "dropped": int(dropped),
             "aux_mean": float(aux_sum) / calls if calls else None}
 
 
-def _count(valid: torch.Tensor, aux: torch.Tensor):
-    global calls, dropped, aux_sum
+def _count(valid: torch.Tensor, aux: torch.Tensor, n_rows: int):
+    global calls, rows, assignments, dropped, aux_sum
     calls += 1
+    rows += n_rows
+    assignments += valid.numel()
     dropped = dropped + (~valid).sum()
     aux_sum = aux_sum + aux.detach()
 
@@ -211,5 +218,5 @@ def moe_apply_dense(cfg: ArchConfig, p, x, tp=None, dp=None):
 
     if m.n_shared_experts:
         y = y + swiglu(p["shared"], own.reshape(-1, D), tp, "shared")
-    _count(valid, aux)
+    _count(valid, aux, E * cap)
     return y.reshape(own.shape), aux

@@ -97,7 +97,9 @@ def test_moe_layer_matches_reference_f32(arch, capacity_factor):
     xt.requires_grad_(True)
     moe.reset_stats()
     y, aux = moe.moe_apply_dense(cfg, pp, xt)
-    assert moe.read_stats() == {"calls": 1, "dropped": int(want_dropped.sum()),
+    assert moe.read_stats() == {"calls": 1, "rows": cfg.moe.n_experts * cap,
+                                "assignments": ids.numel(),
+                                "dropped": int(want_dropped.sum()),
                                 "aux_mean": aux.item()}
     ((y * torch.from_numpy(cot)).sum() + aux).backward()
     # f32: the expert products and sums in another order (~1e-6 of |y|)
